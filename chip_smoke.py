@@ -6,13 +6,17 @@ Phases (any failure raises and exits non-zero):
 
 1. Environment and build: the card (``nvidia-smi`` name and power limit),
    torch and CUDA versions, and every kernel in ``sculptmate_tpu_torch/csrc``
-   built from source with ``nvcc`` (timed). TF32 is switched off for
-   matmuls and convolutions so the f32 checks compare full-precision math.
-2. Kernel checks at the main path's shapes: each kernel against its plain
-   PyTorch version on the same inputs, with its time, the plain version's
-   time, a library yardstick where one exists, and the least time the card
-   could take (bound). Then each check is run on kernels rebuilt with a
-   planted fault (``PLANTED_FAULTS``), and must fail every one of them.
+   built from source with ``nvcc`` (timed), with each kernel's registers
+   and spills as ``ptxas`` reports them (any spill fails the run). TF32 is
+   switched off for matmuls and convolutions so the f32 checks compare
+   full-precision math.
+2. Kernel checks at the main path's shapes and at ragged ones (K1 at
+   B=2, Nq=129, Nk=77, H=3; K2 at R = 64 and 100): each kernel against its
+   plain PyTorch version on the same inputs, with its time, the plain
+   version's time, a library yardstick where one exists, the least time the
+   card could take (bound) and the ratios ms / library ms and bound / ms.
+   Then each check is run on kernels rebuilt with a planted fault
+   (``PLANTED_FAULTS``), and must fail every one of them.
 3. The Lean main path at full width (default ``TSRConfig``: ViT-B/16,
    16 x 1024 backbone, 256^3 grid) with seeded random weights: one asset
    through ``TripoGenerator`` with the launch counters read around it, then
@@ -27,6 +31,7 @@ It needs one CUDA card and exits non-zero without one, printing no result.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -55,14 +60,19 @@ K2_SPREAD_SHARE = 0.1
 # checks must fail: (name, kernel, text, replacement)
 PLANTED_FAULTS = (
     ("K1 skips the last key tile", "flash_attn",
-     "for (int kt = 0; kt < Nk; kt += BK) {\n        __syncthreads();  // previous tile fully consumed",
-     "for (int kt = 0; kt + BK < Nk; kt += BK) {\n        __syncthreads();  // previous tile fully consumed"),
+     # (at least one tile: with none, the consumers would wait forever)
+     "const int ntiles = (Nk + BKV - 1) / BKV;", "const int ntiles = max(1, (Nk - 1) / BKV);"),
     ("K1 masks the whole ragged key tail", "flash_attn",
-     "const bool valid = col + e < Nk;", "const bool valid = col + e < (Nk & ~(BK - 1));"),
+     "const bool v0 = col < Nk, v1 = col + 1 < Nk;",
+     "const bool v0 = col < (Nk & ~(BKV - 1)), v1 = col + 1 < (Nk & ~(BKV - 1));"),
+    ("K1 drops the rescale of O when the running max moves", "flash_attn",
+     "acc[4 * n] *= al[0]; acc[4 * n + 1] *= al[0]; acc[4 * n + 2] *= al[1]; acc[4 * n + 3] *= al[1];", ";"),
     ("K2 reads B[i, k] for B[k, i]", "density_grid",
-     "B + ((size_t)kk * R + i) * HW", "B + ((size_t)i * R + kk) * HW"),
+     "sb[2] = {rowb, planeb}", "sb[2] = {planeb, rowb}"),
     ("K2 drops the first layer (h1 = 0)", "density_grid",
-     "out[e] = pack_bf16(silu(a.x + b.x + cc.x), silu(a.y + b.y + cc.y));", "out[e] = 0u;"),
+     "a[kc][half * 2 + rr] = silu_of_half(*reinterpret_cast<uint32_t *>(&hv));", "a[kc][half * 2 + rr] = 0u;"),
+    ("K2 takes the next layer's weight stage", "density_grid",
+     "desc_sw128(sw + l * W_LAYER_BYTES)", "desc_sw128(sw + ((l + 1) % L) * W_LAYER_BYTES)"),
 )
 
 
@@ -70,15 +80,28 @@ def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+def cuda_ms(fn, iters=20, warmup=3, graph=True):
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events). With
+    ``graph`` the calls are captured once in a CUDA graph and replayed, so
+    the time is the device's alone, without the host's dispatch between
+    launches; without it they are launched back to back from the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+    else:
+        start.record()
+        for _ in range(iters):
+            fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -102,36 +125,47 @@ def phase_environment():
     per_kernel = kernels.build_all()
     log(f"# built {sorted(per_kernel)} in {time.perf_counter() - t0:.2f} s (parallel nvcc; per kernel "
         + ", ".join(f"{k} {v:.2f} s" for k, v in sorted(per_kernel.items())) + ")")
+    spills = []
     for name in sorted(per_kernel):
         for line in kernels.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"#   {name}: {line.strip()}")
+            if re.search(r"[1-9]\d* bytes spill", line):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError("ptxas reports spills: " + "; ".join(spills))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("# TF32 off for matmuls and cuDNN convolutions: f32 checks compare full-precision math")
     return card
 
 
-def check_attention(g):
-    """K1 at the three attention shapes of the Lean path in bf16, and once
-    in f32, against the plain version (absolute limits above). Every case
-    is checked and printed before a failure raises."""
+def check_attention(g, timed=True):
+    """K1 at the three attention shapes of the Lean path in bf16, a ragged
+    batched case, and once in f32, against the plain version (absolute
+    limits above). Every case is checked and printed before a failure
+    raises. With ``timed``, each passing case also gets its time, the
+    plain version's, SDPA's (yardstick only) and its bound."""
     from sculptmate_tpu_torch.ops.attention import dot_product_attention_plain, flash_attention
 
     sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only
-    cases = [  # (name, B, Nq, Nk, H, launches per asset, dtype)
-        ("backbone attn1", 1, 3072, 3072, 16, 16, torch.bfloat16),
-        ("backbone attn2", 1, 3072, 1025, 16, 16, torch.bfloat16),
-        ("vit self-attention", 1, 1025, 1025, 12, 12, torch.bfloat16),
-        ("backbone attn2 f32", 1, 3072, 1025, 16, 0, torch.float32),
+    # (name, B, Nq, Nk, H, launches per asset, dtype, scale of v). With 77
+    # keys the outputs reach ~1.5, where half a bf16 ulp alone is 3.9e-3: v
+    # at half scale keeps |o| < 1, as at the main path's shapes
+    cases = [
+        ("backbone attn1", 1, 3072, 3072, 16, 16, torch.bfloat16, 1.0),
+        ("backbone attn2", 1, 3072, 1025, 16, 16, torch.bfloat16, 1.0),
+        ("vit self-attention", 1, 1025, 1025, 12, 12, torch.bfloat16, 1.0),
+        ("ragged batched", 2, 129, 77, 3, 0, torch.bfloat16, 0.5),
+        ("backbone attn2 f32", 1, 3072, 1025, 16, 0, torch.float32, 1.0),
     ]
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     worst, bound_by, failures = 0.0, set(), []
-    for name, B, Nq, Nk, H, per_asset, dt in cases:
+    for name, B, Nq, Nk, H, per_asset, dt, v_scale in cases:
         D = 64
         q = torch.randn(B, Nq, H, D, device="cuda", generator=g).to(dt)
         k = torch.randn(B, Nk, H, D, device="cuda", generator=g).to(dt)
-        v = torch.randn(B, Nk, H, D, device="cuda", generator=g).to(dt)
+        v = (v_scale * torch.randn(B, Nk, H, D, device="cuda", generator=g)).to(dt)
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = dot_product_attention_plain(q.float(), k.float(), v.float())
@@ -143,18 +177,23 @@ def check_attention(g):
             log(json.dumps({**line, "check_passed": False}))
             failures.append(f"{name}: max_abs_err {err} > {limit}")
             continue
+        if dt == torch.bfloat16:
+            worst = max(worst, err)
+        if not timed:
+            log(json.dumps({**line, "check_passed": True}))
+            continue
         esize = 2 if dt == torch.bfloat16 else 4
         bound, by = bound_ms(4 * B * H * Nq * Nk * D, esize * B * H * D * (2 * Nq + 2 * Nk),
                              PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS)
         row = {
             "ms": cuda_ms(lambda: flash_attention(q, k, v)),
-            "plain_ms": cuda_ms(lambda: dot_product_attention_plain(q, k, v), iters=5),
+            "plain_ms": cuda_ms(lambda: dot_product_attention_plain(q, k, v), iters=5, graph=False),
             "bound_ms": bound,
             "library_ms": cuda_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))),
         }
-        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "launches_per_asset": per_asset}))
-        if dt == torch.bfloat16:
-            worst = max(worst, err)
+        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "launches_per_asset": per_asset,
+                        "ms_over_library": row["ms"] / row["library_ms"], "bound_share": bound / row["ms"]}))
+        if per_asset:
             bound_by.add(by)
             for key in total:
                 total[key] += per_asset * row[key]
@@ -163,41 +202,65 @@ def check_attention(g):
     return worst, total, "/".join(sorted(bound_by))  # worst bf16 error, per-asset sums
 
 
-def check_density(g, tsr):
-    """K2 at R = 256 with the main path's decoder (fan-in normal weights,
+def sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return 1e6 * float(out.split()[0])
+
+
+def check_density(g, tsr, timed=True):
+    """K2 at R = 256 (the main path's grid), 64 (the threshold grid) and 100
+    (a ragged k tail) with the main path's decoder (fan-in normal weights,
     zero biases, as ``TSRModule.reset_parameters`` makes them) on random
-    unit-scale codes, held on d before the exp (see K2_SPREAD_SHARE)."""
+    unit-scale codes, held on d before the exp (see K2_SPREAD_SHARE). Every
+    case is checked and printed before a failure raises; with ``timed``,
+    R = 256 also gets its time, the plain version's, its bound and floors."""
     from sculptmate_tpu_torch.ops import density_grid as dg
 
-    R = 256
     weights = tsr.decoder_weights()
-    spec = tsr.grid_spec(R, torch.bfloat16)
-    codes = torch.randn(3, tsr.config.upsample_out_channels, 64, 64, device="cuda", generator=g)
-    A, B, C = dg.first_layer_partials(codes.to(torch.bfloat16), weights, spec)
-    out = dg.density_mlp(A, B, C, weights, spec)
-    torch.cuda.synchronize()
-    ref = dg.density_mlp_plain(A, B, C, weights, spec)
-    d, d_ref = (t.log() - spec.density_bias for t in (out, ref))
-    err = (d - d_ref).abs().max().item()
-    spread = (d_ref - d_ref.mean()).abs().max().item()
-    limit = K2_SPREAD_SHARE * spread
-    line = {"check": "K2", "case": "density grid R=256", "dtype": "bfloat16", "max_abs_err": err,
-            "limit": limit, "d_spread": spread, "activated_max_abs_err": (out - ref).abs().max().item()}
-    if not (torch.isfinite(out).all() and err <= limit):
-        log(json.dumps({**line, "check_passed": False}))
-        raise AssertionError(f"K2: max_abs_err of d {err} > {limit}")
     L = len(weights) - 2
-    flops = R**3 * (L * 2 * 64 * 64 + 2 * 64)  # hidden layers + output channel 0
-    nbytes = 3 * R * R * 64 * 2 + L * 64 * 64 * 2 + R**3 * 4
-    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
-    row = {
-        "ms": cuda_ms(lambda: dg.density_mlp(A, B, C, weights, spec), iters=10),
-        "plain_ms": cuda_ms(lambda: dg.density_mlp_plain(A, B, C, weights, spec), iters=3),
-        "bound_ms": bound,
-        "library_ms": None,
-    }
-    log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "launches_per_asset": 1}))
-    return err, limit, row, by
+    result, failures = None, []
+    for R in (256, 64, 100):
+        spec = tsr.grid_spec(R, torch.bfloat16)
+        codes = torch.randn(3, tsr.config.upsample_out_channels, 64, 64, device="cuda", generator=g)
+        A, B, C = dg.first_layer_partials(codes.to(torch.bfloat16), weights, spec)
+        out = dg.density_mlp(A, B, C, weights, spec)
+        torch.cuda.synchronize()
+        ref = dg.density_mlp_plain(A, B, C, weights, spec)
+        d, d_ref = (t.log() - spec.density_bias for t in (out, ref))
+        err = (d - d_ref).abs().max().item()
+        spread = (d_ref - d_ref.mean()).abs().max().item()
+        limit = K2_SPREAD_SHARE * spread
+        line = {"check": "K2", "case": f"density grid R={R}", "dtype": "bfloat16", "max_abs_err": err,
+                "limit": limit, "d_spread": spread, "activated_max_abs_err": (out - ref).abs().max().item()}
+        if not (torch.isfinite(out).all() and err <= limit):
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"R={R}: max_abs_err of d {err} > {limit}")
+            continue
+        if R != 256 or not timed:
+            log(json.dumps({**line, "check_passed": True}))
+            result = result or (err, limit, None, None)
+            continue
+        flops = R**3 * (L * 2 * 64 * 64 + 2 * 64)  # hidden layers + output channel 0
+        nbytes = 3 * R * R * 64 * 2 + L * 64 * 64 * 2 + R**3 * 4
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        # SiLUs: the first layer and each hidden layer, 64 channels per point;
+        # one tanh.approx.bf16x2 per two, at 16 SFU results per clock per SM
+        sfu_floor = 1e3 * R**3 * 64 * (L + 1) / 2 / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+                                                    * sm_clock_hz())
+        row = {
+            "ms": cuda_ms(lambda: dg.density_mlp(A, B, C, weights, spec), iters=10),
+            "plain_ms": cuda_ms(lambda: dg.density_mlp_plain(A, B, C, weights, spec), iters=3, graph=False),
+            "bound_ms": bound,
+            "library_ms": None,
+        }
+        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "sfu_floor_ms": sfu_floor,
+                        "bound_share": bound / row["ms"], "launches_per_asset": 1}))
+        result = (err, limit, row, by)
+    if failures:
+        raise AssertionError("K2 " + "; ".join(failures))
+    return result
 
 
 def planted_faults(g, tsr):
@@ -220,7 +283,7 @@ def planted_faults(g, tsr):
             f.write(src.replace(text, replacement))
         with kernels.sources_from(csrc):
             try:
-                check_attention(g) if kernel == "flash_attn" else check_density(g, tsr)
+                check_attention(g, timed=False) if kernel == "flash_attn" else check_density(g, tsr, timed=False)
             except AssertionError as e:
                 log(json.dumps({"planted_fault": name, "caught": True, "by": str(e)}))
                 continue

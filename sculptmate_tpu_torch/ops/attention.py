@@ -65,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"bad attention shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
         raise TypeError("q, k and v must share dtype and device")
-    # the kernel reads 16-byte vectors from rows of the contiguous layout
+    # TMA reads the contiguous (B, N, H, D) layout from a 16-byte aligned base
     q, k, v = (kernels.aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     fn = _flash_lib()

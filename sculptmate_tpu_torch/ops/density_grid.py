@@ -85,14 +85,47 @@ def density_mlp_plain(
 def _density_lib():
     fn = kernels.load("density_grid").density_mlp_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_float] + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
     return fn
 
 
 _HIDDEN = 64  # the only hidden width kernel K2 is built for
+_LAYERS = 8  # its hidden 64x64 layers: TripoSR's decoder (n_hidden_layers 9)
+
+
+def swizzle_128b(rows: torch.Tensor) -> torch.Tensor:
+    """Rows of 64 two-byte values, (..., N, 64), in the 128-byte swizzle that
+    TMA writes and ``wgmma`` reads: the 16-byte chunk q of row r moves to
+    chunk q ^ (r % 8). The swizzle is its own inverse."""
+    n = rows.shape[-2]
+    r = torch.arange(n, device=rows.device)[:, None]
+    perm = torch.arange(8, device=rows.device)[None, :] ^ (r % 8)  # (N, 8)
+    chunks = rows.reshape(*rows.shape[:-1], 8, 8)
+    return chunks[..., r, perm, :].reshape(rows.shape)
+
+
+def pack_density_weights(weights: Weights, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder's hidden layers and output channel 0 in kernel K2's layout.
+
+    Returns bf16 rows (L*64 + 8, 64), 128-byte swizzled: for each hidden layer
+    its (out, in) matrix halved, then w_out[:, 0] and 7 zero rows; and f32
+    (L*64 + 1,): each hidden bias halved, then b_out[0]. The halving is exact
+    in bf16 and lets each product give h = x / 2 for silu(x) = h (1 + tanh h).
+    """
+    hidden = weights[1:-1]
+    w_out, b_out = (t.detach() for t in weights[-1])
+    out_rows = torch.zeros(8, _HIDDEN, dtype=torch.float32, device=w_out.device)
+    out_rows[0] = w_out[:, 0].float()
+    # bf16 first, then halved: the same bf16 weights as the plain version
+    rows = torch.cat(
+        [0.5 * w.detach().t().to(torch.bfloat16).float() for w, _ in hidden] + [out_rows.to(torch.bfloat16).float()]
+    )
+    w = swizzle_128b(rows.to(device, torch.bfloat16)).contiguous()
+    b = torch.cat([0.5 * b.detach().to(torch.bfloat16).float() for _, b in hidden] + [b_out[:1].to(torch.bfloat16).float()])
+    return w, b.to(device).contiguous()
 
 
 def density_mlp(
@@ -109,24 +142,19 @@ def density_mlp(
         raise ValueError("density kernel implements silu hidden layers and exp density only")
     if A.shape != (R, R, _HIDDEN) or B.shape != A.shape or C.shape != A.shape:
         raise ValueError(f"bad partial-sum shapes {tuple(A.shape)} {tuple(B.shape)} {tuple(C.shape)}")
-    if not hidden or any(W.shape != (_HIDDEN, _HIDDEN) for W, _ in hidden):
-        raise ValueError("density kernel needs >= 1 hidden 64x64 layer")
+    if len(hidden) != _LAYERS or any(W.shape != (_HIDDEN, _HIDDEN) for W, _ in hidden):
+        raise ValueError(f"density kernel takes {_LAYERS} hidden 64x64 layers")
     dev = A.device
-    # (L, out, in) bf16: the row-major B operand of the kernel's products
-    W = kernels.aligned(torch.stack([w.detach().t() for w, _ in hidden]).to(dev, torch.bfloat16))
-    bias = torch.stack([b.detach() for _, b in hidden]).to(dev, torch.bfloat16).float().contiguous()
-    # output channel 0 and its bias in one device buffer: reading the bias
-    # on the host would wait for the device
-    w_out, b_out = (t.detach() for t in weights[-1])
-    wout = torch.cat([w_out[:, 0], b_out[:1]]).to(dev, torch.bfloat16).float().contiguous()
+    # weights and biases stay on the device: reading one on the host would
+    # wait for the device
+    W, bias = pack_density_weights(weights, dev)
     A, B, C = (kernels.aligned(t) for t in (A, B, C))
     out = torch.empty((R, R, R), dtype=torch.float32, device=dev)
-    ntiles = -(-R * R * R // 16)
-    grid = min(-(-ntiles // 8), 2 * torch.cuda.get_device_properties(dev).multi_processor_count)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = _density_lib()(
         A.data_ptr(), B.data_ptr(), C.data_ptr(), W.data_ptr(), bias.data_ptr(),
-        wout.data_ptr(), float(spec.density_bias), out.data_ptr(),
-        R, len(hidden), grid, torch.cuda.current_stream(dev).cuda_stream,
+        float(spec.density_bias), out.data_ptr(), R, len(hidden), num_sms,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "density_mlp_fwd")
     density_mlp.launches += 1

@@ -113,23 +113,71 @@ def test_query_triplane_points_matches_jax(rng):
         np.testing.assert_allclose(got[key].numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max())
 
 
+def test_swizzle_128b_moves_chunks_and_inverts(rng):
+    """Chunk q of row r lands at q ^ (r % 8), and swizzling twice is the
+    identity (exact)."""
+    rows = torch.from_numpy(rng.standard_normal((2, 24, 64)).astype(np.float32))
+    sw = tdg.swizzle_128b(rows)
+    for r in (0, 5, 13, 23):
+        for q in range(8):
+            p = q ^ (r % 8)
+            np.testing.assert_array_equal(sw[1, r, 8 * p : 8 * p + 8], rows[1, r, 8 * q : 8 * q + 8])
+    np.testing.assert_array_equal(tdg.swizzle_128b(sw), rows)
+
+
+def _bf16_exact(ws):
+    """Decoder weights rounded to bf16, so the kernel's bf16 packing is exact."""
+    return [tuple(torch.from_numpy(t).to(torch.bfloat16).float().numpy() for t in wb) for wb in ws]
+
+
+@pytest.mark.parametrize("R", [16, 24])
+def test_packed_density_weights_match_jax(rng, R):
+    """K2's host-side packing (halved, swizzled hidden weights; output channel
+    0; halved biases), run through the kernel's arithmetic in f32 on the CPU
+    (silu(x) = h (1 + tanh h), h = x / 2), against the JAX lattice query on the
+    same bf16-exact weights: 1e-5 of the field's max (f32 reassociation)."""
+    tri = rng.standard_normal((3, 40, 16, 16)).astype(np.float32)
+    ws = _bf16_exact(_decoder(rng))
+    ref = np.asarray(jdg.query_density_grid(jnp.asarray(tri), _to_jax(ws), jdg.DensityGridSpec(resolution=R)))
+    tws = _to_torch(ws)
+    spec = tdg.DensityGridSpec(resolution=R)
+    A, B, C = tdg.first_layer_partials(torch.from_numpy(tri), tws, spec)
+    Wp, bias = tdg.pack_density_weights(tws, "cpu")
+    L = len(ws) - 2
+    assert Wp.dtype == torch.bfloat16 and Wp.shape == (L * 64 + 8, 64) and bias.shape == (L * 64 + 1,)
+    rows = tdg.swizzle_128b(Wp.float())
+    np.testing.assert_array_equal(2 * rows[64 : 128].t().numpy(), ws[2][0])
+    h = 0.5 * (A[None] + B[:, :, None] + C[:, None, :])  # (k, i, j, 64)
+    x = h * (1 + torch.tanh(h))
+    for l in range(L):
+        h = x @ rows[64 * l : 64 * (l + 1)].t() + bias[64 * l : 64 * (l + 1)]
+        x = h * (1 + torch.tanh(h))
+    d = x @ rows[64 * L] + bias[64 * L]
+    got = torch.exp(d + spec.density_bias).permute(1, 2, 0).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card(rng):
-    """K1 and K2 against their plain versions on the card, at small shapes
-    (bf16: 2e-2 absolute on unit-scale attention outputs; K2: 5e-2 of the
-    field's max, bf16 rounded at different points through 9 layers)."""
+    """K1 and K2 against their plain versions on the card, at small and
+    ragged shapes (K1 bf16: 2e-2 absolute on unit-scale attention outputs,
+    f32 1e-5; K2: 5e-2 of the field's max, bf16 rounded at different points
+    through 9 layers)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from sculptmate_tpu_torch.ops.attention import dot_product_attention_plain, flash_attention
 
-    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
-        q, k, v = (torch.from_numpy(rng.standard_normal((2, n, 3, 64)).astype(np.float32)).cuda().to(dt) for n in (300, 77, 77))
-        out = flash_attention(q, k, v)
-        ref = dot_product_attention_plain(q, k, v)
-        assert (out.float() - ref.float()).abs().max().item() <= tol
+    for B, Nq, Nk, H in ((2, 300, 77, 3), (2, 129, 77, 3), (1, 200, 1025, 2)):
+        for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+            q, k, v = (torch.from_numpy(rng.standard_normal((B, n, H, 64)).astype(np.float32)).cuda().to(dt)
+                       for n in (Nq, Nk, Nk))
+            out = flash_attention(q, k, v)
+            ref = dot_product_attention_plain(q, k, v)
+            assert (out.float() - ref.float()).abs().max().item() <= tol, (B, Nq, Nk, H, dt)
     ws = [(W.cuda(), b.cuda()) for W, b in _to_torch(_decoder(rng))]
     tri = torch.from_numpy(rng.standard_normal((3, 40, 16, 16)).astype(np.float32)).cuda()
-    spec = tdg.DensityGridSpec(resolution=24, compute_dtype=torch.bfloat16)
-    A, B, C = tdg.first_layer_partials(tri, ws, spec)
-    got, ref = tdg.density_mlp(A, B, C, ws, spec), tdg.density_mlp_plain(A, B, C, ws, spec)
-    assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+    for R in (24, 64, 100):
+        spec = tdg.DensityGridSpec(resolution=R, compute_dtype=torch.bfloat16)
+        A, B, C = tdg.first_layer_partials(tri, ws, spec)
+        got, ref = tdg.density_mlp(A, B, C, ws, spec), tdg.density_mlp_plain(A, B, C, ws, spec)
+        assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item(), R
