@@ -23,8 +23,24 @@ Phases (any failure raises and exits non-zero):
    a warm-up and three timed assets through the same calls
    (``scene_codes`` -> ``extract_mesh``); and a narrow model on the card
    against the same model on the CPU.
-4. One ``{"kernels": [...]}`` line, then the card line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+4. Frontend checks: a narrow u2net (``SMALL_CONFIG``) at 64^2 on the card
+   against the same weights on the CPU; the full u2net at 320^2 on the card
+   (finite, masks in [0, 1]); ``preprocess_batch_device`` on the card
+   against the CPU on the same RGBA.
+5. The serving path at full width: ``AssetFarm.generate_batch_rgba`` on
+   eight raw 512^2 RGBA images with full-u2net matting, the fused
+   preprocess, encode and 256^3 extraction with vertex colors; one batch
+   with the launch counters read around it (it is also the warm-up), then
+   three timed batches, and every mesh checked.
+6. The asynchronous contract: the dispatch half of three in-flight assets
+   (the farm's front, then ``extract_mesh_async``) under
+   ``torch.cuda.set_sync_debug_mode("error")``, so any host sync fails the
+   run; then their waits.
+7. Profiles: one asset (``tsr.*`` spans) and one farm chunk (``farm.*``
+   and ``tsr.*`` spans), each with the device's idle share.
+8. One ``{"kernels": [...]}`` line (launches counted on the serving path),
+   then the card line, then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
 """
@@ -310,6 +326,17 @@ def small_model_check():
         raise AssertionError(f"small-model codes disagree: {err} > {limit}")
 
 
+def mesh_ok(verts, faces, colors, radius):
+    """A mesh as the main path must give it: non-empty, faces in range,
+    vertices finite and inside the radius, colors in [0, 1]."""
+    return (
+        len(verts) > 0 and len(faces) > 0
+        and faces.min() >= 0 and faces.max() < len(verts)
+        and np.isfinite(verts).all() and np.abs(verts).max() <= radius + 1e-5
+        and colors is not None and colors.shape == verts.shape and colors.min() >= 0 and colors.max() <= 1
+    )
+
+
 def main_path(gen):
     """Full-width Lean path: TripoGenerator once with the launch counters
     around it, then a warm-up and 3 timed assets."""
@@ -355,13 +382,9 @@ def main_path(gen):
         t2 = time.perf_counter()
         if it:
             times.append((1e3 * (t1 - t0), 1e3 * (t2 - t1), t2 - t0))
-    r = tsr.config.radius
     ok = (
         codes.shape == (1, 3, 40, 64, 64) and bool(torch.isfinite(codes).all())
-        and len(verts) > 0 and len(faces) > 0
-        and faces.min() >= 0 and faces.max() < len(verts)
-        and np.isfinite(verts).all() and np.abs(verts).max() <= r + 1e-5
-        and colors.shape == verts.shape and colors.min() >= 0 and colors.max() <= 1
+        and mesh_ok(verts, faces, colors, tsr.config.radius)
     )
     enc, ext, sec = (float(np.median([t[i] for t in times])) for i in range(3))
     log(json.dumps({"main_path": "scene_codes -> extract_mesh(256, colors)", "verts": len(verts), "faces": len(faces),
@@ -369,40 +392,164 @@ def main_path(gen):
                     "per_asset_runs": [[round(a, 3), round(b, 3), round(c, 4)] for a, b, c in times]}))
     if not ok:
         raise AssertionError("main-path mesh failed its checks")
-    where_time_goes(tsr, image, threshold)
+    where_time_goes(
+        "one asset (encode + extract_mesh 256^3 + colors)",
+        lambda: tsr.extract_mesh(tsr.scene_codes(image[None]), has_vertex_color=True, resolution=256,
+                                 threshold=threshold),
+    )
     return launches
 
 
-def where_time_goes(tsr, image, threshold):
-    """One asset under torch.profiler: the host and device range of each
-    ``tsr.*`` stage span, device time by kernel, and the device's idle
-    share of the wall time."""
+def where_time_goes(label, fn, prefixes=("tsr.",)):
+    """``fn`` once under torch.profiler: the host and device range of each
+    stage span whose name starts with one of ``prefixes``, device time by
+    kernel, and the device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tsr.extract_mesh(tsr.scene_codes(image[None]), has_vertex_color=True, resolution=256, threshold=threshold)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # a span is a host range and, where it launched kernels, a device range
     # from its first kernel's start to its last kernel's end
     spans = {}
     for e in prof.events():
-        if e.name.startswith("tsr."):
+        if e.name.startswith(prefixes):
             side = "host_ms" if e.device_type == torch.autograd.DeviceType.CPU else "device_span_ms"
-            span = spans.setdefault(e.name, {"host_ms": 0.0, "device_span_ms": 0.0})
+            span = spans.setdefault(e.name, {"host_ms": 0.0, "device_span_ms": 0.0, "count": 0})
             span[side] += e.time_range.elapsed_us() / 1e3
+            span["count"] += side == "host_ms"
     dev = sorted(((e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count) for e in prof.key_averages()
                   if getattr(e, "device_time_total", 0.0) > 0 and e.device_type == torch.autograd.DeviceType.CUDA
                   and e.key not in spans),
                  key=lambda x: -x[1])
     busy = sum(ms for _, ms, _ in dev)
-    log(json.dumps({"profile": "one asset (encode + extract_mesh 256^3 + colors)", "wall_ms": wall_ms,
+    log(json.dumps({"profile": label, "wall_ms": wall_ms,
                     "spans": spans,
                     "device_busy_ms": busy if dev else "not measured",
                     "device_idle_share": (1 - busy / wall_ms) if dev else "not measured",
                     "top_kernels_ms": [[k[:80], round(ms, 3), n] for k, ms, n in dev[:12]]}))
+
+
+def frontend_checks():
+    """A narrow u2net at 64^2 on the card against the same weights on the
+    CPU (f32, TF32 off: d0 within 1e-4 of max |d0|); the full u2net at
+    320^2 on the card (finite masks in [0, 1]); the fused preprocess on the
+    card against the CPU on the same RGBA (within 1e-5). Returns the card's
+    full-u2net matting (seed 0) for the serving path."""
+    from sculptmate_tpu_torch.frontend.matting import U2NetMatting
+    from sculptmate_tpu_torch.frontend.preprocess import preprocess_batch_device
+    from sculptmate_tpu_torch.frontend.u2net import U2Net
+
+    rng = np.random.default_rng(2)
+    cpu = U2Net("small")
+    cpu.reset_parameters(torch.Generator().manual_seed(2))
+    card = U2Net("small").cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(rng.standard_normal((1, 3, 64, 64), np.float32))
+    with torch.no_grad():
+        ref = cpu.eval()(x)[0]
+        got = card.eval()(x.cuda())[0].cpu()
+    err, limit = (got - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+    log(json.dumps({"check": "u2net small 64^2, card vs CPU", "max_abs_err": err, "limit": limit}))
+    if not err <= limit:
+        raise AssertionError(f"small u2net disagrees: {err} > {limit}")
+
+    matting = U2NetMatting(seed=0)
+    imgs = torch.from_numpy(rng.random((2, 320, 320, 3), np.float32)).cuda()
+    mask = matting.predict_mask_batch(imgs)
+    ok = bool(torch.isfinite(mask).all()) and mask.min().item() >= 0.0 and mask.max().item() <= 1.0
+    log(json.dumps({"check": "u2net full 320^2 on the card", "shape": list(mask.shape), "finite_in_0_1": ok,
+                    "mask_mean": mask.mean().item()}))
+    if not ok or mask.shape != (2, 320, 320):
+        raise AssertionError("full u2net mask is not finite in [0, 1]")
+
+    rgba = rng.random((2, 512, 512, 4), np.float32)
+    rgba[..., 3] = 0.0
+    rgba[0, 100:400, 60:300, 3] = 1.0
+    rgba[1, 5:500, 250:510, 3] = rng.random((495, 260), np.float32)
+    ref = preprocess_batch_device(torch.from_numpy(rgba), ratio=0.75, out_size=512)
+    got = preprocess_batch_device(torch.from_numpy(rgba).cuda(), ratio=0.75, out_size=512).cpu()
+    err = (got - ref).abs().max().item()
+    log(json.dumps({"check": "preprocess_batch_device 512^2, card vs CPU", "max_abs_err": err, "limit": 1e-5}))
+    if not err <= 1e-5:
+        raise AssertionError(f"fused preprocess disagrees: {err} > 1e-5")
+    return matting
+
+
+def serving_path(tsr, matting):
+    """``AssetFarm.generate_batch_rgba`` on eight raw 512^2 RGBA images, as
+    ``bench.py:bench_farm`` drives the JAX farm: the counted batch (also
+    the warm-up), then three timed batches; every mesh checked."""
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+    from sculptmate_tpu_torch.parallel.farm import AssetFarm
+
+    batch = 8
+    farm = AssetFarm(tsr)
+    rng = np.random.default_rng(0)
+    rgba = rng.random((batch, 512, 512, 4))
+    # threshold: the 99th percentile of a 64^3 grid, as bench.py sets it
+    codes = tsr.scene_codes(rng.random((1, 512, 512, 3)).astype(np.float32))
+    d64 = dg.query_density_grid(codes[0], tsr.decoder_weights(), tsr.grid_spec(64, tsr.extract_dtype))
+    threshold = float(torch.quantile(d64.flatten().float(), 0.99))
+
+    def run():
+        return farm.generate_batch_rgba(rgba, matting=matting, ratio=0.75, resolution=256, threshold=threshold,
+                                        has_vertex_color=True)
+
+    torch.cuda.synchronize()
+    flash_attention.launches = dg.density_mlp.launches = 0
+    meshes = run()
+    torch.cuda.synchronize()
+    launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meshes = run()
+        times.append(time.perf_counter() - t0)
+    r = tsr.config.radius
+    bad = [i for i, m in enumerate(meshes) if not mesh_ok(*m, r)]
+    log(json.dumps({"serving_path": "AssetFarm.generate_batch_rgba", "batch": batch, "launches": launches,
+                    "verts": [len(m[0]) for m in meshes], "faces": [len(m[1]) for m in meshes],
+                    "farm_sec_per_asset": float(np.median(times)) / batch,
+                    "batch_sec": [round(t, 4) for t in times], "threshold": threshold, "meshes_failing_checks": bad}))
+    if launches["K1"] != 44 * batch or launches["K2"] < batch:
+        raise AssertionError(f"serving path missed a kernel: {launches}")
+    if bad or len(meshes) != batch:
+        raise AssertionError(f"serving-path meshes {bad} failed their checks")
+    return farm, rgba, threshold, launches, meshes
+
+
+def async_contract(farm, matting, rgba, threshold, served):
+    """The dispatch half of three in-flight assets (the farm's front, then
+    ``extract_mesh_async``) under ``set_sync_debug_mode("error")``: a host
+    sync anywhere there raises. Then the waits, in order; whether asset 2's
+    last copy was still pending when asset 0's wait returned is printed for
+    information."""
+    from sculptmate_tpu_torch.systems.tsr import upload
+
+    n = 3
+    x = upload(rgba[:n], farm.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [farm.extract_batch_wire_async(farm._front(x[i : i + 1], matting, 0.75), 256, threshold, 0, True)
+                   for i in range(n)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    first = farm.extract_batch_wire_wait(handles[0])
+    pending = not handles[2][0].host.events[-1].query()
+    meshes = first + [m for h in handles[1:] for m in farm.extract_batch_wire_wait(h)]
+    r = farm.tsr.config.radius
+    same = [len(m[0]) == len(s[0]) and len(m[1]) == len(s[1]) for m, s in zip(meshes, served)]
+    log(json.dumps({"check": "no host sync on the dispatch path", "assets_in_flight": n, "passed": True,
+                    "asset2_pending_when_asset0_returned": pending, "counts_as_served": same}))
+    if not all(mesh_ok(*m, r) for m in meshes):
+        raise AssertionError("meshes of the async-contract run failed their checks")
 
 
 def main():
@@ -421,7 +568,16 @@ def main():
     k2_err, k2_limit, k2, k2_by = check_density(g, gen.model)
     planted_faults(g, gen.model)
     small_model_check()
-    launches = main_path(gen)
+    main_path(gen)
+    matting = frontend_checks()
+    farm, rgba, threshold, launches, served = serving_path(gen.model, matting)
+    async_contract(farm, matting, rgba, threshold, served)
+    where_time_goes(
+        "one farm chunk (matting + preprocess + encode + extract 256^3 + colors)",
+        lambda: farm.generate_batch_rgba(rgba[:1], matting=matting, resolution=256, threshold=threshold,
+                                         has_vertex_color=True),
+        prefixes=("farm.", "tsr."),
+    )
 
     kernels_line = {"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/flash_attn.cu",
@@ -436,7 +592,7 @@ def main():
          "library_ms": None},
     ]}
     log("# kernel times per asset: K1 sums its 44 launches (16 attn1 + 16 attn2 + 12 ViT), K2 is the 256^3 grid;"
-        " K2's max_abs_err is on d before the exp")
+        " K2's max_abs_err is on d before the exp; launches are those of one 8-asset serving batch")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

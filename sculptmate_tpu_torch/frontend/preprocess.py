@@ -1,0 +1,120 @@
+"""Image preprocessing: matte -> bbox crop -> square pad -> ratio pad -> resize.
+
+Counterpart of ``sculptmate_tpu/frontend/preprocess.py``.
+
+- ``preprocess_image`` (host, PIL): the reference's ``preprocessing.py:73-128``
+  with its quirks: the bbox crop takes ``alpha.max()`` as an exclusive
+  bound (dropping the last foreground row and column), the gray composite
+  comes before the uint8 quantization, and an input whose padded square is
+  narrower than 250 px is rejected (None).
+- ``preprocess_batch_device`` (any device): the batched serving path. The
+  alpha bbox is a masked min/max on the device, and the whole crop -> pad ->
+  Lanczos resize chain is one dynamic-window separable resample
+  (``ops/warp.py``): fixed shapes, no host sync.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from sculptmate_tpu_torch.ops.warp import separable_resample
+
+OUTPUT_SIZE = 1024
+
+
+def preprocess_image(image, ratio: float = 0.85, use_alpha: bool = False, session=None):
+    """Host path on a PIL image: matted (``remove``), cropped to the alpha
+    bbox, padded square, padded by ``ratio``; RGBA when ``use_alpha``, else
+    composited on 0.5 gray and Lanczos-resized to 1024^2. None when the
+    matte is empty or the padded square is under 250 px."""
+    import numpy as np
+    from PIL import Image
+
+    from sculptmate_tpu_torch.frontend.matting import remove
+
+    input_raw = image.convert("RGBA") if use_alpha else image
+    input_raw = remove(input_raw, session=session)
+
+    arr = np.asarray(input_raw)
+    ys, xs = np.where(arr[..., 3] > 0)
+    if len(ys) == 0:
+        return None
+    y1, y2, x1, x2 = ys.min(), ys.max(), xs.min(), xs.max()
+    fg = arr[y1:y2, x1:x2]  # exclusive max bound, as in the reference
+    if fg.size == 0:
+        return None
+
+    size = max(fg.shape[0], fg.shape[1])
+    ph0, pw0 = (size - fg.shape[0]) // 2, (size - fg.shape[1]) // 2
+    ph1, pw1 = size - fg.shape[0] - ph0, size - fg.shape[1] - pw0
+    fg = np.pad(fg, ((ph0, ph1), (pw0, pw1), (0, 0)), mode="constant")
+
+    new_size = int(size / ratio)
+    p0 = (new_size - size) // 2
+    p1 = new_size - size - p0
+    fg = np.pad(fg, ((p0, p1), (p0, p1), (0, 0)), mode="constant")
+
+    if use_alpha:
+        return Image.fromarray(fg, mode="RGBA")
+
+    f = fg.astype(np.float32) / 255.0
+    rgb = f[:, :, :3] * f[:, :, 3:4] + (1 - f[:, :, 3:4]) * 0.5
+    out = Image.fromarray((rgb * 255.0).astype(np.uint8))
+    if out.size[0] < 250:
+        return None
+    return out.resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
+
+
+def _alpha_bbox(alpha: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Masked bbox of alpha > 0 for (B, H, W) planes: (B,) y1, y2, x1, x2,
+    the max bounds being the last foreground index, as ``np.where().max()``
+    gives them. An empty plane gives y1 = H, y2 = -1 (x likewise)."""
+    H, W = alpha.shape[-2:]
+    fg = alpha > 0
+    rows, cols = fg.any(dim=-1), fg.any(dim=-2)
+    ridx = torch.arange(H, device=alpha.device)
+    cidx = torch.arange(W, device=alpha.device)
+    y1 = torch.where(rows, ridx, H).amin(dim=-1)
+    y2 = torch.where(rows, ridx, -1).amax(dim=-1)
+    x1 = torch.where(cols, cidx, W).amin(dim=-1)
+    x2 = torch.where(cols, cidx, -1).amax(dim=-1)
+    return y1, y2, x1, x2
+
+
+def preprocess_batch_device(
+    rgba: torch.Tensor, ratio: float, out_size: int = OUTPUT_SIZE, background: float = 0.5
+) -> torch.Tensor:
+    """Fused preprocessing of (B, H, W, 4) float [0, 1] images -> (B, out,
+    out, 3), on the images' device.
+
+    Equivalent to crop(bbox) -> square pad -> ratio pad -> gray composite ->
+    Lanczos resize: each output canvas maps to a centered source window of
+    side ``floor(max(h, w) / ratio)`` around its bbox center, with h and w
+    the exclusive-style extents ``y2 - y1`` and ``x2 - x1``. Pixels outside
+    the image contribute alpha 0 (composited to ``background``)."""
+    y1, y2, x1, x2 = _alpha_bbox(rgba[..., 3])
+    h = (y2 - y1).float()
+    w = (x2 - x1).float()
+    size = torch.maximum(h, w)
+    new_size = torch.floor(size / ratio)
+
+    # center of the cropped region in source pixels
+    cy = y1.float() + h / 2.0
+    cx = x1.float() + w / 2.0
+    row_win = (cy - new_size / 2.0, cy + new_size / 2.0)
+    col_win = (cx - new_size / 2.0, cx + new_size / 2.0)
+
+    alpha = rgba[..., 3:4]
+    premult = torch.cat([rgba[..., :3] * alpha, alpha], dim=-1)
+    out = separable_resample(premult, (out_size, out_size), row_win, col_win)
+    rgb = out[..., :3] + background * (1.0 - out[..., 3:4])
+    return rgb.clamp(0.0, 1.0)
+
+
+def preprocess_device_one(
+    rgba: torch.Tensor, ratio: float, out_size: int = OUTPUT_SIZE, background: float = 0.5
+) -> torch.Tensor:
+    """``preprocess_batch_device`` of one (H, W, 4) image -> (out, out, 3)."""
+    return preprocess_batch_device(rgba[None], ratio, out_size, background)[0]

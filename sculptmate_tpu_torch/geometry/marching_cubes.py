@@ -50,7 +50,8 @@ def _to_blocks(m: torch.Tensor) -> torch.Tensor:
 
 def pack_bits_u8(flags: torch.Tensor) -> torch.Tensor:
     """(M,) bool, M % 8 == 0 -> (M/8,) uint8, bit b = element 8 i + b."""
-    w = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=flags.device)
+    # bit weights made on the device: uploading a host list would wait for it
+    w = (1 << torch.arange(8, dtype=torch.int32, device=flags.device)).to(torch.uint8)
     return (flags.reshape(-1, 8).to(torch.uint8) * w).sum(dim=1, dtype=torch.uint8)
 
 
@@ -101,7 +102,7 @@ def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Calla
     j = ((blk // nbz) % nby) * BS + (col // BS) % BS
     k = (blk % nbz) * BS + col % BS
     lin = (i * RY + j) * RZ + k
-    step = torch.tensor([RY * RZ, RZ, 1], device=dev)[axis]
+    step = torch.where(axis == 0, RY * RZ, torch.where(axis == 1, RZ, 1))
     flat = level.reshape(-1)
     l0 = flat[lin]
     l1 = flat[(lin + step).clamp(max=n3 - 1)]

@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sculptmate_tpu_torch.ops.attention import dot_product_attention
-from sculptmate_tpu_torch.ops.resize import interpolate_pos_table
+from sculptmate_tpu_torch.ops.resize import interpolate_pos_table, torch_bicubic_matrix
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -84,6 +84,9 @@ class ViTEmbeddings(nn.Module):
         self.position_embeddings = nn.Parameter(torch.zeros(1, 1 + base_grid * base_grid, hidden_size))
         self.patch_embeddings = nn.Module()
         self.patch_embeddings.projection = nn.Conv2d(3, hidden_size, patch_size, stride=patch_size)
+        # the position-table resize matrices per (grid, device), built and
+        # uploaded once: an upload on every forward would wait for the device
+        self._pos_mats = {}
 
     def forward(self, images):
         """images (B, 3, H, W) normalized -> (B, 1 + grid^2, hidden)."""
@@ -92,15 +95,25 @@ class ViTEmbeddings(nn.Module):
         x = x.flatten(2).transpose(1, 2)
         cls = self.cls_token.expand(B, 1, C).to(x.dtype)
         x = torch.cat([cls, x], dim=1)
-        return x + interpolate_pos_embed(self.position_embeddings, grid).to(x.dtype)
+        pos = self.position_embeddings
+        key = (grid, pos.device)
+        if key not in self._pos_mats:
+            base = int(round((pos.shape[1] - 1) ** 0.5))
+            # a normal tensor even when built under inference mode, so a
+            # later forward with autograd on can use it
+            with torch.inference_mode(False):
+                m = torch.from_numpy(torch_bicubic_matrix(base, grid)).to(pos.device)
+            self._pos_mats[key] = (m, m)
+        return x + interpolate_pos_embed(pos, grid, self._pos_mats[key]).to(x.dtype)
 
 
-def interpolate_pos_embed(pos_embed: torch.Tensor, grid_size: int) -> torch.Tensor:
-    """(1, 1 + P^2, C) position table -> (1, 1 + grid^2, C), torch-exact bicubic."""
+def interpolate_pos_embed(pos_embed: torch.Tensor, grid_size: int, mats=None) -> torch.Tensor:
+    """(1, 1 + P^2, C) position table -> (1, 1 + grid^2, C), torch-exact
+    bicubic (``mats`` as ``interpolate_pos_table`` takes them)."""
     cls_pos, patch_pos = pos_embed[:, :1], pos_embed[:, 1:]
     if int(round(patch_pos.shape[1] ** 0.5)) == grid_size:
         return pos_embed
-    patch_pos = interpolate_pos_table(patch_pos[0], grid_size, grid_size)[None]
+    patch_pos = interpolate_pos_table(patch_pos[0], grid_size, grid_size, mats)[None]
     return torch.cat([cls_pos, patch_pos], dim=1)
 
 

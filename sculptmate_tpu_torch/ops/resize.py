@@ -42,13 +42,17 @@ def torch_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
     return M.astype(np.float32)
 
 
-def interpolate_pos_table(patch_pos: torch.Tensor, grid_h: int, grid_w: int) -> torch.Tensor:
-    """(P*P, C) position table -> (grid_h * grid_w, C), torch-bicubic semantics."""
+def interpolate_pos_table(patch_pos: torch.Tensor, grid_h: int, grid_w: int, mats=None) -> torch.Tensor:
+    """(P*P, C) position table -> (grid_h * grid_w, C), torch-bicubic
+    semantics. ``mats``: the (grid_h, P) and (grid_w, P) matrices already on
+    the table's device (built here when absent, an upload that waits for the
+    device)."""
     base = int(round(patch_pos.shape[0] ** 0.5))
     C = patch_pos.shape[-1]
     x = patch_pos.reshape(base, base, C)
-    Mh = torch.from_numpy(torch_bicubic_matrix(base, grid_h)).to(x)
-    Mw = torch.from_numpy(torch_bicubic_matrix(base, grid_w)).to(x)
+    if mats is None:
+        mats = tuple(torch.from_numpy(torch_bicubic_matrix(base, g)).to(x.device) for g in (grid_h, grid_w))
+    Mh, Mw = (m.to(x.dtype) for m in mats)
     x = torch.einsum("hH,HWc->hWc", Mh, x)
     x = torch.einsum("wW,hWc->hwc", Mw, x)
     return x.reshape(grid_h * grid_w, C)

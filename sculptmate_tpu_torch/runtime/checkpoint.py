@@ -13,16 +13,33 @@ torch checkpoint's. Layout rules (flax -> torch):
                  the taps of torch's)
   Norms          scale/bias             -> weight/bias
 
+  BatchNorm      mean/var (batch_stats)  -> running_mean/running_var
+
 Only transposes and flips, so the round trip is exact.
+
+``u2net_params_from_jax`` does the same for the JAX package's u2net (the
+inverse of its ``convert_u2net_state_dict``), and
+``try_load_u2net_state_dict`` reads ``u2net.onnx`` from the checkpoint
+directory (``$SCULPTMATE_CHECKPOINTS``, else ``checkpoints/`` in the
+package) through ``runtime/onnx_lite.py``.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+CHECKPOINT_DIR = os.environ.get(
+    "SCULPTMATE_CHECKPOINTS",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "checkpoints"),
+)
+# the u2net parameters among an ONNX file's initializers (it holds graph
+# constants too)
+_U2NET_KEY = re.compile(r"(stage\d+d?|side\d+|outconv)\.")
 
 
 def _t(a) -> torch.Tensor:
@@ -97,3 +114,45 @@ def tsr_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for n, name in enumerate([f"dense_{i}" for i in hidden] + ["dense_out"]):
         _linear(sd, f"decoder.layers.{2 * n}", layers[name])
     return sd
+
+
+def _conv(sd, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def u2net_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax u2net ``{"params", "batch_stats"}`` -> the port's ``U2Net``
+    state dict, under the original U-2-Net names (``stage1.rebnconvin
+    .conv_s1.weight``, ``.bn_s1.running_mean``, ``side1.weight``, ...)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(p: Mapping, s: Mapping, path: str) -> None:
+        for name, node in p.items():
+            prefix = f"{path}{name}"
+            if "conv" in node and "bn" in node:  # a REBNCONV
+                _conv(sd, f"{prefix}.conv_s1", node["conv"])
+                bn, stats = node["bn"], s[name]["bn"]
+                sd[f"{prefix}.bn_s1.weight"] = _t(bn["scale"])
+                sd[f"{prefix}.bn_s1.bias"] = _t(bn["bias"])
+                sd[f"{prefix}.bn_s1.running_mean"] = _t(stats["mean"])
+                sd[f"{prefix}.bn_s1.running_var"] = _t(stats["var"])
+            elif "kernel" in node:  # a side head or the fusing conv
+                _conv(sd, prefix, node)
+            else:
+                walk(node, s.get(name, {}), f"{prefix}.")
+
+    walk(variables["params"], variables.get("batch_stats", {}), "")
+    return sd
+
+
+def try_load_u2net_state_dict() -> Optional[Dict[str, torch.Tensor]]:
+    """The u2net parameters of ``u2net.onnx`` in the checkpoint directory,
+    or None when the file is absent."""
+    from sculptmate_tpu_torch.runtime.onnx_lite import read_initializers
+
+    path = os.path.join(CHECKPOINT_DIR, "u2net.onnx")
+    if not os.path.isfile(path):
+        return None
+    return {k: _t(v) for k, v in read_initializers(path).items() if _U2NET_KEY.match(k)}

@@ -14,7 +14,16 @@ ConvTranspose upsample -> NeRF MLP decoder, in two stages:
 The wire buffer has a fixed vertex capacity. Its counters are exact, so an
 overflow is detected and the extraction retried with a grown capacity,
 never decoded truncated; capacities that worked are remembered per
-resolution on the instance.
+resolution on the instance and on disk (``runtime/capacity_cache.py``).
+
+``extract_mesh_async`` only enqueues: the extraction's kernels, then a
+non-blocking copy of the wire (and of the color bytes) into pinned host
+memory, each followed by a CUDA event. ``extract_mesh_wait`` waits on the
+wire's event alone, decodes the geometry, and only then waits on the
+colors', so the color copy overlaps the decode and asset i's decode
+overlaps the device work of the assets enqueued after it. Numpy inputs go
+up once through pinned memory, so nothing on the dispatch path waits for
+the device.
 
 Each stage runs inside a ``torch.profiler`` span named ``tsr.<stage>``, so
 a profile of one asset splits its host and device time by stage.
@@ -44,6 +53,7 @@ from sculptmate_tpu_torch.ops.density_grid import (
     query_triplane_points,
 )
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
+from sculptmate_tpu_torch.runtime import capacity_cache
 from sculptmate_tpu_torch.runtime.device import resolve_device
 
 _COLOR_CHUNK = 1 << 18  # points per color-query step: bounds the feature tensor
@@ -158,13 +168,53 @@ class TSRModule(nn.Module):
         tok.normal_(0.0, 1.0, generator=generator).div_(tok.shape[1] ** 0.5)
 
 
-def _tighten(current: int, observed: int) -> int:
-    """Capacity to keep after a successful run that observed ``observed``
-    vertices: shrink toward 1.35 x observed (65536-rounded) only when the
-    overshoot exceeds 2x that target, so one giant asset cannot inflate
-    every later buffer and normal variation does not flap."""
-    target = max(65536, 65536 * -(-int(1.35 * observed) // 65536))
-    return target if current > 2 * target else current
+def upload(x, device: torch.device) -> torch.Tensor:
+    """``x`` (array or tensor) as f32 on ``device``. A host array goes up
+    through pinned memory with a non-blocking copy, which does not wait for
+    the device; a tensor already there is used as it is."""
+    if isinstance(x, torch.Tensor) and x.device.type == device.type:
+        return x.to(device, torch.float32)
+    t = torch.as_tensor(x, dtype=torch.float32)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@dataclasses.dataclass(frozen=True)
+class _HostCopy:
+    """The wire (and the color bytes) on their way to the host: host
+    tensors, and on the card the event recorded after each copy."""
+
+    parts: tuple  # (wire,) or (wire, colors), uint8 host tensors
+    events: Optional[tuple]  # a CUDA event per part; None on the CPU
+
+    def wire(self) -> np.ndarray:
+        if self.events:
+            self.events[0].synchronize()
+        return self.parts[0].numpy()
+
+    def colors(self) -> np.ndarray:
+        if self.events:
+            self.events[1].synchronize()
+        return self.parts[1].numpy()
+
+
+def _to_host_async(fut) -> _HostCopy:
+    """Queue the device-to-host copy of each part of an extraction's
+    output into pinned memory (PyTorch's caching host allocator reuses the
+    blocks), an event after each; on the CPU the parts already are there."""
+    parts = fut if isinstance(fut, tuple) else (fut,)
+    if not parts[0].is_cuda:
+        return _HostCopy(parts, None)
+    hosts, events = [], []
+    for p in parts:
+        h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+        h.copy_(p, non_blocking=True)
+        e = torch.cuda.Event()
+        e.record()
+        hosts.append(h)
+        events.append(e)
+    return _HostCopy(tuple(hosts), tuple(events))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +222,7 @@ class _WireHandle:
     """An enqueued wire extraction plus what a retry or the decode needs."""
 
     scene_code: torch.Tensor
-    fut: object  # wire tensor, or (wire, colors) with vertex colors
+    host: _HostCopy
     mv: int
     resolution: int
     threshold: float
@@ -217,7 +267,7 @@ class TSR:
     @torch.inference_mode()
     def scene_codes(self, images) -> torch.Tensor:
         """images: (B, H, W, 3) float in [0, 1]; resized if needed."""
-        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        x = upload(images, self.device)
         s = self.config.cond_image_size
         if x.shape[1] != s or x.shape[2] != s:
             x = resize_bilinear_antialias(x, s, s)
@@ -276,14 +326,20 @@ class TSR:
 
     def _wire_caps(self, resolution: int, max_verts: int, explicit: bool = False) -> int:
         """Vertex capacity to dispatch with: a capacity that worked before at
-        this resolution, unless the caller sized it explicitly."""
-        cached = self._wire_cap_cache.get(resolution)
-        if cached is None or explicit:
+        this resolution (in this process, else persisted by an earlier
+        one), unless the caller sized it explicitly."""
+        if explicit:
             return max_verts
-        return max(max_verts, cached)
+        cached = self._wire_cap_cache.get(resolution)
+        if cached is None:
+            persisted = capacity_cache.load(f"torch_tsr_wire_r{resolution}")
+            cached = persisted[0] if persisted else None
+        return max_verts if cached is None else max(max_verts, cached)
 
     def _wire_caps_store(self, resolution: int, mv: int, nv_seen: int) -> None:
-        self._wire_cap_cache[resolution] = _tighten(mv, nv_seen)
+        mv_next = capacity_cache.tighten(mv, nv_seen)
+        self._wire_cap_cache[resolution] = mv_next
+        capacity_cache.store(f"torch_tsr_wire_r{resolution}", (mv_next,))
 
     @staticmethod
     def _wire_grown(nv: int, mv: int) -> Optional[int]:
@@ -293,13 +349,13 @@ class TSR:
             return max(mv, 65536 * -(-int(1.2 * nv) // 65536))
         return None
 
-    def _wire_decode(self, fut, wire: np.ndarray, nv: int, mv_used: int, resolution: int):
+    def _wire_decode(self, host: _HostCopy, wire: np.ndarray, nv: int, mv_used: int, resolution: int):
         """Wire (+ split color bytes) -> (verts world f32, faces i64, colors f32 | None)."""
         shape = (resolution, resolution, resolution)
         verts, faces, _, _ = mc_wire.decode_wire(wire, shape, mv_used, has_colors=False)
         colors = None
-        if isinstance(fut, tuple) and nv > 0:
-            cb = fut[1].cpu().numpy()
+        if len(host.parts) > 1 and nv > 0:
+            cb = host.colors()  # its copy ran while the geometry decoded
             colors = cb.reshape(3, mv_used)[:, :nv].T.astype(np.float32) / 255.0
         scale = 2 * self.config.radius / (resolution - 1.0)
         return verts * scale - self.config.radius, faces.astype(np.int64), colors
@@ -312,33 +368,39 @@ class TSR:
         threshold: float = 25.0,
         max_verts: int = 0,
     ) -> _WireHandle:
-        """Enqueue one asset's extraction on the device and return a handle
-        for ``extract_mesh_wait``; nothing here waits for the device."""
+        """Enqueue one asset's extraction on the device, then the copy of
+        its output to pinned host memory, and return a handle for
+        ``extract_mesh_wait``; nothing here waits for the device."""
         explicit = max_verts > 0
         if max_verts <= 0:
             max_verts = 8 * resolution * resolution
         mv = self._wire_caps(resolution, max_verts, explicit)
-        fut = self._extract_wire(scene_code, resolution, float(threshold), mv, bool(has_vertex_color))
-        return _WireHandle(scene_code, fut, mv, resolution, float(threshold), bool(has_vertex_color))
+        host = self._dispatch(scene_code, resolution, float(threshold), mv, bool(has_vertex_color))
+        return _WireHandle(scene_code, host, mv, resolution, float(threshold), bool(has_vertex_color))
+
+    def _dispatch(self, scene_code, resolution, threshold, mv, want_colors) -> _HostCopy:
+        return _to_host_async(self._extract_wire(scene_code, resolution, threshold, mv, want_colors))
 
     def extract_mesh_wait(self, handle: _WireHandle, store: bool = True):
         """Block on a handle -> ((verts, faces, colors | None), (nv, mv)).
-        Overflow is re-extracted synchronously with a grown capacity.
-        ``store=False`` skips the capacity-cache update."""
-        fut, mv = handle.fut, handle.mv
+        Waits for the wire's copy only, then decodes while the colors'
+        copy finishes. Overflow is re-extracted with a grown capacity, its
+        copy queued the same way. ``store=False`` skips the capacity-cache
+        update."""
+        host, mv = handle.host, handle.mv
         while True:
-            with record_function("tsr.wire_to_host"):  # waits for the device
-                wire = (fut[0] if isinstance(fut, tuple) else fut).cpu().numpy()
+            with record_function("tsr.wire_to_host"):  # waits for the wire's copy
+                wire = host.wire()
             nv = int(mc_wire.wire_counts(wire, N_WIRE_COUNTS)[0])
             grown = self._wire_grown(nv, mv)
             if grown is None:
                 break
             mv = grown
-            fut = self._extract_wire(handle.scene_code, handle.resolution, handle.threshold, mv, handle.want_colors)
+            host = self._dispatch(handle.scene_code, handle.resolution, handle.threshold, mv, handle.want_colors)
         if store:
             self._wire_caps_store(handle.resolution, mv, nv)
         with record_function("tsr.wire_decode"):
-            mesh = self._wire_decode(fut, wire, nv, mv, handle.resolution)
+            mesh = self._wire_decode(host, wire, nv, mv, handle.resolution)
         return mesh, (nv, mv)
 
     def extract_mesh(
