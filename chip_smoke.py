@@ -38,13 +38,28 @@ Phases (any failure raises and exits non-zero):
    run; then their waits.
 7. Profiles: one asset (``tsr.*`` spans) and one farm chunk (``farm.*``
    and ``tsr.*`` spans), each with the device's idle share.
-8. One ``{"kernels": [...]}`` line (launches counted on the serving path),
-   then the card line, then the result line ``{"ok": true, "device":
-   {...}}`` last.
+8. SF3D checks: K5 (``csrc/grid_multihead.cu``) against its plain version
+   at R = 161 with the full-width SF3D decoder and at a ragged R = 33 (also
+   under the planted faults of phase 2), K1 at SF3D's six attention shapes
+   (in phase 2's check), and a narrow SF3D (64-wide heads, nonzero AdaLN
+   modulations) on the card against the same weights on the CPU: scene
+   codes and the raw lattice query.
+9. The SF3D path at full width (default ``SF3DConfig``: DINOv2-L, 96^2
+   triplane tokens, 1 792 latents, 4 x 3 blocks, 40 x 384^2 codes, R = 160)
+   with seeded random weights and nonzero modulations: one asset through
+   ``Fast3DGenerator.generate_mesh(enable_texture=False)`` with the launch
+   counters read around it, then a warm-up and three timed assets through
+   ``SF3D.run_image`` (``sf3d_sec_per_asset`` and its stage split), every
+   mesh checked; then a profile of one asset (``sf3d.*`` spans).
+10. One ``{"kernels": [...]}`` line (each kernel's launches counted on its
+   path: K1 and K5 on the SF3D asset, K2 on the serving batch; K1's Lean
+   counts beside them), then the card line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -71,6 +86,9 @@ K1_F32_LIMIT = 1e-5
 # the spread max |d - mean d| of the plain version: the kernel and the plain
 # version differ by bf16 rounding, about one ulp of d
 K2_SPREAD_SHARE = 0.1
+# K5 likewise, on each raw output channel (density, then the 3 vertex
+# offsets) against that channel's spread
+K5_SPREAD_SHARE = 0.1
 
 # Deliberate faults, each one edit to a kernel source, that the kernel
 # checks must fail: (name, kernel, text, replacement)
@@ -89,6 +107,12 @@ PLANTED_FAULTS = (
      "a[kc][half * 2 + rr] = silu_of_half(*reinterpret_cast<uint32_t *>(&hv));", "a[kc][half * 2 + rr] = 0u;"),
     ("K2 takes the next layer's weight stage", "density_grid",
      "desc_sw128(sw + l * W_LAYER_BYTES)", "desc_sw128(sw + ((l + 1) % L) * W_LAYER_BYTES)"),
+    ("K5 reads B[i, k] for B[k, i]", "grid_multihead",
+     "strides[2] = {rowb, planeb}", "strides[2] = {planeb, rowb}"),
+    ("K5 gives head 1 head 0's hidden weights", "grid_multihead",
+     "dw1 = desc_sw128(sw + W_LAYER_BYTES)", "dw1 = desc_sw128(sw)"),
+    ("K5 takes head 0's output tile for head 1", "grid_multihead",
+     "issue_k64(o1, a1, dout1);", "issue_k64(o1, a1, dout0);"),
 )
 
 
@@ -157,27 +181,37 @@ def phase_environment():
 
 
 def check_attention(g, timed=True):
-    """K1 at the three attention shapes of the Lean path in bf16, a ragged
-    batched case, and once in f32, against the plain version (absolute
-    limits above). Every case is checked and printed before a failure
-    raises. With ``timed``, each passing case also gets its time, the
-    plain version's, SDPA's (yardstick only) and its bound."""
+    """K1 at the three attention shapes of the Lean path and the six of the
+    SF3D path in bf16, a ragged batched case, and once in f32, against the
+    plain version (absolute limits above). Every case is checked and
+    printed before a failure raises. With ``timed``, each passing case also
+    gets its time, the plain version's, SDPA's (yardstick only) and its
+    bound, summed per asset of each path."""
     from sculptmate_tpu_torch.ops.attention import dot_product_attention_plain, flash_attention
 
     sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only
-    # (name, B, Nq, Nk, H, launches per asset, dtype, scale of v). With 77
-    # keys the outputs reach ~1.5, where half a bf16 ulp alone is 3.9e-3: v
-    # at half scale keeps |o| < 1, as at the main path's shapes
+    # (name, B, Nq, Nk, H, launches per Lean asset, per SF3D asset, dtype,
+    # scale of v). With 77 (or 50) keys the outputs reach ~1.5, where half a
+    # bf16 ulp alone is 3.9e-3: v at half scale keeps |o| < 1, as at the
+    # main path's shapes
     cases = [
-        ("backbone attn1", 1, 3072, 3072, 16, 16, torch.bfloat16, 1.0),
-        ("backbone attn2", 1, 3072, 1025, 16, 16, torch.bfloat16, 1.0),
-        ("vit self-attention", 1, 1025, 1025, 12, 12, torch.bfloat16, 1.0),
-        ("ragged batched", 2, 129, 77, 3, 0, torch.bfloat16, 0.5),
-        ("backbone attn2 f32", 1, 3072, 1025, 16, 0, torch.float32, 1.0),
+        ("backbone attn1", 1, 3072, 3072, 16, 16, 0, torch.bfloat16, 1.0),
+        ("backbone attn2", 1, 3072, 1025, 16, 16, 0, torch.bfloat16, 1.0),
+        ("vit self-attention", 1, 1025, 1025, 12, 12, 0, torch.bfloat16, 1.0),
+        ("sf3d fuse-in (latents over triplane)", 1, 3089, 27648, 16, 0, 4, torch.bfloat16, 1.0),
+        ("sf3d fuse-out (triplane over latents)", 1, 27648, 3089, 16, 0, 4, torch.bfloat16, 1.0),
+        ("sf3d latent self-attention", 1, 3089, 3089, 16, 0, 12, torch.bfloat16, 1.0),
+        ("sf3d latent cross-attention", 1, 3089, 1297, 16, 0, 12, torch.bfloat16, 1.0),
+        ("sf3d dinov2-large", 1, 1297, 1297, 16, 0, 24, torch.bfloat16, 1.0),
+        ("sf3d clip vit-b/32", 1, 50, 50, 12, 0, 12, torch.bfloat16, 0.5),
+        ("ragged batched", 2, 129, 77, 3, 0, 0, torch.bfloat16, 0.5),
+        ("backbone attn2 f32", 1, 3072, 1025, 16, 0, 0, torch.float32, 1.0),
     ]
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    worst, bound_by, failures = 0.0, set(), []
-    for name, B, Nq, Nk, H, per_asset, dt, v_scale in cases:
+    totals = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0} for path in ("lean", "sf3d")}
+    # bound ms per path and per kind (bytes or operations): the per-asset
+    # bound is bound by the kind that holds most of it
+    worst, bound_by, failures = 0.0, {"lean": {}, "sf3d": {}}, []
+    for name, B, Nq, Nk, H, lean_n, sf3d_n, dt, v_scale in cases:
         D = 64
         q = torch.randn(B, Nq, H, D, device="cuda", generator=g).to(dt)
         k = torch.randn(B, Nk, H, D, device="cuda", generator=g).to(dt)
@@ -207,15 +241,18 @@ def check_attention(g, timed=True):
             "bound_ms": bound,
             "library_ms": cuda_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))),
         }
-        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "launches_per_asset": per_asset,
+        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by,
+                        "launches_per_asset": {"lean": lean_n, "sf3d": sf3d_n},
                         "ms_over_library": row["ms"] / row["library_ms"], "bound_share": bound / row["ms"]}))
-        if per_asset:
-            bound_by.add(by)
-            for key in total:
-                total[key] += per_asset * row[key]
+        for path, n in (("lean", lean_n), ("sf3d", sf3d_n)):
+            if n:
+                bound_by[path][by] = bound_by[path].get(by, 0.0) + n * bound
+                for key in totals[path]:
+                    totals[path][key] += n * row[key]
     if failures:
         raise AssertionError("K1 " + "; ".join(failures))
-    return worst, total, "/".join(sorted(bound_by))  # worst bf16 error, per-asset sums
+    # worst bf16 error; per-asset sums and what bounds them, per path
+    return worst, totals, {path: max(b, key=b.get, default=None) for path, b in bound_by.items()}
 
 
 def sm_clock_hz():
@@ -279,7 +316,184 @@ def check_density(g, tsr, timed=True):
     return result
 
 
-def planted_faults(g, tsr):
+def check_grid_multihead(g, sf3d, timed=True):
+    """K5 at R = 161 (SF3D's tet lattice) and 33 (a ragged k tail: 161 is
+    itself 2 x 64 + 33) with the full-width SF3D decoder's density and
+    vertex-offset heads (fan-in normal weights, zero biases, as
+    ``SF3DModule.reset_parameters`` makes them) on random unit-scale codes,
+    against its plain version on the same bf16 partials: each raw output
+    channel within K5_SPREAD_SHARE of its spread. Every case is checked
+    and printed before a failure raises; with ``timed``, R = 161 also gets
+    its time, the plain version's, its bound and its SFU floor."""
+    from sculptmate_tpu_torch.ops import density_grid as dg
+
+    heads = list(sf3d.head_weights(["density", "vertex_offset"]).values())
+    result, failures = None, []
+    for R in (161, 33):
+        spec = dataclasses.replace(sf3d.grid_spec(torch.bfloat16), resolution=R, slab=7)
+        codes = torch.randn(3, sf3d.config.upsample_out_channels, 384, 384, device="cuda", generator=g)
+        A, B, C = dg.multihead_partials(codes.to(torch.bfloat16), heads, dg.lattice_coords_tets(R - 1, "cuda"), spec)
+        out = dg.grid_multihead(A, B, C, heads, spec)
+        torch.cuda.synchronize()
+        ref = dg.grid_multihead_plain(A, B, C, heads, spec)
+        errs = [(out[k] - ref[k]).abs().max().item() for k in range(len(ref))]
+        spreads = [(ref[k] - ref[k].mean()).abs().max().item() for k in range(len(ref))]
+        bad = [k for k in range(len(ref)) if not errs[k] <= K5_SPREAD_SHARE * spreads[k]]
+        line = {"check": "K5", "case": f"two-head tet grid R={R}", "dtype": "bfloat16", "max_abs_err": max(errs),
+                "max_abs_err_per_channel": errs, "limit_per_channel": [K5_SPREAD_SHARE * sp for sp in spreads]}
+        if bad or not torch.isfinite(out).all():
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"R={R}: channels {bad} past {K5_SPREAD_SHARE} of their spread")
+            continue
+        if R != 161 or not timed:
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        K = len(ref)
+        # per point and head: the 64x64 hidden layer and the output layer;
+        # bytes: the three partials, the weights and the f32 output
+        flops = R**3 * sum(2 * 64 * 64 + 2 * 64 * w[-1][0].shape[1] for w in heads)
+        nbytes = 3 * R * R * 128 * 2 + 2 * (64 * 64 + 8 * 64) * 2 + K * R**3 * 4
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        # SiLUs: the first and the hidden layer of both heads, 64 channels
+        # each; one tanh.approx.bf16x2 per two, 16 SFU results per clock per SM
+        sfu_floor = 1e3 * R**3 * 64 * 2 * 2 / 2 / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+                                                   * sm_clock_hz())
+        row = {
+            "ms": cuda_ms(lambda: dg.grid_multihead(A, B, C, heads, spec), iters=10),
+            "plain_ms": cuda_ms(lambda: dg.grid_multihead_plain(A, B, C, heads, spec), iters=3, graph=False),
+            "bound_ms": bound,
+            "library_ms": None,
+        }
+        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "sfu_floor_ms": sfu_floor,
+                        "bound_share": bound / row["ms"], "launches_per_asset": 1}))
+        result = (max(errs), row, by)
+    if failures:
+        raise AssertionError("K5 " + "; ".join(failures))
+    return result
+
+
+def randomize_modulations(sf3d, generator, share=0.1):
+    """Nonzero AdaLN modulation weights (the module zero-initialises them,
+    so a seeded model would never exercise the camera conditioning):
+    fan-in normal scaled by ``share``."""
+    for layer in sf3d.module.image_tokenizer.model.encoder.layer:
+        for mod in (layer.norm1_modulation, layer.norm2_modulation):
+            w = mod.linear2.weight
+            w.normal_(0.0, share * w.shape[1] ** -0.5, generator=generator)
+
+
+def sf3d_small_check():
+    """A narrow SF3D (64-wide heads everywhere, so K1 runs; f32, TF32 off;
+    nonzero modulations; R = 32, a ragged 33-point lattice) on the card
+    against the same weights on the CPU: scene codes within 1e-4 of max
+    |codes|, and the raw lattice query of the card's codes (K5, bf16)
+    against the CPU's plain version (bf16) within K5_SPREAD_SHARE of each
+    channel's spread."""
+    from sculptmate_tpu_torch.systems.sf3d import SF3D, SF3DConfig
+
+    cfg = SF3DConfig(cond_image_size=56, isosurface_resolution=32, plane_size=8, num_channels=64,
+                     num_attention_heads=1, attention_head_dim=64, num_latents=32, num_blocks=1, num_basic_blocks=1,
+                     upsample_scale_factor=2, upsample_conv_layers=2, dinov2_hidden_size=128, dinov2_num_layers=2,
+                     dinov2_num_heads=2, dinov2_intermediate_size=256, clip_width=128, clip_layers=2, clip_heads=2)
+    cpu = SF3D(cfg, seed=1, dtype=torch.float32, extract_dtype=torch.bfloat16, device="cpu")
+    with torch.no_grad():
+        randomize_modulations(cpu, torch.Generator().manual_seed(1), share=1.0)
+    card = SF3D(cfg, state_dict=cpu.module.state_dict(), dtype=torch.float32, extract_dtype=torch.bfloat16,
+                device="cuda")
+    img = torch.from_numpy(np.random.default_rng(1).random((1, 56, 56, 4), np.float32))
+    ref, _ = cpu.get_scene_codes(cpu.prepare_image(img)[1])
+    got, _ = card.get_scene_codes(card.prepare_image(img.cuda())[1])
+    err, limit = (got.cpu() - ref).abs().max().item(), 1e-4 * ref.abs().max().item()
+    grid = card.query_lattice(got[0])
+    grid_ref = cpu.query_lattice(got[0].cpu())
+    gerr = {n: [(grid[n][k].cpu() - grid_ref[n][k]).abs().max().item() for k in range(len(grid_ref[n]))]
+            for n in grid_ref}
+    glim = {n: [K5_SPREAD_SHARE * (c - c.mean()).abs().max().item() for c in grid_ref[n]] for n in grid_ref}
+    ok = err <= limit and all(e <= lim for n in gerr for e, lim in zip(gerr[n], glim[n]))
+    log(json.dumps({"check": "small SF3D, card vs CPU", "codes_max_abs_err": err, "codes_limit": limit,
+                    "grid_max_abs_err": gerr, "grid_limit": glim, "check_passed": ok}))
+    if not ok:
+        raise AssertionError("small SF3D disagrees between the card and the CPU")
+
+
+def sf3d_mesh_ok(mesh, sf3d):
+    """An SF3D mesh as the path must give it: non-empty, faces in range,
+    vertices finite and inside the lattice's bbox (the radius plus the
+    deformation's reach of one lattice step), UVs in [0, 1]."""
+    v, f, uv = mesh["verts"], mesh["faces"], mesh["uvs"]
+    reach = sf3d.config.radius * (1 + 2 / sf3d.config.isosurface_resolution)
+    return (
+        len(v) > 0 and len(f) > 0 and f.min() >= 0 and f.max() < len(v)
+        and np.isfinite(v).all() and np.abs(v).max() <= reach + 1e-5
+        and uv.shape == (len(v), 2) and uv.min() >= 0 and uv.max() <= 1
+    )
+
+
+def sf3d_path(gen):
+    """Full-width SF3D path: Fast3DGenerator once with the launch counters
+    around it, then a warm-up and 3 timed assets through run_image, then a
+    profile of one asset."""
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+
+    sf3d = gen.model
+    rng = np.random.default_rng(4)
+    # a matted object: random colors inside a disc of alpha 1
+    image = rng.random((512, 512, 4)).astype(np.float32)
+    yy, xx = np.mgrid[:512, :512]
+    image[..., 3] = ((yy - 256) ** 2 + (xx - 256) ** 2 < 180**2).astype(np.float32)
+
+    # threshold: the 99th percentile of the density on a 41^3 lattice
+    # (random weights never reach the config's 10; this keeps the surface
+    # the size of a real object's)
+    mask, rgb = sf3d.prepare_image(torch.from_numpy(image[None]).cuda())
+    codes, _ = sf3d.get_scene_codes(rgb)
+    d41 = dg.query_grid_multihead(codes[0], sf3d.head_weights(["density", "vertex_offset"]),
+                                  dg.lattice_coords_tets(40, "cuda"),
+                                  dataclasses.replace(sf3d.grid_spec(sf3d.extract_dtype), resolution=41))["density"]
+    threshold = float(torch.quantile(torch.exp(d41[0].flatten() - 1.0), 0.99))
+    log(f"# sf3d threshold (99th percentile of the 41^3 density): {threshold}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = os.path.join(tmp, "asset.glb")
+        torch.cuda.synchronize()
+        flash_attention.launches = dg.grid_multihead.launches = 0
+        rc = gen.generate_mesh(image, output_path=glb, enable_texture=False, threshold=threshold)
+        torch.cuda.synchronize()
+        launches = {"K1": flash_attention.launches, "K5": dg.grid_multihead.launches}
+        glb_bytes = os.path.getsize(glb) if rc == 0 else 0
+    log(json.dumps({"sf3d_path": "Fast3DGenerator.generate_mesh(enable_texture=False)", "rc": rc,
+                    "launches": launches, "glb_bytes": glb_bytes}))
+    if rc != 0:
+        raise RuntimeError(f"Fast3DGenerator.generate_mesh returned {rc}")
+    if launches["K1"] != 68 or launches["K5"] < 1:
+        raise AssertionError(f"SF3D path missed a kernel: {launches}")
+
+    runs, meshes = [], []
+    for it in range(4):  # 1 warm-up + 3 timed
+        timings = {}
+        t0 = time.perf_counter()
+        mesh = sf3d.run_image(image[None], enable_texture=False, threshold=threshold, timings=timings)
+        sec = time.perf_counter() - t0
+        if it:
+            runs.append((sec, timings))
+            meshes.append(mesh)
+    bad = [i for i, m in enumerate(meshes) if m is None or not sf3d_mesh_ok(m, sf3d)]
+    split = {k: 1e3 * float(np.median([t[k] for _, t in runs])) for k in runs[0][1]}
+    sec = float(np.median([r[0] for r in runs]))
+    log(json.dumps({"sf3d_path": "SF3D.run_image(enable_texture=False)", "sf3d_sec_per_asset": sec,
+                    "stage_ms": split, "runs_sec": [round(r[0], 4) for r in runs],
+                    "verts": [len(m["verts"]) for m in meshes if m], "faces": [len(m["faces"]) for m in meshes if m],
+                    "threshold": threshold, "meshes_failing_checks": bad}))
+    if bad:
+        raise AssertionError(f"SF3D meshes {bad} failed their checks")
+    where_time_goes("one SF3D asset (run_image, untextured)",
+                    lambda: sf3d.run_image(image[None], enable_texture=False, threshold=threshold),
+                    prefixes=("sf3d.",))
+    return launches
+
+
+def planted_faults(g, tsr, sf3d):
     """Rebuild each kernel from a copy of the sources with one planted fault
     (PLANTED_FAULTS) and run its check, which must fail; then return to the
     real kernels. The copies live in the ignored build directory."""
@@ -297,9 +511,12 @@ def planted_faults(g, tsr):
             raise RuntimeError(f"planted fault {name!r}: its text is not once in {kernel}.cu")
         with open(path, "w") as f:
             f.write(src.replace(text, replacement))
+        checks = {"flash_attn": lambda: check_attention(g, timed=False),
+                  "density_grid": lambda: check_density(g, tsr, timed=False),
+                  "grid_multihead": lambda: check_grid_multihead(g, sf3d, timed=False)}
         with kernels.sources_from(csrc):
             try:
-                check_attention(g, timed=False) if kernel == "flash_attn" else check_density(g, tsr, timed=False)
+                checks[kernel]()
             except AssertionError as e:
                 log(json.dumps({"planted_fault": name, "caught": True, "by": str(e)}))
                 continue
@@ -559,16 +776,22 @@ def main():
     card = phase_environment()
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    from sculptmate_tpu_torch.pipelines.generate import TripoGenerator
+    from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator, TripoGenerator
 
-    gen = TripoGenerator()  # the main path's model: default TSRConfig, seed 0
+    gen = TripoGenerator()  # the Lean path's model: default TSRConfig, seed 0
     if gen.initiate_model(device="cuda") != 0:
         raise RuntimeError("TripoGenerator.initiate_model failed")
+    fast = Fast3DGenerator()  # the SF3D path's model: default SF3DConfig, seed 0
+    if fast.initiate_model(device="cuda") != 0:
+        raise RuntimeError("Fast3DGenerator.initiate_model failed")
+    with torch.no_grad():
+        randomize_modulations(fast.model, torch.Generator(device="cuda").manual_seed(0))
     k1_err, k1, k1_by = check_attention(g)
     k2_err, k2_limit, k2, k2_by = check_density(g, gen.model)
-    planted_faults(g, gen.model)
+    k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
+    planted_faults(g, gen.model, fast.model)
     small_model_check()
-    main_path(gen)
+    lean_launches = main_path(gen)
     matting = frontend_checks()
     farm, rgba, threshold, launches, served = serving_path(gen.model, matting)
     async_contract(farm, matting, rgba, threshold, served)
@@ -578,21 +801,33 @@ def main():
                                          has_vertex_color=True),
         prefixes=("farm.", "tsr."),
     )
+    sf3d_small_check()
+    sf3d_launches = sf3d_path(fast)
 
+    lean = {f"lean_{key}": value for key, value in k1["lean"].items()}
     kernels_line = {"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/flash_attn.cu",
-         "replaces": "sculptmate_tpu/ops/attention.py:30", "launches": launches["K1"], "max_abs_err": k1_err,
-         "limit": K1_BF16_LIMIT, "check": "pass",
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"], "bound_by": k1_by,
-         "library_ms": k1["library_ms"]},
+         "replaces": "sculptmate_tpu/ops/attention.py:30", "launches": sf3d_launches["K1"],
+         "launches_by_path": {"tripo_generator": lean_launches["K1"], "serving_batch_of_8": launches["K1"],
+                              "fast3d_generator": sf3d_launches["K1"]},
+         "max_abs_err": k1_err, "limit": K1_BF16_LIMIT, "check": "pass",
+         "ms": k1["sf3d"]["ms"], "plain_ms": k1["sf3d"]["plain_ms"], "bound_ms": k1["sf3d"]["bound_ms"],
+         "bound_by": k1_by["sf3d"], "library_ms": k1["sf3d"]["library_ms"], **lean, "lean_bound_by": k1_by["lean"]},
         {"name": "density_grid_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/density_grid.cu",
          "replaces": "sculptmate_tpu/ops/density_grid.py:129", "launches": launches["K2"], "max_abs_err": k2_err,
          "limit": k2_limit, "check": "pass",
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2_by,
          "library_ms": None},
+        {"name": "grid_multihead_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/grid_multihead.cu",
+         "replaces": "sculptmate_tpu/ops/density_grid.py:231", "launches": sf3d_launches["K5"],
+         "max_abs_err": k5_err, "limit": f"{K5_SPREAD_SHARE} of each channel's spread", "check": "pass",
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5_by,
+         "library_ms": None},
     ]}
-    log("# kernel times per asset: K1 sums its 44 launches (16 attn1 + 16 attn2 + 12 ViT), K2 is the 256^3 grid;"
-        " K2's max_abs_err is on d before the exp; launches are those of one 8-asset serving batch")
+    log("# kernel times per asset: K1 sums its 68 SF3D launches (24 DINOv2-L + 4 fuse-in + 4 fuse-out + 12 latent"
+        " self + 12 latent cross + 12 CLIP; the lean_* keys sum the Lean path's 44), K2 is the 256^3 grid, K5 the"
+        " 161^3 tet lattice; K2's max_abs_err is on d before the exp; K1's and K5's launches are those of one"
+        " Fast3DGenerator asset, K2's those of one 8-asset serving batch")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,18 @@
 """Command line: image in, mesh out, on the port.
 
-Counterpart of ``sculptmate_tpu/cli.py``'s ``generate`` for the Lean
-model:
+Counterpart of ``sculptmate_tpu/cli.py``'s ``generate`` and ``decimate``:
 
-    python -m sculptmate_tpu_torch.cli generate input.png -o out.glb [--device cpu]
+    python -m sculptmate_tpu_torch.cli generate input.png -o out.glb [--model lean|fast] [--device cpu]
+    python -m sculptmate_tpu_torch.cli decimate in.obj out.obj --ratio 0.5
 
-The image is matted on the host (``frontend.remove`` with the u2net
-session, on ``--device``), cropped and framed (``preprocess_image``), then
-encoded and extracted by the TSR; the mesh is written as GLB or OBJ and one
-JSON line reports its size and the timings. Weights come from
-``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``) where present, else they are
-random from ``--seed``.
+``generate`` mattes the image on the host (``frontend.remove`` with the u2net
+session, on ``--device``) and crops and frames it (``preprocess_image``:
+ratio 0.75 and RGB for the Lean model, 0.85 and RGBA for SF3D, as the
+reference's panel does); then TSR encodes and extracts it (Lean), or SF3D's
+``run_image`` makes an untextured mesh with normals and UVs (fast). The mesh
+is written as GLB or OBJ and one JSON line reports its size and the
+timings. Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
+where present, else they are random from ``--seed``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import json
 import sys
 import time
 
+from sculptmate_tpu_torch.systems.sf3d import SF3D
 from sculptmate_tpu_torch.systems.tsr import TSR
 
 
@@ -31,38 +34,61 @@ def _cmd_generate(args: argparse.Namespace) -> int:
     from sculptmate_tpu_torch.frontend.preprocess import preprocess_image
     from sculptmate_tpu_torch.io import write_glb, write_obj
 
+    fast = args.model == "fast"
+    if fast and args.texture:
+        raise NotImplementedError("--texture with --model fast: the SF3D texture bake is ROADMAP item 12")
     t0 = time.time()
     # EXIF re-orientation at decode (bg.py:128-138); remove() repeats it harmlessly
     img = ImageOps.exif_transpose(Image.open(args.image)).convert("RGBA")
-    ratio = args.ratio if args.ratio is not None else 0.75  # the reference's Lean ratio
+    # the reference's ratios: 0.75 lean, 0.85 and alpha for fast (GUIPanel.py:158-160)
+    ratio = args.ratio if args.ratio is not None else (0.85 if fast else 0.75)
     if args.remove_bg:
-        processed = preprocess_image(img, ratio=ratio, session=default_session(args.device))
+        processed = preprocess_image(img, ratio=ratio, use_alpha=fast, session=default_session(args.device))
         if processed is None:
             print("[sculptmate] foreground too small after matting", file=sys.stderr)
             return 1
     else:
-        processed = img.convert("RGB")
+        processed = img.convert("RGBA" if fast else "RGB")
+    arr = np.asarray(processed, dtype=np.float32)[None] / 255.0
 
-    arr = np.asarray(processed, dtype=np.float32)[None, ..., :3] / 255.0
-    tsr = TSR(seed=args.seed, device=args.device)
-    codes = tsr.scene_codes(arr)
-    t1 = time.time()
-    verts, faces, colors = tsr.extract_mesh(
-        codes, has_vertex_color=args.texture, resolution=args.resolution, threshold=args.threshold
-    )[0]
-    t2 = time.time()
-    if len(verts) == 0:
-        print("[sculptmate] empty mesh (no density above threshold)", file=sys.stderr)
-        return 2
+    extra = {}
+    if fast:
+        sf3d = SF3D(seed=args.seed, device=args.device)
+        t1 = time.time()
+        mesh = sf3d.run_image(
+            arr,
+            vertex_simplification_factor=args.vertex_simplification,
+            enable_texture=False,
+            threshold=args.threshold,
+        )
+        t2 = time.time()
+        if mesh is None:
+            print("[sculptmate] empty mesh (no density above threshold)", file=sys.stderr)
+            return 2
+        verts, faces, colors = mesh["verts"], mesh["faces"], None
+        extra = {"normals": mesh["normals"], "uvs": mesh["uvs"]}
+    else:
+        tsr = TSR(seed=args.seed, device=args.device)
+        codes = tsr.scene_codes(arr[..., :3])
+        t1 = time.time()
+        verts, faces, colors = tsr.extract_mesh(
+            codes, has_vertex_color=args.texture, resolution=args.resolution,
+            threshold=25.0 if args.threshold is None else args.threshold,
+        )[0]
+        t2 = time.time()
+        if len(verts) == 0:
+            print("[sculptmate] empty mesh (no density above threshold)", file=sys.stderr)
+            return 2
 
     out = args.output
     if out.endswith(".obj"):
-        write_obj(out, verts, faces, vertex_colors=colors)
+        write_obj(out, verts, faces, vertex_colors=colors, uvs=extra.get("uvs"))
     else:
-        write_glb(out, verts, faces, vertex_colors=colors)
+        write_glb(out, verts, faces, vertex_colors=colors, **extra)
     t3 = time.time()
     print(json.dumps({
         "output": out,
+        "model": args.model,
         "verts": int(len(verts)),
         "faces": int(len(faces)),
         "encode_s": round(t1 - t0, 3),
@@ -72,21 +98,50 @@ def _cmd_generate(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_decimate(args: argparse.Namespace) -> int:
+    """Quadric decimation of an OBJ (the reference's ``mesh_simplify.py``
+    offline tool)."""
+    from sculptmate_tpu_torch.geometry.decimate import decimate
+    from sculptmate_tpu_torch.io import read_obj, write_obj
+
+    t0 = time.time()
+    verts, faces = read_obj(args.input)
+    v2, f2 = decimate(verts, faces, target_ratio=args.ratio, aggressiveness=args.aggressiveness)
+    write_obj(args.output, v2, f2)
+    print(json.dumps({
+        "input_faces": int(len(faces)),
+        "output_faces": int(len(f2)),
+        "removed_pct": round(100 * (1 - len(f2) / max(len(faces), 1)), 1),
+        "seconds": round(time.time() - t0, 2),
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sculptmate_tpu_torch.cli", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    g = sub.add_parser("generate", help="image -> 3D mesh (Lean model)")
+    g = sub.add_parser("generate", help="image -> 3D mesh")
     g.add_argument("image")
     g.add_argument("-o", "--output", default="mesh.glb", help=".glb or .obj")
-    g.add_argument("--resolution", type=int, default=256, help="marching cubes resolution")
-    g.add_argument("--threshold", type=float, default=25.0)
-    g.add_argument("--ratio", type=float, default=None, help="foreground framing ratio (default 0.75)")
-    g.add_argument("--texture", action="store_true", help="vertex colors")
+    g.add_argument("--model", choices=["lean", "fast"], default="lean")
+    g.add_argument("--resolution", type=int, default=256, help="marching cubes resolution (lean)")
+    g.add_argument("--threshold", type=float, default=None,
+                   help="iso-level (default 25 lean, the config's 10 fast)")
+    g.add_argument("--ratio", type=float, default=None, help="foreground framing ratio (default 0.75 lean / 0.85 fast)")
+    g.add_argument("--texture", action="store_true", help="vertex colors (lean); fast: not ported yet")
+    g.add_argument("--vertex-simplification", default="high", choices=["high", "medium", "low"])
     g.add_argument("--no-remove-bg", dest="remove_bg", action="store_false")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.set_defaults(func=_cmd_generate)
+
+    d = sub.add_parser("decimate", help="quadric mesh decimation (OBJ in/out)")
+    d.add_argument("input")
+    d.add_argument("output")
+    d.add_argument("--ratio", type=float, default=0.5, help="target face ratio")
+    d.add_argument("--aggressiveness", type=float, default=7.0)
+    d.set_defaults(func=_cmd_decimate)
 
     args = p.parse_args(argv)
     return args.func(args)

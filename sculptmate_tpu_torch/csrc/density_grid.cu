@@ -32,8 +32,9 @@
 //   one tile, the warpgroup computes the SiLU of the other, so the tensor
 //   cores and the SFU/FP32 pipes overlap instead of taking turns;
 // - SiLU is silu(x) = h (1 + tanh h), h = x / 2, on bf16 pairs: one
-//   tanh.approx.bf16x2 and one fma.rn.bf16x2 for two values. The host halves
-//   the hidden weights and biases, so each product yields h directly;
+//   tanh.approx.bf16x2 and one fma.rn.bf16x2 for two values (hopper.cuh's
+//   silu_of_half). The host halves the hidden weights and biases, so each
+//   product yields h directly;
 // - output channel 0 is one more wgmma (m64n8k16, channel 0 in column 0).
 // The layer count is a compile-time constant: the layer loop unrolls, and
 // no branch around a wgmma makes ptxas serialize them.
@@ -56,24 +57,6 @@ constexpr int ROW_BYTES = HW * 2;
 constexpr int W_LAYER_BYTES = HW * ROW_BYTES;        // one hidden layer, 8 KB
 constexpr int TILE_BYTES = 2 * TK * ROW_BYTES;       // a tile's B and C rows
 constexpr int BUF_BYTES = 2 * TILE_BYTES;            // a pair of tiles: one buffer per warpgroup
-
-__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
-    uint32_t r;
-    asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
-    return r;
-}
-
-// silu(x) for a bf16 pair given h = x / 2: h (1 + tanh h)
-__device__ __forceinline__ uint32_t silu_of_half(uint32_t h) {
-    uint32_t t, r;
-    asm("tanh.approx.bf16x2 %0, %1;\n" : "=r"(t) : "r"(h));
-    asm("fma.rn.bf16x2 %0, %1, %2, %1;\n" : "=r"(r) : "r"(h), "r"(t));
-    return r;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 struct Tile {
     int i, j, k0;
@@ -120,35 +103,6 @@ __device__ __forceinline__ void first_layer(uint32_t (&a)[4][4], const __nv_bflo
             }
         }
     }
-}
-
-// bias + SiLU on one layer's accumulators, packed as the next A fragments
-__device__ __forceinline__ void hidden_epilogue(uint32_t (&a)[4][4], const float (&d)[32],
-                                                const float *__restrict__ bl, int c) {
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int jn = 2 * kc + half;
-            const float2 bb = *reinterpret_cast<const float2 *>(bl + 8 * jn + c);
-            a[kc][half * 2] = silu_of_half(pack_bf16(d[4 * jn] + bb.x, d[4 * jn + 1] + bb.y));
-            a[kc][half * 2 + 1] = silu_of_half(pack_bf16(d[4 * jn + 2] + bb.x, d[4 * jn + 3] + bb.y));
-        }
-    }
-}
-
-__device__ __forceinline__ void issue_layer(float (&d)[32], const uint32_t (&a)[4][4], uint64_t dw) {
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs<0>(d, a[kc], dw + 2 * kc, kc);
-    wgmma_commit();
-}
-
-__device__ __forceinline__ void issue_output(float (&d)[4], const uint32_t (&a)[4][4], uint64_t dw) {
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs<0>(d, a[kc], dw + 2 * kc, kc);
-    wgmma_commit();
 }
 
 // channel 0 sits in column 0: lanes with c = 0 hold rows g (d[0]) and g + 8 (d[2])
@@ -226,9 +180,9 @@ density_mlp_bf16(const __grid_constant__ CUtensorMap tmb, const __grid_constant_
 #pragma unroll
         for (int i = 0; i < 4; ++i) o0[i] = o1[i] = 0.f;
         first_layer(a0, A, t0, R, buf, warp, g, c);
-        issue_layer(d0, a0, layer_desc(0));
+        issue_k64(d0, a0, layer_desc(0));
         first_layer(a1, A, t1, R, buf + TILE_BYTES, warp, g, c);
-        issue_layer(d1, a1, layer_desc(0));
+        issue_k64(d1, a1, layer_desc(0));
         // the buffer is read: the next pair's rows load while this pair's
         // hidden layers run
         named_bar_sync(1 + wg, 128);
@@ -239,13 +193,13 @@ density_mlp_bf16(const __grid_constant__ CUtensorMap tmb, const __grid_constant_
             wgmma_wait<1>();  // tile 0's layer l is done; tile 1's still runs
             fence_regs(d0);
             hidden_epilogue(a0, d0, bl, c);
-            if (l + 1 < L) issue_layer(d0, a0, layer_desc(l + 1));
-            else issue_output(o0, a0, dout);
+            if (l + 1 < L) issue_k64(d0, a0, layer_desc(l + 1));
+            else issue_k64(o0, a0, dout);
             wgmma_wait<1>();
             fence_regs(d1);
             hidden_epilogue(a1, d1, bl, c);
-            if (l + 1 < L) issue_layer(d1, a1, layer_desc(l + 1));
-            else issue_output(o1, a1, dout);
+            if (l + 1 < L) issue_k64(d1, a1, layer_desc(l + 1));
+            else issue_k64(o1, a1, dout);
         }
         wgmma_wait<1>();
         fence_regs(o0);

@@ -156,6 +156,53 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// ---- bf16 pairs and the 64-wide MLP layers of K2 and K5 ----------------------
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+    uint32_t r;
+    asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+
+// silu(x) for a bf16 pair given h = x / 2: h (1 + tanh h)
+__device__ __forceinline__ uint32_t silu_of_half(uint32_t h) {
+    uint32_t t, r;
+    asm("tanh.approx.bf16x2 %0, %1;\n" : "=r"(t) : "r"(h));
+    asm("fma.rn.bf16x2 %0, %1, %2, %1;\n" : "=r"(r) : "r"(h), "r"(t));
+    return r;
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// bias + SiLU on one 64-wide layer's accumulators (pre-halved weights and
+// bias: d + b = x / 2), packed as the next product's A fragments
+__device__ __forceinline__ void hidden_epilogue(uint32_t (&a)[4][4], const float (&d)[32],
+                                                const float *__restrict__ bl, int c) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int jn = 2 * kc + half;
+            const float2 bb = *reinterpret_cast<const float2 *>(bl + 8 * jn + c);
+            a[kc][half * 2] = silu_of_half(pack_bf16(d[4 * jn] + bb.x, d[4 * jn + 1] + bb.y));
+            a[kc][half * 2 + 1] = silu_of_half(pack_bf16(d[4 * jn + 2] + bb.x, d[4 * jn + 3] + bb.y));
+        }
+    }
+}
+
+// d = a . W for a 64-deep product: a the register A fragments of 64 rows x
+// 64 channels, W a swizzled K-major tile of N rows (N = 64 for a hidden
+// layer, 8 for an output tile) at descriptor dw; issued and committed as
+// one group
+template <int NACC>
+__device__ __forceinline__ void issue_k64(float (&d)[NACC], const uint32_t (&a)[4][4], uint64_t dw) {
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<0>(d, a[kc], dw + 2 * kc, kc);
+    wgmma_commit();
+}
+
 }  // namespace sm_port
 
 // ---- host: TMA tensor maps ---------------------------------------------------

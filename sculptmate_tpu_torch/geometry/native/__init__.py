@@ -1,10 +1,12 @@
 """Native host-side geometry code (C++ via ctypes).
 
-Counterpart of ``sculptmate_tpu/geometry/native/__init__.py`` for the one
-library the Lean path needs, ``mc_wire.cpp`` (a copy of the JAX package's
-wire decoder). It is host code, not a GPU kernel: built with ``g++`` on
-first use into the package's ignored ``_build/`` directory, under a name
-that hashes the source, and loaded with ctypes.
+Counterpart of ``sculptmate_tpu/geometry/native/__init__.py`` for the
+libraries the port's paths need, copies of the JAX package's sources: the
+wire decoders ``mc_wire.cpp`` (Lean) and ``mt_wire.cpp`` (SF3D), the
+quadric decimator ``quadric_decimate.cpp`` and the UV overlap painter
+``unwrap_overlap.cpp``. They are host code, not GPU kernels: each is built
+with ``g++`` on first use into the package's ignored ``_build/`` directory,
+under a name that hashes its source, and loaded with ctypes.
 """
 
 from __future__ import annotations

@@ -14,6 +14,11 @@ The rest of the MLP over all R^3 points is kernel K2
 (``csrc/density_grid.cu``) on a CUDA tensor, and the z-slab loop of
 ``density_mlp_plain`` on a CPU tensor. The scattered query
 (``query_triplane_points``, mesh-vertex colors) is plain torch.
+
+SF3D's lattice query (``query_grid_multihead``) uses the same scheme for two
+heads at once, their first layers side by side; the rest of both heads is
+kernel K5 (``csrc/grid_multihead.cu``) on a CUDA tensor and
+``grid_multihead_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -213,3 +218,144 @@ def query_triplane_points(
         "density_act": get_activation(spec.density_activation)(density + spec.density_bias),
         "color": torch.sigmoid(out[1:4]),
     }
+
+
+# -- SF3D: the multi-head query over the marching-tets lattice (kernel K5) --
+
+
+def lattice_coords_tets(resolution: int, device=None) -> torch.Tensor:
+    """Normalized [-1, 1] coords of the (res+1)-point marching-tets lattice:
+    points at i / res in [0, 1], scaled to the bbox and divided by the
+    radius -> 2 i / res - 1."""
+    return 2.0 * torch.arange(resolution + 1, dtype=torch.float32, device=device) / resolution - 1.0
+
+
+def multihead_partials(
+    triplane: torch.Tensor, heads: Sequence[Weights], coords: torch.Tensor, spec: DensityGridSpec
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The factorized first layer of all heads at once, their first layers
+    side by side (the planes are resampled once): A (R_i, R_j, sum h) + b1,
+    B (R_k, R_i, sum h), C (R_k, R_j, sum h) in the compute dtype."""
+    W1 = torch.cat([w[0][0] for w in heads], dim=1)
+    b1 = torch.cat([w[0][1] for w in heads])
+    cd = spec.compute_dtype
+    Fxy, Fxz, Fyz = sample_triplane_regular_grid(triplane, coords, coords, coords, spec.align_corners)
+    C = triplane.shape[1]
+    A = torch.einsum("cji,cn->ijn", Fxy.to(cd), W1[:C].to(cd)) + b1.to(cd)
+    Bm = torch.einsum("cki,cn->kin", Fxz.to(cd), W1[C : 2 * C].to(cd))
+    Cm = torch.einsum("ckj,cn->kjn", Fyz.to(cd), W1[2 * C :].to(cd))
+    return A, Bm, Cm
+
+
+def grid_multihead_plain(
+    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, heads: Sequence[Weights], spec: DensityGridSpec
+) -> torch.Tensor:
+    """Plain version of kernel K5, the heads one after another. A, B, C as
+    ``multihead_partials`` gives them -> (K_total, R, R, R) f32 raw head
+    outputs (no output bias of the head, no activation) in [x, y, z] order,
+    channels in head order."""
+    R = A.shape[0]
+    act = get_activation(spec.activation)
+    outs, col = [], 0
+    for weights in heads:
+        h1 = weights[0][0].shape[1]
+        a, b, c = (t[..., col : col + h1] for t in (A, B, C))
+        col += h1
+        slabs = []
+        for z0 in range(0, R, spec.slab):
+            h = act(a[None] + b[z0 : z0 + spec.slab, :, None, :] + c[z0 : z0 + spec.slab, None, :, :])
+            slabs.append(_run_hidden(h, weights, act, A.dtype).float())  # (slab, Ri, Rj, K)
+        outs.append(torch.cat(slabs).permute(3, 1, 2, 0))  # (K, x, y, z)
+    return torch.cat(outs).contiguous()
+
+
+def _multihead_lib():
+    fn = kernels.load("grid_multihead").grid_multihead_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_K5_HEADS = 2  # kernel K5 takes two heads, each 64 -> 64 (SiLU) -> K
+
+
+def pack_multihead_weights(heads: Sequence[Weights], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two heads' hidden and output layers in kernel K5's layout.
+
+    Returns bf16 rows (2*64 + 2*8, 64), 128-byte swizzled: each head's
+    hidden (out, in) matrix halved, then an 8-row output tile per head whose
+    rows are the head's output channels at their place in the concatenated
+    output (head 0's from row 0, head 1's after them, the rest zero); and
+    f32 (2*64 + 8,): each hidden bias halved, then the output biases in
+    channel order, zero-padded to 8. The halving is exact in bf16 and lets
+    each product give h = x / 2 for silu(x) = h (1 + tanh h)."""
+    k0 = heads[0][-1][0].shape[1]
+    tiles = torch.zeros(2, 8, _HIDDEN, dtype=torch.float32, device=heads[0][-1][0].device)
+    bias_out = torch.zeros(8, dtype=torch.float32, device=tiles.device)
+    for h, (w, b) in enumerate(w_[-1] for w_ in heads):
+        off = 0 if h == 0 else k0
+        tiles[h, off : off + w.shape[1]] = w.detach().t().to(torch.bfloat16).float()
+        bias_out[off : off + w.shape[1]] = b.detach().to(torch.bfloat16).float()
+    rows = torch.cat([0.5 * w[1][0].detach().t().to(torch.bfloat16).float() for w in heads] + [tiles.reshape(16, _HIDDEN)])
+    W = swizzle_128b(rows.to(device, torch.bfloat16)).contiguous()
+    bias = torch.cat([0.5 * w[1][1].detach().to(torch.bfloat16).float() for w in heads] + [bias_out])
+    return W, bias.to(device).contiguous()
+
+
+def grid_multihead(
+    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, heads: Sequence[Weights], spec: DensityGridSpec
+) -> torch.Tensor:
+    """Kernel K5 on CUDA tensors, its plain version on CPU tensors."""
+    if not A.is_cuda:
+        return grid_multihead_plain(A, B, C, heads, spec)
+    R = A.shape[0]
+    if A.dtype != torch.bfloat16:
+        raise TypeError(f"multi-head grid kernel computes in bf16, got {A.dtype} (use a bf16 extract dtype on the card)")
+    if spec.activation.lower() != "silu":
+        raise ValueError("multi-head grid kernel implements silu hidden layers only")
+    width = _K5_HEADS * _HIDDEN
+    if A.shape != (R, R, width) or B.shape != A.shape or C.shape != A.shape:
+        raise ValueError(f"bad partial-sum shapes {tuple(A.shape)} {tuple(B.shape)} {tuple(C.shape)}")
+    k_total = sum(w[-1][0].shape[1] for w in heads)
+    if (
+        len(heads) != _K5_HEADS
+        or any(len(w) != 3 or w[0][0].shape[1] != _HIDDEN or w[1][0].shape != (_HIDDEN, _HIDDEN) for w in heads)
+        or k_total > 8
+    ):
+        raise ValueError("multi-head grid kernel takes two heads of one hidden 64x64 layer, at most 8 outputs in all")
+    dev = A.device
+    W, bias = pack_multihead_weights(heads, dev)
+    A, B, C = (kernels.aligned(t) for t in (A, B, C))
+    out = torch.empty((k_total, R, R, R), dtype=torch.float32, device=dev)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = _multihead_lib()(
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), W.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        R, k_total, num_sms, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "grid_multihead_fwd")
+    grid_multihead.launches += 1
+    return out
+
+
+grid_multihead.launches = 0
+
+
+def query_grid_multihead(
+    triplane: torch.Tensor, head_weights: Dict[str, Weights], coords: torch.Tensor, spec: DensityGridSpec
+) -> Dict[str, torch.Tensor]:
+    """Multi-head lattice query (SF3D's ``MaterialMLP`` over the tet
+    lattice, ``sf3d/system.py:141-168``): the separable resample and the
+    factorized first layer shared by the heads, then kernel K5 (or its plain
+    version on the CPU). triplane (3, C, H, W), coords (R,) normalized ->
+    {head: (K, R, R, R) f32 raw outputs in [x, y, z] order}; callers apply
+    the heads' output biases and activations."""
+    heads = list(head_weights.values())
+    A, B, C = multihead_partials(triplane, heads, coords, spec)
+    out = grid_multihead(A, B, C, heads, spec)
+    split, col = {}, 0
+    for name, w in head_weights.items():
+        k = w[-1][0].shape[1]
+        split[name] = out[col : col + k]
+        col += k
+    return split

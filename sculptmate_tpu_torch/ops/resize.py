@@ -18,10 +18,14 @@ import torch
 import torch.nn.functional as F
 
 
-def torch_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+def torch_bicubic_matrix(in_size: int, out_size: int, scale: float = 0.0) -> np.ndarray:
     """Dense (out_size, in_size) matrix of ``F.interpolate(mode="bicubic",
-    align_corners=False)`` along one axis."""
-    if in_size == out_size:
+    align_corners=False)`` along one axis. ``scale`` (out / in), when
+    nonzero, maps source coordinates by that explicit factor, as
+    ``interpolate(scale_factor=...)`` does: DINOv2 passes (grid + 0.1) / base
+    (``sf3d/models/tokenizers/dinov2.py:111-124``), which is not the mapping
+    of ``size=`` for a non-integer ratio."""
+    if in_size == out_size and not scale:
         return np.eye(in_size, dtype=np.float32)
     A = -0.75
 
@@ -31,7 +35,7 @@ def torch_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
     def w1(t):
         return (A + 2) * t**3 - (A + 3) * t**2 + 1
 
-    inv_scale = in_size / out_size
+    inv_scale = (1.0 / scale) if scale else (in_size / out_size)
     M = np.zeros((out_size, in_size), dtype=np.float64)
     for i in range(out_size):
         src = (i + 0.5) * inv_scale - 0.5
@@ -58,8 +62,10 @@ def interpolate_pos_table(patch_pos: torch.Tensor, grid_h: int, grid_w: int, mat
     return x.reshape(grid_h * grid_w, C)
 
 
-def resize_bilinear_antialias(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B, height, width, C), antialiased bilinear."""
+def resize_bilinear_antialias(image: torch.Tensor, height: int, width: int, antialias: bool = True) -> torch.Tensor:
+    """(B, H, W, C) -> (B, height, width, C), bilinear with half-pixel
+    centers; antialiased (the filter widened when shrinking) unless asked
+    otherwise, which is ``resize_bilinear`` of the JAX package."""
     x = image.permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False, antialias=True)
+    x = F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False, antialias=antialias)
     return x.permute(0, 2, 3, 1)

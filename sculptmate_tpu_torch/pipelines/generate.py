@@ -1,10 +1,12 @@
-"""Generator facade, API-compatible with the reference.
+"""Generator facades, API-compatible with the reference.
 
-Counterpart of ``sculptmate_tpu/pipelines/generate.py:TripoGenerator``
-(``TripoSR/generate.py:8-43``): lazy ``initiate_model`` + ``generate_mesh``
-with the same return codes (0 ok / 1 not initialized / 2 error). The model
-runs on the card unless ``device="cpu"`` is passed to ``initiate_model``.
-The result is written as GLB (importing into Blender is not ported yet).
+Counterparts of ``sculptmate_tpu/pipelines/generate.py``: ``TripoGenerator``
+(Lean, ``TripoSR/generate.py:8-43``) and ``Fast3DGenerator`` (SF3D,
+``StableFast/generate.py:8-59``), each a lazy ``initiate_model`` +
+``generate_mesh`` with the same return codes (0 ok / 1 not initialized / 2
+error). The model runs on the card unless ``device="cpu"`` is passed to
+``initiate_model``. The result is written as GLB (importing into Blender is
+not ported yet).
 """
 
 from __future__ import annotations
@@ -80,6 +82,70 @@ class TripoGenerator:
             if len(verts) == 0:
                 return 2
             write_glb(output_path or f"{mesh_name}.glb", verts, faces, vertex_colors=colors)
+            return 0
+        except Exception:
+            print("[Generation Error]", traceback.format_exc())
+            return 2
+
+
+class Fast3DGenerator:
+    """Counterpart of ``sculptmate_tpu/pipelines/generate.py:Fast3DGenerator``
+    (``StableFast/generate.py:8-59``), untextured: the texture bake is
+    ROADMAP item 12, so ``enable_texture=True`` fails with return code 2."""
+
+    def __init__(self):
+        self.model = None
+
+    def initiate_model(self, checkpoint_dir: Optional[str] = None, device: str = "cuda") -> int:
+        """Build the model with random weights; 1 on failure. Loading the
+        reference's ``model.safetensors`` and ``config.yaml`` from
+        ``checkpoint_dir`` waits for a checkpoint in the repository."""
+        try:
+            from sculptmate_tpu_torch.systems.sf3d import SF3D
+
+            if checkpoint_dir:
+                raise NotImplementedError("loading an SF3D checkpoint directory is not ported yet (ROADMAP item 10)")
+            self.model = SF3D(device=device)
+            return 0
+        except Exception:
+            print("[Model Initialization Error]", traceback.format_exc())
+            return 1
+
+    def generate_mesh(
+        self,
+        image,
+        device: Optional[str] = None,
+        vertex_simplification_factor: str = "high",
+        enable_texture: bool = True,
+        mesh_name: str = "NewMesh",
+        output_path: Optional[str] = None,
+        threshold: Optional[float] = None,
+    ) -> int:
+        """image: (H, W, 4) RGBA (or 3 channels), uint8-range or [0, 1].
+        Writes a GLB with normals and UVs. ``threshold`` overrides the
+        config's iso-level."""
+        if self.model is None:
+            return 1
+        try:
+            from sculptmate_tpu_torch.io import write_glb
+
+            t0 = time.time()
+            arr = np.asarray(image, dtype=np.float32)
+            if arr.max() > 1.5:
+                arr = arr / 255.0
+            if arr.ndim == 3:
+                arr = arr[None]
+            mesh = self.model.run_image(
+                arr,
+                vertex_simplification_factor=vertex_simplification_factor,
+                enable_texture=enable_texture,
+                threshold=threshold,
+            )
+            print(f"[SculptMate Logging] Generation took {time.time() - t0:.2f}s")
+            if mesh is None or len(mesh["verts"]) == 0:
+                return 2
+            write_glb(output_path or f"{mesh_name}.glb", mesh["verts"], mesh["faces"], normals=mesh["normals"],
+                      uvs=mesh["uvs"])
             return 0
         except Exception:
             print("[Generation Error]", traceback.format_exc())

@@ -17,6 +17,11 @@ torch checkpoint's. Layout rules (flax -> torch):
 
 Only transposes and flips, so the round trip is exact.
 
+``sf3d_params_from_jax`` is the inverse of ``convert_sf3d_state_dict`` for
+the SF3D stack (``systems/sf3d.py:SF3DModule``): the same rules, plus CLIP's
+packed ``in_proj_weight`` (the Dense kernel transposed) and LayerScale's
+``lambda1`` as they are.
+
 ``u2net_params_from_jax`` does the same for the JAX package's u2net (the
 inverse of its ``convert_u2net_state_dict``), and
 ``try_load_u2net_state_dict`` reads ``u2net.onnx`` from the checkpoint
@@ -28,7 +33,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -156,3 +161,115 @@ def try_load_u2net_state_dict() -> Optional[Dict[str, torch.Tensor]]:
     if not os.path.isfile(path):
         return None
     return {k: _t(v) for k, v in read_initializers(path).items() if _U2NET_KEY.match(k)}
+
+
+def _dense_stack(sd, prefix: str, layers: Sequence[Mapping]) -> None:
+    """Linears of a reference ``nn.Sequential`` of Linear and activation
+    modules: the Linears sit at indices 0, 2, 4, ..."""
+    for n, p in enumerate(layers):
+        _linear(sd, f"{prefix}.{2 * n}", p)
+
+
+def sf3d_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``SF3DModule`` params -> the port's ``SF3DModule`` state dict,
+    under the reference checkpoint's keys (the inverse of the JAX package's
+    ``convert_sf3d_state_dict``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _linear(sd, "camera_embedder.linear", params["camera_embedder"]["linear"])
+
+    dv = params["image_tokenizer"]["dinov2"]
+    emb = "image_tokenizer.model.embeddings"
+    sd[f"{emb}.cls_token"] = _t(dv["cls_token"])
+    sd[f"{emb}.position_embeddings"] = _t(dv["pos_embed"])
+    _conv(sd, f"{emb}.patch_embeddings.projection", dv["patch_embed"])
+    for i in _numbered(dv, "layer"):
+        fl = dv[f"layer_{i}"]
+        tl = f"image_tokenizer.model.encoder.layer.{i}"
+        _norm(sd, f"{tl}.norm1", fl["norm1"])
+        _norm(sd, f"{tl}.norm2", fl["norm2"])
+        for name in ("query", "key", "value"):
+            _linear(sd, f"{tl}.attention.attention.{name}", fl[name])
+        _linear(sd, f"{tl}.attention.output.dense", fl["attn_output"])
+        _linear(sd, f"{tl}.mlp.fc1", fl["mlp_fc1"])
+        _linear(sd, f"{tl}.mlp.fc2", fl["mlp_fc2"])
+        sd[f"{tl}.layer_scale1.lambda1"] = _t(fl["layer_scale1"]["lambda1"])
+        sd[f"{tl}.layer_scale2.lambda1"] = _t(fl["layer_scale2"]["lambda1"])
+        for mod in ("norm1_modulation", "norm2_modulation"):
+            _linear(sd, f"{tl}.{mod}.linear2", fl[mod]["linear2"])
+    _norm(sd, "image_tokenizer.model.layernorm", dv["layernorm"])
+
+    sd["tokenizer.embeddings"] = _t(params["tokenizer"]["embeddings"])
+
+    bb = params["backbone"]
+    _norm(sd, "backbone.norm_triplane", bb["norm_triplane"])
+    for name in ("norm_image", "norm_latent"):
+        _norm(sd, f"backbone.{name}", bb[name])
+    for name in ("proj_triplane", "proj_image", "proj_latent", "proj_out"):
+        _linear(sd, f"backbone.{name}", bb[name])
+    sd["backbone.latent_init"] = _t(bb["latent_init"])
+
+    def attn(prefix, p):
+        for w in ("wq", "wk", "wv", "proj"):
+            _linear(sd, f"{prefix}.{w}", p[w])
+
+    def ff(prefix, p):
+        _linear(sd, f"{prefix}.net.0.proj", p["net_0"]["proj"])
+        _linear(sd, f"{prefix}.net.2", p["net_2"])
+
+    for i in _numbered(bb, "main_blocks"):
+        fb, tb = bb[f"main_blocks_{i}"], f"backbone.main_blocks.{i}"
+        for fuse in ("fuse_block_in", "fuse_block_out"):
+            _norm(sd, f"{tb}.{fuse}.norm_z1", fb[fuse]["norm_z1"])
+            _norm(sd, f"{tb}.{fuse}.norm_z2", fb[fuse]["norm_z2"])
+            attn(f"{tb}.{fuse}.attn", fb[fuse]["attn"])
+            ff(f"{tb}.{fuse}.ff", fb[fuse]["ff"])
+        for j in _numbered(fb, "transformer_block"):
+            fj, tj = fb[f"transformer_block_{j}"], f"{tb}.transformer_block.{j}"
+            for norm in ("norm1", "norm2", "norm3"):
+                _norm(sd, f"{tj}.{norm}", fj[norm])
+            attn(f"{tj}.attn1", fj["attn1"])
+            attn(f"{tj}.attn2", fj["attn2"])
+            ff(f"{tj}.ff", fj["ff"])
+
+    pp = params["post_processor"]
+    for n in _numbered(pp, "conv"):
+        _conv(sd, f"post_processor.upsample.{2 * n}", pp[f"conv_{n}"])
+
+    for key, head in params["decoder"].items():
+        hidden = _numbered(head, "dense")
+        _dense_stack(sd, f"decoder.heads.{key[len('head_'):]}", [head[f"dense_{i}"] for i in hidden] + [head["dense_out"]])
+
+    est = params["image_estimator"]
+    cv, vis = est["clip"], "image_estimator.model.visual"
+    sd[f"{vis}.conv1.weight"] = _t(np.asarray(cv["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{vis}.class_embedding"] = _t(cv["class_embedding"])
+    sd[f"{vis}.positional_embedding"] = _t(cv["positional_embedding"])
+    sd[f"{vis}.proj"] = _t(cv["proj"])
+    _norm(sd, f"{vis}.ln_pre", cv["ln_pre"])
+    _norm(sd, f"{vis}.ln_post", cv["ln_post"])
+    for i in _numbered(cv, "block"):
+        fb, rb = cv[f"block_{i}"], f"{vis}.transformer.resblocks.{i}"
+        _norm(sd, f"{rb}.ln_1", fb["ln_1"])
+        _norm(sd, f"{rb}.ln_2", fb["ln_2"])
+        sd[f"{rb}.attn.in_proj_weight"] = _t(np.asarray(fb["in_proj"]["kernel"]).T)
+        sd[f"{rb}.attn.in_proj_bias"] = _t(fb["in_proj"]["bias"])
+        _linear(sd, f"{rb}.attn.out_proj", fb["out_proj"])
+        _linear(sd, f"{rb}.mlp.c_fc", fb["mlp_fc"])
+        _linear(sd, f"{rb}.mlp.c_proj", fb["mlp_proj"])
+    for key in est:
+        if key.endswith("_shared"):
+            name, shared = key[: -len("_shared")], est[key]
+            _dense_stack(sd, f"image_estimator.heads.{name}.0", [shared[f"dense_{i}"] for i in _numbered(shared, "dense")])
+            for pi in range(2):
+                _dense_stack(sd, f"image_estimator.heads.{name}.{pi + 1}",
+                             [est[f"{name}_p{pi}"]["dense_0"], est[f"{name}_p{pi}_out"]])
+
+    ge = params["global_estimator"]
+    for n in (1, 2):
+        _conv(sd, f"global_estimator.layers.{2 * (n - 1)}", ge[f"conv{n}"])
+    for key in ge:
+        if key.endswith("_stack"):
+            name, stack = key[: -len("_stack")], ge[key]
+            _dense_stack(sd, f"global_estimator.heads.{name}",
+                         [stack[f"dense_{i}"] for i in _numbered(stack, "dense")] + [ge[f"{name}_out"]])
+    return sd

@@ -13,8 +13,17 @@ import pytest
 import torch
 
 import sculptmate_tpu_torch
+from sculptmate_tpu_torch.systems.sf3d import SF3DConfig
 
 PKG = pathlib.Path(sculptmate_tpu_torch.__file__).parent
+
+# a narrow SF3D (tests/test_sf3d_system.py's config)
+SF3D_TINY = SF3DConfig(
+    cond_image_size=56, isosurface_resolution=14, plane_size=8, num_channels=64, num_attention_heads=4,
+    attention_head_dim=16, num_latents=32, num_blocks=1, num_basic_blocks=1, upsample_scale_factor=2,
+    upsample_conv_layers=2, dinov2_hidden_size=64, dinov2_num_layers=2, dinov2_num_heads=4,
+    dinov2_intermediate_size=128, clip_width=64, clip_layers=2, clip_heads=4,
+)
 
 ISOLATION = """
 import importlib, pkgutil, sys
@@ -25,7 +34,7 @@ for name in names:
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "sculptmate_tpu.")) or m == "sculptmate_tpu")
 host_only = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2"))
 print(len(names), bad, host_only)
-assert len(names) >= 37, names
+assert len(names) >= 45, names
 assert not bad, bad
 assert not host_only, host_only
 """
@@ -62,8 +71,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     CPU; the generator reports the failure with its return code 1."""
     from sculptmate_tpu_torch.frontend.matting import U2NetMatting
     from sculptmate_tpu_torch.parallel.farm import AssetFarm
-    from sculptmate_tpu_torch.pipelines.generate import TripoGenerator
+    from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator, TripoGenerator
     from sculptmate_tpu_torch.runtime.device import resolve_device
+    from sculptmate_tpu_torch.systems.sf3d import SF3D
     from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -84,6 +94,38 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AssetFarm(tsr)
     assert AssetFarm(tsr, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SF3D(SF3D_TINY)
+    assert Fast3DGenerator().initiate_model() == 1
+    assert SF3D(SF3D_TINY, device="cpu").device.type == "cpu"
+
+
+def test_cli_fast_defaults_to_the_card(tmp_path, monkeypatch):
+    """``generate --model fast`` without ``--device`` raises without a CUDA
+    device rather than run on the CPU."""
+    from PIL import Image
+
+    from sculptmate_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    png = tmp_path / "in.png"
+    Image.fromarray(np.zeros((32, 32, 4), np.uint8)).save(png)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["generate", str(png), "-o", str(tmp_path / "o.glb"), "--model", "fast", "--no-remove-bg"])
+
+
+def test_unported_sf3d_branches_raise():
+    """The texture bake and the device unwrap (ROADMAP item 12) raise
+    NotImplementedError instead of taking another path."""
+    from sculptmate_tpu_torch.geometry.mesh import Mesh
+    from sculptmate_tpu_torch.systems.sf3d import SF3D
+
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    for backend in ("device", "auto"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            Mesh(verts, np.array([[0, 1, 2]])).unwrap_uv(backend=backend)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        SF3D(SF3D_TINY, device="cpu").run_image(np.zeros((1, 56, 56, 4), np.float32), enable_texture=True)
 
 
 def test_generator_writes_glb_on_cpu(tmp_path, rng):
@@ -146,7 +188,7 @@ def test_planted_faults_apply_to_the_sources():
         import chip_smoke
     finally:
         sys.path.remove(str(PKG.parent))
-    assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {"flash_attn", "density_grid"}
+    assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {"flash_attn", "density_grid", "grid_multihead"}
     for name, kernel, text, replacement in chip_smoke.PLANTED_FAULTS:
         src = (PKG / "csrc" / f"{kernel}.cu").read_text()
         assert src.count(text) == 1 and text != replacement, name
