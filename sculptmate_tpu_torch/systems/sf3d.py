@@ -29,7 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +68,9 @@ DEFAULT_HEADS = (
      "output_activation": "normalize_channel_last"},
     {"name": "vertex_offset", "out_channels": 3, "n_hidden_layers": 2},
 )
+# the heads the lattice query runs, in output-channel order (kernel K5 takes
+# exactly this pair)
+_LATTICE_HEADS = ("density", "vertex_offset")
 # vertex budget per simplification setting (sf3d/system.py:346-351; "medium"
 # is accepted beside the reference's "med")
 _BUDGET = {"high": 0.75, "med": 0.4, "medium": 0.4, "low": 0.1}
@@ -277,17 +280,18 @@ class SF3D:
             compute_dtype=compute_dtype,
         )
 
-    def head_weights(self, names: Sequence[str]):
-        return {n: mlp_weights_from_params(self.module.decoder.heads[n]) for n in names}
+    def lattice_head_weights(self):
+        """The density and vertex-offset heads' weights, in that order."""
+        return {n: mlp_weights_from_params(self.module.decoder.heads[n]) for n in _LATTICE_HEADS}
 
     @torch.inference_mode()
-    def query_lattice(self, scene_code: torch.Tensor, names: Sequence[str] = ("density", "vertex_offset")):
-        """The named heads' raw outputs on the (res+1)^3 lattice -> {head:
-        (K, N, N, N) f32}; the density and vertex-offset pair runs on kernel
-        K5 on the card."""
+    def query_lattice(self, scene_code: torch.Tensor):
+        """The density and vertex-offset heads' raw outputs on the
+        (res+1)^3 lattice (kernel K5 on the card) -> {head: (K, N, N, N)
+        f32}."""
         res = self.config.isosurface_resolution
         coords = lattice_coords_tets(res, scene_code.device)
-        return query_grid_multihead(scene_code, self.head_weights(names), coords, self.grid_spec(self.extract_dtype))
+        return query_grid_multihead(scene_code, self.lattice_head_weights(), coords, self.grid_spec(self.extract_dtype))
 
     @torch.inference_mode()
     def _extract_wire(self, scene_code, threshold: float, max_verts: int, snap_eps: float) -> torch.Tensor:

@@ -105,13 +105,15 @@ def test_multihead_weights_pack_for_the_kernel():
 @pytest.mark.cuda
 def test_grid_multihead_kernel_matches_plain():
     """K5 on the card against its plain version on the same bf16 partials,
-    at a ragged lattice (R = 33): each channel within 0.1 of its spread."""
+    at a ragged lattice (R = 33), with nonzero biases in every layer: each
+    channel within 0.1 of its spread."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def lin(i, o):
-        return torch.randn(i, o, device="cuda", generator=g) * i**-0.5, torch.zeros(o, device="cuda")
+        return (torch.randn(i, o, device="cuda", generator=g) * i**-0.5,
+                0.5 * torch.randn(o, device="cuda", generator=g))
 
     heads = [[lin(120, 64), lin(64, 64), lin(64, 1)], [lin(120, 64), lin(64, 64), lin(64, 3)]]
     spec = dg.DensityGridSpec(resolution=33, align_corners=True, slab=3, compute_dtype=torch.bfloat16)
