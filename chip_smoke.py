@@ -39,23 +39,38 @@ Phases (any failure raises and exits non-zero):
 7. Profiles: one asset (``tsr.*`` spans) and one farm chunk (``farm.*``
    and ``tsr.*`` spans), each with the device's idle share.
 8. SF3D checks: K5 (``csrc/grid_multihead.cu``) against its plain version
-   at R = 161 with the full-width SF3D decoder and at a ragged R = 33 (also
-   under the planted faults of phase 2), K1 at SF3D's six attention shapes
-   (in phase 2's check), and a narrow SF3D (64-wide heads, nonzero AdaLN
-   modulations) on the card against the same weights on the CPU: scene
-   codes and the raw lattice query.
+   at R = 161 with the full-width SF3D decoder and at a ragged R = 33, K1
+   at SF3D's six attention shapes (in phase 2's check), and a narrow SF3D
+   (64-wide heads, nonzero AdaLN modulations) on the card against the same
+   weights on the CPU: scene codes and the raw lattice query. The texture
+   kernels, checked before phase 2's planted faults and under their own:
+   K8 (``csrc/raster_winner.cu``) bit-equal to its plain version at the
+   full-width asset's bake (512^2, face ids) and first unwrap raster
+   (1024^2, depth keys, margin 0.05), and at a ragged 100^2 with oversized
+   faces; K6 (``csrc/points_multihead.cu``) at 512^2 texel points with the
+   full-width decoder's features and perturb-normal heads; K9
+   (``csrc/uv_unwrap.cu``) on the full-width asset's mesh.
 9. The SF3D path at full width (default ``SF3DConfig``: DINOv2-L, 96^2
    triplane tokens, 1 792 latents, 4 x 3 blocks, 40 x 384^2 codes, R = 160)
-   with seeded random weights and nonzero modulations: one asset through
+   with seeded random weights and nonzero modulations, untextured (its
+   unwrap on K9): one asset through
    ``Fast3DGenerator.generate_mesh(enable_texture=False)`` with the launch
    counters read around it, then a warm-up and three timed assets through
    ``SF3D.run_image`` (``sf3d_sec_per_asset`` and its stage split), every
-   mesh checked; then a profile of one asset (``sf3d.*`` spans).
+   mesh checked; then a profile of one asset (``sf3d.*`` spans). Then the
+   same textured (the fused unwrap and bake at 512^2): one
+   ``Fast3DGenerator.generate_mesh()`` asset with the counters (K1 = 68,
+   K5, K6, K9, K8 >= 3) and a GLB of three images, three timed assets
+   (``sf3d_textured_sec_per_asset``), every mesh and map checked, and a
+   profile; the dispatch of two in-flight ``unwrap_bake_async`` calls under
+   ``torch.cuda.set_sync_debug_mode("error")``; one ``SF3DFarm`` batch of
+   four textured assets (``sf3d_farm_sec_per_asset``) and a profile of a
+   batch of two (``sf3d_farm.*`` and ``sf3d.*`` spans).
 10. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
    serving batch and K1's times summed over a Lean asset, as before the
    SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys; K5's
-   launches counted on the SF3D asset), then the card line, then the
-   result line
+   launches counted on the untextured SF3D asset; K6's, K8's and K9's on
+   the textured one), then the card line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
@@ -100,6 +115,22 @@ K5_SPREAD_SHARE = 0.1
 # checkpoint's are not zero
 K5_BIAS_STD = 0.5
 
+# K6 is held on each raw output channel (albedo features, then the
+# perturbed normal) within this share of its spread, as K5; its checks give
+# every bias of both heads N(0, K5_BIAS_STD) values
+K6_SPREAD_SHARE = 0.1
+# K8 must give the plain version's winner on every texel (the same products
+# and sums, each rounded on its own; atomicMin is order-independent)
+# K9 is held, given its own slice angles (the one sum whose order differs),
+# to the CPU tests' limits: the same atlas index on K9_ATLAS_SHARE of the
+# faces and UVs within K9_UV_LIMIT where it agrees. Its angles (cos, sin)
+# are held to the plain version's own within K9_ANGLE_LIMIT: a slice sums
+# ~10^5 f32 tangents, in blocks here and by atomics there, and an angle off
+# by e turns the slice's UVs by at most about e, under K9_UV_LIMIT
+K9_ATLAS_SHARE = 0.999
+K9_UV_LIMIT = 1e-4
+K9_ANGLE_LIMIT = 1e-4
+
 # Deliberate faults, each one edit to a kernel source, that the kernel
 # checks must fail: (name, kernel, text, replacement)
 PLANTED_FAULTS = (
@@ -127,6 +158,18 @@ PLANTED_FAULTS = (
      "hidden_epilogue(a1, d1, bs + HW, c);", "hidden_epilogue(a1, d1, bs, c);"),
     ("K5 drops the output bias", "grid_multihead",
      "o0[2 * rr + e] + o1[2 * rr + e] + bout[ch]", "o0[2 * rr + e] + o1[2 * rr + e]"),
+    ("K8 keeps the highest key (atomicMax)", "raster_winner",
+     "atomicMin(winner + texel, key);", "atomicMax(winner + texel, key);"),
+    ("K8's bbox loop drops its last row", "raster_winner",
+     "const int h = yhi - ylo + 1;", "const int h = yhi - ylo;"),
+    ("K6 drops the last bilinear tap", "points_multihead",
+     "for (int t = 0; t < 4; ++t) {", "for (int t = 0; t < 3; ++t) {"),
+    ("K6's perturb head takes the features head's hidden weights", "points_multihead",
+     "const int nbase = HW * H;", "const int nbase = 0;"),
+    ("K9's depth key is not inverted (the nearest face wins)", "uv_unwrap",
+     "key[f] = part ? ~sortable(depth[f]) : SINK - 1;", "key[f] = part ? sortable(depth[f]) : SINK - 1;"),
+    ("K9 skips the slice rotation", "uv_unwrap",
+     "const float ca = angles[s], sa = angles[6 + s];", "const float ca = 1.f, sa = 0.f;"),
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
@@ -394,6 +437,194 @@ def check_grid_multihead(g, sf3d, timed=True):
     return result
 
 
+def sf3d_scene(fast):
+    """The full-width SF3D asset the texture checks run on: the matted disc
+    image, its threshold (the 99th percentile of exp(d - 1) on a 41^3
+    lattice: random weights never reach the config's 10), its codes and
+    material estimates, its decimated mesh, and that mesh's atlas from the
+    plain version of K9 (which rasterizes on the plain K8) with the inputs
+    of its two visibility rasters (recorded), so that the K8 and K9 checks
+    do not rest on the kernels they check."""
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
+    from sculptmate_tpu_torch.geometry.uv_unwrap import _main_axis_rotation
+    from sculptmate_tpu_torch.ops import density_grid as dg
+
+    sf3d = fast.model
+    rng = np.random.default_rng(4)
+    image = rng.random((512, 512, 4)).astype(np.float32)  # random colors inside a disc of alpha 1
+    yy, xx = np.mgrid[:512, :512]
+    image[..., 3] = ((yy - 256) ** 2 + (xx - 256) ** 2 < 180**2).astype(np.float32)
+    mask, rgb = sf3d.prepare_image(torch.from_numpy(image[None]).cuda())
+    codes, _ = sf3d.get_scene_codes(rgb)
+    materials = sf3d.estimate_materials(rgb * mask)
+    d41 = dg.query_grid_multihead(codes[0], sf3d.lattice_head_weights(), dg.lattice_coords_tets(40, "cuda"),
+                                  dataclasses.replace(sf3d.grid_spec(sf3d.extract_dtype), resolution=41))["density"]
+    threshold = float(torch.quantile(torch.exp(d41[0].flatten() - 1.0), 0.99))
+    log(f"# sf3d threshold (99th percentile of the 41^3 density): {threshold}")
+    verts, faces, nv = sf3d.extract_mesh(codes[0], threshold)
+    verts, faces, _ = sf3d.decimate_mesh(verts, faces, nv, "high", False)
+    rp = verts @ _main_axis_rotation(verts).T
+    pos = torch.from_numpy(np.ascontiguousarray(rp.T)).cuda()
+    f = torch.from_numpy(np.ascontiguousarray(faces.T, np.int32)).cuda()
+    recorded, winner_fn = [], ud.binned_winner_plain
+    ud.binned_winner_plain = lambda *a, **k: recorded.append(a) or winner_fn(*a, **k)
+    try:
+        uv6, _, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+    finally:
+        ud.binned_winner_plain = winner_fn
+    log(json.dumps({"sf3d_scene": "full-width asset for the texture checks", "verts": len(verts),
+                    "faces": len(faces), "threshold": threshold,
+                    "round2_faces": int((recorded[1][6] < ud.WINNER_SINK - 1).sum())}))
+    return {"image": image, "threshold": threshold, "codes": codes, "materials": materials, "verts": verts,
+            "faces": faces, "pos": pos, "f": f, "uv6": uv6, "round1": recorded[0], "round2": recorded[1]}
+
+
+def check_raster(scene, timed=True):
+    """K8 against its plain version, which it must equal on every texel: at
+    the bake (512^2, face ids, margin 0) of the full-width asset's atlas,
+    at the unwrap's two visibility rasters of its mesh (1024^2,
+    ~sortable(depth) keys, margin 0.05; in round 2 only the faces round 1
+    hid take part, the rest carry zero UVs and the sink key), and at a
+    ragged 100^2 (not a multiple of 64: the JAX package's brute-force
+    branch) with oversized faces. With ``timed``, the three path cases get
+    their time, the plain version's and their bound, summed over a
+    textured asset's three launches."""
+    from sculptmate_tpu_torch.geometry import texture_bake as tb
+
+    uv = scene["uv6"]
+    F = uv.shape[1]
+    rng = np.random.default_rng(5)
+    small = rng.random((20000, 1, 2)) + rng.standard_normal((20000, 3, 2)) * 1.5 / 100
+    o = rng.random((64, 1, 2)) * 0.5
+    big = o + np.array([[0, 0], [0.4, 0], [0, 0.45]]) * (0.4 + rng.random((64, 1, 1)))
+    tri = np.concatenate([small, big]).astype(np.float32)
+    ragged = [torch.from_numpy(np.ascontiguousarray(tri[:, c, d])).cuda() for c in range(3) for d in range(2)]
+    cases = [
+        ("bake 512^2, face ids", [uv[k].contiguous() for k in range(6)],
+         torch.arange(F, dtype=torch.int32, device="cuda"), 512, 0.0, 1),
+        ("unwrap round 1 1024^2, depth keys, margin 0.05", [t.contiguous() for t in scene["round1"][:6]],
+         scene["round1"][6], 1024, 0.05, 1),
+        ("unwrap round 2 1024^2, depth keys, margin 0.05", [t.contiguous() for t in scene["round2"][:6]],
+         scene["round2"][6], 1024, 0.05, 1),
+        ("ragged 100^2, oversized faces", ragged, torch.arange(len(tri), dtype=torch.int32, device="cuda"), 100, 0.0,
+         0),
+    ]
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    failures = []
+    for name, corners, key, res, margin, n in cases:
+        got = tb.binned_winner(*corners, key, res, margin)
+        torch.cuda.synchronize()
+        ref = tb.binned_winner_plain(*corners, key, res, margin)
+        differ = int((got != ref).sum())
+        line = {"check": "K8", "case": name, "faces": len(key), "texels_differing": differ, "limit": 0,
+                "covered": int((ref < tb.WINNER_SINK).sum())}
+        if differ:
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"{name}: {differ} texels differ")
+            continue
+        if not (timed and n):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # bytes: six f32 corner UVs and an int32 key per face in, the int32
+        # winner per texel out; the tests are a few per face
+        bound, by = bound_ms(0, 28 * len(key) + 4 * res * res, PEAK_F32_FLOPS)
+        row = {"ms": cuda_ms(lambda: tb.binned_winner(*corners, key, res, margin), iters=10),
+               "plain_ms": cuda_ms(lambda: tb.binned_winner_plain(*corners, key, res, margin), iters=2, warmup=1,
+                                   graph=False),
+               "bound_ms": bound}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "bound_share": bound / row["ms"],
+                        "launches_per_asset": n}))
+        for k in totals:
+            totals[k] += n * row[k]
+    if failures:
+        raise AssertionError("K8 " + "; ".join(failures))
+    return totals
+
+
+def check_points(g, sf3d, timed=True):
+    """K6 at 512^2 = 262 144 texel points (uniform in the radius cube) of
+    random unit-scale (3, 40, 384, 384) codes, with the full-width decoder's
+    features and perturb-normal heads and N(0, K5_BIAS_STD) biases, against
+    its plain version on the same bf16 inputs: each raw channel within
+    K6_SPREAD_SHARE of its spread."""
+    from sculptmate_tpu_torch.ops import density_grid as dg
+
+    heads = [[(w, K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g)) for w, b in layers]
+             for layers in sf3d.texel_head_weights().values()]
+    spec = sf3d.grid_spec(torch.bfloat16)
+    codes = torch.randn(3, sf3d.config.upsample_out_channels, 384, 384, device="cuda", generator=g).to(torch.bfloat16)
+    N = 512 * 512
+    pts = [(torch.rand(N, device="cuda", generator=g) * 2 - 1) * spec.radius for _ in range(3)]
+    out = dg.points_multihead(codes, heads, *pts, spec)
+    torch.cuda.synchronize()
+    ref = dg.points_multihead_plain(codes, heads, *pts, spec)
+    errs = [(out[k] - ref[k]).abs().max().item() for k in range(len(ref))]
+    limits = [K6_SPREAD_SHARE * (ref[k] - ref[k].mean()).abs().max().item() for k in range(len(ref))]
+    bad = [k for k in range(len(ref)) if not errs[k] <= limits[k]]
+    line = {"check": "K6", "case": "texel query, 512^2 points", "dtype": "bfloat16", "max_abs_err": max(errs),
+            "max_abs_err_per_channel": errs, "limit_per_channel": limits}
+    if bad or not torch.isfinite(out).all():
+        log(json.dumps({**line, "check_passed": False}))
+        raise AssertionError(f"K6 channels {bad} past {K6_SPREAD_SHARE} of their spread")
+    if not timed:
+        log(json.dumps({**line, "check_passed": True}))
+        return None
+    # per point: 120 -> 2 x 64, two hidden 64 x 64 layers per head, 2 x 64 -> 3
+    # (the block-diagonal zeros are no work); bytes: the bf16 codes read once,
+    # three f32 coordinates in, six f32 outputs out
+    flops = N * 2 * (120 * 128 + 2 * 2 * 64 * 64 + 2 * 64 * 3)
+    bound, by = bound_ms(flops, codes.numel() * 2 + N * (12 + 24), PEAK_BF16_FLOPS)
+    packed = dg.pack_points_inputs(codes, heads)
+    row = {"ms": cuda_ms(lambda: dg.points_multihead(codes, heads, *pts, spec, packed=packed), iters=10),
+           "relayout_ms": cuda_ms(lambda: dg.pack_points_inputs(codes, heads), iters=10),
+           "plain_ms": cuda_ms(lambda: dg.points_multihead_plain(codes, heads, *pts, spec), iters=3, graph=False),
+           "bound_ms": bound}
+    log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "bound_share": bound / row["ms"],
+                    "launches_per_asset": 1}))
+    return max(errs), row, by
+
+
+def check_unwrap(scene, timed=True):
+    """K9 on the full-width asset's mesh against its plain version given the
+    kernel's slice angles: the same atlas index on K9_ATLAS_SHARE of the
+    faces, UVs within K9_UV_LIMIT where it agrees; and the kernel's angles
+    against the plain version's own sums within K9_ANGLE_LIMIT."""
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
+
+    pos, f = scene["pos"], scene["f"]
+    uv, atlas, angles = ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+    torch.cuda.synchronize()
+    ref_uv, ref_atlas, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], angles=angles)
+    _, _, own_angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+    same = atlas == ref_atlas
+    share = same.float().mean().item()
+    uv_err = (uv - ref_uv)[:, same].abs().max().item() if bool(same.any()) else float("inf")
+    ang_err = (angles - own_angles).abs().max().item()
+    line = {"check": "K9", "case": "unwrap of the full-width mesh", "faces": int(f.shape[1]),
+            "atlas_equal_share": share, "uv_max_abs_err": uv_err, "angle_max_abs_err": ang_err,
+            "limits": {"atlas_equal_share": K9_ATLAS_SHARE, "uv": K9_UV_LIMIT, "angles": K9_ANGLE_LIMIT},
+            "classes": torch.bincount(atlas // 6, minlength=3).tolist()}
+    ok = share >= K9_ATLAS_SHARE and uv_err <= K9_UV_LIMIT and ang_err <= K9_ANGLE_LIMIT and bool(
+        torch.isfinite(uv).all())
+    if not ok:
+        log(json.dumps({**line, "check_passed": False}))
+        raise AssertionError(f"K9 atlas share {share}, uv err {uv_err}, angle err {ang_err}")
+    if not timed:
+        log(json.dumps({**line, "check_passed": True}))
+        return None
+    # bytes: positions and faces in, per-corner f32 UVs and the atlas index
+    # out, plus the two visibility rasters' (faces in, 1024^2 winners out)
+    F, Nv = int(f.shape[1]), int(pos.shape[1])
+    bound, by = bound_ms(0, 12 * Nv + 12 * F + 28 * F + 2 * (28 * F + 4 * 1024 * 1024), PEAK_F32_FLOPS)
+    row = {"ms": cuda_ms(lambda: ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2]), iters=5),
+           "plain_ms": cuda_ms(lambda: ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2]), iters=2,
+                               warmup=1, graph=False),
+           "bound_ms": bound}
+    log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "bound_share": bound / row["ms"],
+                    "launches_per_asset": 1}))
+    return max(uv_err, 1.0 - share), row, by
+
+
 def randomize_modulations(sf3d, generator, share=0.1):
     """Nonzero AdaLN modulation weights (the module zero-initialises them,
     so a seeded model would never exercise the camera conditioning):
@@ -462,44 +693,33 @@ def sf3d_mesh_ok(mesh, sf3d):
     )
 
 
-def sf3d_path(gen):
-    """Full-width SF3D path: Fast3DGenerator once with the launch counters
-    around it, then a warm-up and 3 timed assets through run_image, then a
-    profile of one asset."""
+def sf3d_path(gen, scene):
+    """Full-width SF3D path, untextured: Fast3DGenerator once with the
+    launch counters around it (the unwrap is K9's on the card), then a
+    warm-up and 3 timed assets through run_image, then a profile of one
+    asset."""
+    from sculptmate_tpu_torch.geometry import texture_bake as tb
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
     from sculptmate_tpu_torch.ops import density_grid as dg
     from sculptmate_tpu_torch.ops.attention import flash_attention
 
     sf3d = gen.model
-    rng = np.random.default_rng(4)
-    # a matted object: random colors inside a disc of alpha 1
-    image = rng.random((512, 512, 4)).astype(np.float32)
-    yy, xx = np.mgrid[:512, :512]
-    image[..., 3] = ((yy - 256) ** 2 + (xx - 256) ** 2 < 180**2).astype(np.float32)
-
-    # threshold: the 99th percentile of the density on a 41^3 lattice
-    # (random weights never reach the config's 10; this keeps the surface
-    # the size of a real object's)
-    mask, rgb = sf3d.prepare_image(torch.from_numpy(image[None]).cuda())
-    codes, _ = sf3d.get_scene_codes(rgb)
-    d41 = dg.query_grid_multihead(codes[0], sf3d.lattice_head_weights(),
-                                  dg.lattice_coords_tets(40, "cuda"),
-                                  dataclasses.replace(sf3d.grid_spec(sf3d.extract_dtype), resolution=41))["density"]
-    threshold = float(torch.quantile(torch.exp(d41[0].flatten() - 1.0), 0.99))
-    log(f"# sf3d threshold (99th percentile of the 41^3 density): {threshold}")
-
+    image, threshold = scene["image"], scene["threshold"]
     with tempfile.TemporaryDirectory() as tmp:
         glb = os.path.join(tmp, "asset.glb")
         torch.cuda.synchronize()
-        flash_attention.launches = dg.grid_multihead.launches = 0
+        flash_attention.launches = dg.grid_multihead.launches = tb.binned_winner.launches = 0
+        ud.unwrap_core.launches = 0
         rc = gen.generate_mesh(image, output_path=glb, enable_texture=False, threshold=threshold)
         torch.cuda.synchronize()
-        launches = {"K1": flash_attention.launches, "K5": dg.grid_multihead.launches}
+        launches = {"K1": flash_attention.launches, "K5": dg.grid_multihead.launches,
+                    "K8": tb.binned_winner.launches, "K9": ud.unwrap_core.launches}
         glb_bytes = os.path.getsize(glb) if rc == 0 else 0
     log(json.dumps({"sf3d_path": "Fast3DGenerator.generate_mesh(enable_texture=False)", "rc": rc,
                     "launches": launches, "glb_bytes": glb_bytes}))
     if rc != 0:
         raise RuntimeError(f"Fast3DGenerator.generate_mesh returned {rc}")
-    if launches["K1"] != 68 or launches["K5"] < 1:
+    if launches["K1"] != 68 or launches["K5"] < 1 or launches["K9"] < 1 or launches["K8"] < 2:
         raise AssertionError(f"SF3D path missed a kernel: {launches}")
 
     runs, meshes = [], []
@@ -526,7 +746,144 @@ def sf3d_path(gen):
     return launches
 
 
-def planted_faults(g, tsr, sf3d):
+def textures_ok(mesh, res):
+    """A textured SF3D mesh's maps as the bake must give them: albedo and
+    bump (res, res, 3) in [0, 1] and finite, a covered share of the atlas
+    above zero (the UVs rasterized by K8), roughness and metallic in
+    [0, 1], three PNGs; returns (ok, covered share)."""
+    from sculptmate_tpu_torch.geometry import texture_bake as tb
+
+    tex = mesh["textures"]
+    uv = mesh["uvs"].reshape(-1, 3, 2)
+    corners = [torch.from_numpy(np.ascontiguousarray(uv[:, c, d])).cuda() for c in range(3) for d in range(2)]
+    covered = float((tb.rasterize_device(*corners, res)[3] >= 0).float().mean())
+    maps_ok = all(
+        tex[k].shape == (res, res, 3) and np.isfinite(tex[k]).all() and tex[k].min() >= 0 and tex[k].max() <= 1
+        for k in ("albedo", "bump")
+    )
+    pngs = mesh["texture_pngs"]
+    ok = (maps_ok and covered > 0 and 0 <= mesh["roughness"] <= 1 and 0 <= mesh["metallic"] <= 1
+          and set(pngs) == {"baseColor", "normal", "metallicRoughness"} and all(len(v) > 100 for v in pngs.values()))
+    return ok, covered
+
+
+def sf3d_textured_path(gen, scene):
+    """Full-width textured SF3D path (the fused unwrap and bake, 512^2):
+    Fast3DGenerator once with the launch counters around it (K1 = 68, K5,
+    K9, K8 >= 3: two visibility rounds and the bake, K6) and a GLB holding
+    three images; then a warm-up and 3 timed run_image assets, every mesh
+    and map checked; then a profile of one asset."""
+    from sculptmate_tpu_torch.geometry import texture_bake as tb
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+
+    sf3d = gen.model
+    image, threshold = scene["image"], scene["threshold"]
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = os.path.join(tmp, "asset.glb")
+        torch.cuda.synchronize()
+        flash_attention.launches = dg.grid_multihead.launches = tb.binned_winner.launches = 0
+        ud.unwrap_core.launches = dg.points_multihead.launches = 0
+        rc = gen.generate_mesh(image, output_path=glb, threshold=threshold)  # enable_texture defaults to True
+        torch.cuda.synchronize()
+        data = b""
+        launches = {"K1": flash_attention.launches, "K5": dg.grid_multihead.launches,
+                    "K6": dg.points_multihead.launches, "K8": tb.binned_winner.launches,
+                    "K9": ud.unwrap_core.launches}
+        images = 0
+        if rc == 0:
+            with open(glb, "rb") as fh:
+                data = fh.read()
+            gltf = json.loads(data[20 : 20 + int.from_bytes(data[12:16], "little")])
+            images = len(gltf.get("images", []))
+    log(json.dumps({"sf3d_textured_path": "Fast3DGenerator.generate_mesh()", "rc": rc, "launches": launches,
+                    "glb_bytes": len(data), "glb_images": images}))
+    if rc != 0:
+        raise RuntimeError(f"Fast3DGenerator.generate_mesh returned {rc}")
+    if (launches["K1"] != 68 or launches["K5"] < 1 or launches["K6"] < 1 or launches["K8"] < 3
+            or launches["K9"] < 1 or images != 3):
+        raise AssertionError(f"textured SF3D path missed a kernel or a texture: {launches}, {images} images")
+
+    runs, meshes = [], []
+    for it in range(4):  # 1 warm-up + 3 timed
+        timings = {}
+        t0 = time.perf_counter()
+        mesh = sf3d.run_image(image[None], threshold=threshold, timings=timings)
+        sec = time.perf_counter() - t0
+        if it:
+            runs.append((sec, timings))
+            meshes.append(mesh)
+    checks = [textures_ok(m, 512) if m is not None else (False, 0.0) for m in meshes]
+    bad = [i for i, m in enumerate(meshes) if m is None or not sf3d_mesh_ok(m, sf3d) or not checks[i][0]]
+    split = {k: 1e3 * float(np.median([t[k] for _, t in runs])) for k in runs[0][1]}
+    sec = float(np.median([r[0] for r in runs]))
+    log(json.dumps({"sf3d_textured_path": "SF3D.run_image(enable_texture=True)", "sf3d_textured_sec_per_asset": sec,
+                    "stage_ms": split, "runs_sec": [round(r[0], 4) for r in runs], "bake_resolution": 512,
+                    "verts": [len(m["verts"]) for m in meshes if m], "faces": [len(m["faces"]) for m in meshes if m],
+                    "covered_share": [round(c, 4) for _, c in checks],
+                    "roughness_metallic": [[m["roughness"], m["metallic"]] for m in meshes if m],
+                    "meshes_failing_checks": bad}))
+    if bad:
+        raise AssertionError(f"textured SF3D meshes {bad} failed their checks")
+    where_time_goes("one textured SF3D asset (run_image, fused unwrap and bake 512^2)",
+                    lambda: sf3d.run_image(image[None], threshold=threshold), prefixes=("sf3d.",))
+    return launches
+
+
+def sf3d_async_contract(sf3d, scene):
+    """The fused unwrap and bake's dispatch (``unwrap_bake_async``) of two
+    in-flight assets under ``torch.cuda.set_sync_debug_mode("error")``: a
+    host sync anywhere there raises. Then the waits; their UVs and maps are
+    checked."""
+    verts, faces = scene["verts"], scene["faces"]
+    code, mats = scene["codes"][0], scene["materials"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [sf3d.unwrap_bake_async(verts, faces, code, mats, 512) for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pending = not handles[1].events[-1].query()
+    results = [sf3d.unwrap_bake_wait(h) for h in handles]
+    same = bool(np.array_equal(results[0][0], results[1][0]))
+    ok = all(np.isfinite(uv).all() and uv.min() >= 0 and uv.max() <= 1 and uv.shape == (len(faces), 3, 2)
+             for uv, _ in results)
+    log(json.dumps({"check": "no host sync in unwrap_bake_async", "assets_in_flight": 2, "passed": ok,
+                    "second_pending_after_dispatch": pending, "both_uvs_equal": same}))
+    if not ok or not same:
+        raise AssertionError("the fused unwrap and bake's results failed their checks")
+
+
+def sf3d_farm_path(sf3d, scene):
+    """``SF3DFarm.generate_batch`` on four matted 512^2 RGBA images (the
+    scene's disc, then three with other colors), textured at 512^2: one
+    warm-up batch, one timed; every mesh and map checked."""
+    from sculptmate_tpu_torch.parallel.sf3d_farm import SF3DFarm
+
+    batch = 4
+    rng = np.random.default_rng(6)
+    images = np.repeat(scene["image"][None], batch, axis=0)
+    images[1:, ..., :3] = rng.random((batch - 1, 512, 512, 3)).astype(np.float32)
+    farm = SF3DFarm(sf3d)
+    farm.generate_batch(images[:1], threshold=scene["threshold"])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meshes = farm.generate_batch(images, threshold=scene["threshold"])
+    sec = time.perf_counter() - t0
+    checks = [textures_ok(m, 512) if m is not None else (False, 0.0) for m in meshes]
+    bad = [i for i, m in enumerate(meshes) if m is None or not sf3d_mesh_ok(m, sf3d) or not checks[i][0]]
+    log(json.dumps({"sf3d_farm_path": "SF3DFarm.generate_batch (textured 512^2)", "batch": batch,
+                    "sf3d_farm_sec_per_asset": sec / batch, "batch_sec": round(sec, 4),
+                    "faces": [len(m["faces"]) for m in meshes if m], "covered_share": [round(c, 4) for _, c in checks],
+                    "meshes_failing_checks": bad}))
+    if bad or len(meshes) != batch:
+        raise AssertionError(f"SF3D farm meshes {bad} failed their checks")
+    where_time_goes("one SF3D farm batch of 2 (textured)", lambda: farm.generate_batch(images[:2],
+                    threshold=scene["threshold"]), prefixes=("sf3d_farm.", "sf3d."))
+
+
+def planted_faults(g, tsr, sf3d, scene):
     """Rebuild each kernel from a copy of the sources with one planted fault
     (PLANTED_FAULTS) and run its check, which must fail, at the cases in
     PLANTED_MUST_FAIL among others; then return to the real kernels. The
@@ -547,7 +904,10 @@ def planted_faults(g, tsr, sf3d):
             f.write(src.replace(text, replacement))
         checks = {"flash_attn": lambda: check_attention(g, timed=False),
                   "density_grid": lambda: check_density(g, tsr, timed=False),
-                  "grid_multihead": lambda: check_grid_multihead(g, sf3d, timed=False)}
+                  "grid_multihead": lambda: check_grid_multihead(g, sf3d, timed=False),
+                  "raster_winner": lambda: check_raster(scene, timed=False),
+                  "points_multihead": lambda: check_points(g, sf3d, timed=False),
+                  "uv_unwrap": lambda: check_unwrap(scene, timed=False)}
         with kernels.sources_from(csrc):
             try:
                 checks[kernel]()
@@ -824,10 +1184,14 @@ def main():
         raise RuntimeError("Fast3DGenerator.initiate_model failed")
     with torch.no_grad():
         randomize_modulations(fast.model, torch.Generator(device="cuda").manual_seed(0))
+    scene = sf3d_scene(fast)
     k1_err, k1, k1_by = check_attention(g)
     k2_err, k2_limit, k2, k2_by = check_density(g, gen.model)
     k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
-    planted_faults(g, gen.model, fast.model)
+    k8 = check_raster(scene)
+    k6_err, k6, k6_by = check_points(g, fast.model)
+    k9_err, k9, k9_by = check_unwrap(scene)
+    planted_faults(g, gen.model, fast.model, scene)
     small_model_check()
     lean_launches = main_path(gen)
     matting = frontend_checks()
@@ -840,7 +1204,10 @@ def main():
         prefixes=("farm.", "tsr."),
     )
     sf3d_small_check()
-    sf3d_launches = sf3d_path(fast)
+    sf3d_launches = sf3d_path(fast, scene)
+    tex_launches = sf3d_textured_path(fast, scene)
+    sf3d_async_contract(fast.model, scene)
+    sf3d_farm_path(fast.model, scene)
 
     sf3d_k1 = {f"sf3d_{key}": value for key, value in k1["sf3d"].items()}
     kernels_line = {"kernels": [
@@ -863,13 +1230,33 @@ def main():
          "max_abs_err": k5_err, "limit": f"{K5_SPREAD_SHARE} of each channel's spread", "check": "pass",
          "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5_by,
          "library_ms": None},
+        {"name": "points_multihead_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/points_multihead.cu",
+         "replaces": "sculptmate_tpu/ops/density_grid.py:323", "launches": tex_launches["K6"],
+         "max_abs_err": k6_err, "limit": f"{K6_SPREAD_SHARE} of each channel's spread", "check": "pass",
+         "ms": k6["ms"], "relayout_ms": k6["relayout_ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6_by, "library_ms": None},
+        {"name": "raster_winner", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/raster_winner.cu",
+         "replaces": "sculptmate_tpu/geometry/texture_bake.py:234", "launches": tex_launches["K8"],
+         "launches_untextured": sf3d_launches["K8"], "max_abs_err": 0.0, "limit": "bit-equal winners",
+         "check": "pass", "ms": k8["ms"], "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "uv_unwrap", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/uv_unwrap.cu",
+         "replaces": "sculptmate_tpu/geometry/uv_unwrap_device.py:114", "launches": tex_launches["K9"],
+         "launches_untextured": sf3d_launches["K9"], "max_abs_err": k9_err,
+         "limit": f"atlas equal on {K9_ATLAS_SHARE}, UVs within {K9_UV_LIMIT}", "check": "pass",
+         "ms": k9["ms"], "plain_ms": k9["plain_ms"], "bound_ms": k9["bound_ms"], "bound_by": k9_by,
+         "library_ms": None},
     ]}
     log("# kernel times per asset: K1's ms, plain_ms, bound_ms and library_ms sum its 44 Lean launches (16 attn1 +"
         " 16 attn2 + 12 ViT) and its launches are those of one 8-asset serving batch, as before the SF3D path;"
         " the sf3d_* keys sum its 68 SF3D launches (24 DINOv2-L + 4 fuse-in + 4 fuse-out + 12 latent self + 12"
         " latent cross + 12 CLIP) and count those of one Fast3DGenerator asset; K2 is the 256^3 grid (launches of"
         " the serving batch), K5 the 161^3 tet lattice (launches of the Fast3DGenerator asset); K2's max_abs_err"
-        " is on d before the exp")
+        " is on d before the exp; K6, K8 and K9 count the textured Fast3DGenerator asset's launches; K6's ms is the"
+        " kernel alone, its relayout_ms the planes' bf16 channels-last copy and the weights' packing it takes once"
+        " per asset; K8's times sum its bake raster (512^2) and its two unwrap rasters (1024^2), each measured; K9's"
+        " ms include its two K8 rasters, its plain_ms the plain K8's; K9's max_abs_err is the larger of its UV error"
+        " and the share of faces whose atlas index differs")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

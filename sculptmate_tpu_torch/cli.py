@@ -9,9 +9,10 @@ Counterpart of ``sculptmate_tpu/cli.py``'s ``generate`` and ``decimate``:
 session, on ``--device``) and crops and frames it (``preprocess_image``:
 ratio 0.75 and RGB for the Lean model, 0.85 and RGBA for SF3D, as the
 reference's panel does); then TSR encodes and extracts it (Lean), or SF3D's
-``run_image`` makes an untextured mesh with normals and UVs (fast). The mesh
-is written as GLB or OBJ and one JSON line reports its size and the
-timings. Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
+``run_image`` makes a mesh with normals and UVs, baked with its albedo,
+normal and metallic-roughness textures under ``--texture`` (fast). The mesh
+is written as GLB (with the textures) or OBJ and one JSON line reports its
+size and the timings. Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
 where present, else they are random from ``--seed``.
 """
 
@@ -35,8 +36,6 @@ def _cmd_generate(args: argparse.Namespace) -> int:
     from sculptmate_tpu_torch.io import write_glb, write_obj
 
     fast = args.model == "fast"
-    if fast and args.texture:
-        raise NotImplementedError("--texture with --model fast: the SF3D texture bake is ROADMAP item 12")
     t0 = time.time()
     # EXIF re-orientation at decode (bg.py:128-138); remove() repeats it harmlessly
     img = ImageOps.exif_transpose(Image.open(args.image)).convert("RGBA")
@@ -58,7 +57,7 @@ def _cmd_generate(args: argparse.Namespace) -> int:
         mesh = sf3d.run_image(
             arr,
             vertex_simplification_factor=args.vertex_simplification,
-            enable_texture=False,
+            enable_texture=args.texture,
             threshold=args.threshold,
         )
         t2 = time.time()
@@ -67,6 +66,8 @@ def _cmd_generate(args: argparse.Namespace) -> int:
             return 2
         verts, faces, colors = mesh["verts"], mesh["faces"], None
         extra = {"normals": mesh["normals"], "uvs": mesh["uvs"]}
+        if mesh["texture_pngs"] is not None:
+            extra["textures"] = mesh["texture_pngs"]
     else:
         tsr = TSR(seed=args.seed, device=args.device)
         codes = tsr.scene_codes(arr[..., :3])
@@ -129,7 +130,8 @@ def main(argv=None) -> int:
     g.add_argument("--threshold", type=float, default=None,
                    help="iso-level (default 25 lean, the config's 10 fast)")
     g.add_argument("--ratio", type=float, default=None, help="foreground framing ratio (default 0.75 lean / 0.85 fast)")
-    g.add_argument("--texture", action="store_true", help="vertex colors (lean); fast: not ported yet")
+    g.add_argument("--texture", action="store_true",
+                   help="vertex colors (lean); baked albedo, normal and metallic-roughness textures (fast)")
     g.add_argument("--vertex-simplification", default="high", choices=["high", "medium", "low"])
     g.add_argument("--no-remove-bg", dest="remove_bg", action="store_false")
     g.add_argument("--seed", type=int, default=0)

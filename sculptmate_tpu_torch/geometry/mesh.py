@@ -7,12 +7,11 @@ Counterpart of ``sculptmate_tpu/geometry/mesh.py:Mesh`` (the reference's
   +z;
 - vertex tangents: UV-derivative accumulation divided by counts, then
   Gram-Schmidt against the normal;
-- ``unwrap_uv``: the host cube-projection unwrap (``uv_unwrap.py``), then
-  vertices duplicated per face with flat UVs.
+- ``unwrap_uv``: the cube-projection unwrap on the host (``uv_unwrap.py``)
+  or on the device (``uv_unwrap_device.py``, kernel K9), then vertices
+  duplicated per face with flat UVs.
 
-The device unwrap (the JAX package's ``backend="device"``, kernel K9) is not
-ported yet, and neither are the remeshing helpers, which no ported path
-calls.
+The remeshing helpers are not ported: no ported path calls them.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 def _scatter_add_rows(out: np.ndarray, idx: np.ndarray, vals: np.ndarray) -> None:
@@ -127,14 +127,21 @@ class Mesh:
         return tangents / np.maximum(np.linalg.norm(tangents, axis=1, keepdims=True), 1e-12)
 
     # -- UVs --------------------------------------------------------------
-    def unwrap_uv(self, island_padding: float = 0.02, backend: str = "host") -> "Mesh":
-        """Cube-projection unwrap on the host (numpy + the C++ overlap
-        painter). ``"device"`` and ``"auto"`` name the device unwrap (kernel
-        K9), which is not ported yet."""
+    def unwrap_uv(self, island_padding: float = 0.02, backend: str = "host", device="cpu") -> "Mesh":
+        """Cube-projection unwrap, then vertices duplicated per face.
+        ``backend``: "host" (numpy and the C++ overlap painter), "device"
+        (``uv_unwrap_device.unwrap_device`` on ``device``: kernel K9 on the
+        card, its plain version on the CPU) or "auto" (the device on a CUDA
+        ``device``, the host otherwise)."""
+        if backend == "auto":
+            backend = "device" if torch.device(device).type == "cuda" else "host"
+        if backend == "device":
+            from sculptmate_tpu_torch.geometry.uv_unwrap_device import unwrap_device
+
+            uv_flat, _ = unwrap_device(self.v_pos, self.t_pos_idx, island_padding, return_flat=True, device=device)
+            return self.apply_flat_uv(uv_flat)
         if backend != "host":
-            raise NotImplementedError(
-                f"unwrap backend {backend!r}: the device unwrap (K9) is ROADMAP item 12; use backend='host'"
-            )
+            raise ValueError(f"unwrap backend {backend!r}: 'host', 'device' or 'auto'")
         from sculptmate_tpu_torch.geometry.uv_unwrap import unwrap
 
         uv, indices = unwrap(self.v_pos, self.v_nrm, self.t_pos_idx, island_padding)

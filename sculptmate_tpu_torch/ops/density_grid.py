@@ -18,7 +18,10 @@ The rest of the MLP over all R^3 points is kernel K2
 SF3D's lattice query (``query_grid_multihead``) uses the same scheme for two
 heads at once, their first layers side by side; the rest of both heads is
 kernel K5 (``csrc/grid_multihead.cu``) on a CUDA tensor and
-``grid_multihead_plain`` on a CPU tensor.
+``grid_multihead_plain`` on a CPU tensor. The texture bake's scattered
+two-head query (``query_points_multihead``) is kernel K6
+(``csrc/points_multihead.cu``) on a CUDA tensor and
+``points_multihead_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -353,6 +356,154 @@ def query_grid_multihead(
     heads = list(head_weights.values())
     A, B, C = multihead_partials(triplane, heads, coords, spec)
     out = grid_multihead(A, B, C, heads, spec)
+    split, col = {}, 0
+    for name, w in head_weights.items():
+        k = w[-1][0].shape[1]
+        split[name] = out[col : col + k]
+        col += k
+    return split
+
+
+# -- SF3D: the bake's scattered two-head query (kernel K6) --
+
+
+def _inv_radius(spec: DensityGridSpec) -> float:
+    """The f32 reciprocal of the radius (f32 1 / f32 r)."""
+    return float(torch.tensor(1.0) / torch.tensor(spec.radius))
+
+
+def points_multihead_plain(
+    triplane: torch.Tensor, heads: Sequence[Weights], px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
+    spec: DensityGridSpec,
+) -> torch.Tensor:
+    """Plain version of kernel K6. triplane (3, C, H, W), flat (N,) world
+    coords -> (K_total, N) f32 raw outputs of the heads, one after another
+    (no output activation), channels in head order. The planes are cast to
+    the compute dtype before the bilinear sample, as the JAX package does;
+    the coordinates are scaled by the f32 reciprocal of the radius, as XLA
+    computes their division by it."""
+    cd = spec.compute_dtype
+    act = get_activation(spec.activation)
+    inv_r = _inv_radius(spec)
+    feats = sample_triplane(triplane.to(cd), px * inv_r, py * inv_r, pz * inv_r, spec.align_corners).to(cd)
+    outs = []
+    for weights in heads:
+        h = feats
+        for W, b in weights[:-1]:
+            h = act(W.to(cd).t() @ h + b.to(cd)[:, None])
+        W, b = weights[-1]
+        outs.append((W.to(cd).t() @ h + b.to(cd)[:, None]).float())
+    return torch.cat(outs)
+
+
+def _points_lib():
+    fn = kernels.load("points_multihead").points_multihead_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_K6_LAYERS = 2  # hidden 64x64 layers per head kernel K6 is built for (MaterialMLP's features/perturb_normal)
+_K6_ROW = 128 + 8  # padded row of the first and output layers, in bf16 values
+_K6_HROW = _HIDDEN + 8  # padded row of a hidden layer's per-head block
+
+
+def pack_points_weights(heads: Sequence[Weights], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two heads in kernel K6's layout, bf16 rows (out, in) padded so
+    the kernel copies them to shared memory as they lie: the first layers
+    side by side (128 rows of 120 features), each hidden layer as the two
+    heads' 64 x 64 blocks (128 rows of 64), then an 8-row output tile with
+    head 0's channels from row 0 and head 1's after them (each reading its
+    own head's 64 columns). Biases f32: the first layers', each hidden
+    layer's, then the output channels' zero-padded to 8."""
+    k0 = heads[0][-1][0].shape[1]
+    dev = heads[0][0][0].device
+    bf = lambda t: t.detach().to(torch.bfloat16)  # noqa: E731
+    w1 = torch.zeros(2 * _HIDDEN, _K6_ROW, dtype=torch.bfloat16, device=dev)
+    w1[:, : heads[0][0][0].shape[0]] = torch.cat([bf(h[0][0]).t() for h in heads])
+    hidden = torch.zeros(_K6_LAYERS, 2 * _HIDDEN, _K6_HROW, dtype=torch.bfloat16, device=dev)
+    for layer in range(_K6_LAYERS):
+        hidden[layer, :, :_HIDDEN] = torch.cat([bf(h[1 + layer][0]).t() for h in heads])
+    wout = torch.zeros(8, _K6_ROW, dtype=torch.bfloat16, device=dev)
+    bias_out = torch.zeros(8, dtype=torch.bfloat16, device=dev)
+    for i, (w, b) in enumerate(h[-1] for h in heads):
+        off = 0 if i == 0 else k0
+        wout[off : off + w.shape[1], i * _HIDDEN : (i + 1) * _HIDDEN] = bf(w).t()
+        bias_out[off : off + w.shape[1]] = bf(b)
+    W = torch.cat([w1.flatten(), hidden.flatten(), wout.flatten()])
+    bias = torch.cat(
+        [torch.cat([bf(h[0][1]) for h in heads])]
+        + [torch.cat([bf(h[1 + layer][1]) for h in heads]) for layer in range(_K6_LAYERS)]
+        + [bias_out]
+    ).float()
+    return W.to(device).contiguous(), bias.to(device).contiguous()
+
+
+def pack_points_inputs(triplane: torch.Tensor, heads: Sequence[Weights]):
+    """Kernel K6's inputs besides the points, laid out once per scene code:
+    the planes as bf16 (3, H, W, C), so that a bilinear tap is one
+    contiguous 80-byte row, and the heads as ``pack_points_weights`` packs
+    them -> (planes, weights, biases)."""
+    planes = triplane.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+    return (planes, *pack_points_weights(heads, triplane.device))
+
+
+def points_multihead(
+    triplane: torch.Tensor, heads: Sequence[Weights], px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
+    spec: DensityGridSpec, packed=None,
+) -> torch.Tensor:
+    """Kernel K6 on CUDA tensors, its plain version on CPU tensors (same
+    arguments and result as ``points_multihead_plain``). ``packed``: the
+    result of ``pack_points_inputs`` for these planes and heads, when the
+    caller has it already."""
+    if not triplane.is_cuda:
+        return points_multihead_plain(triplane, heads, px, py, pz, spec)
+    if spec.compute_dtype != torch.bfloat16:
+        raise TypeError(f"point query kernel computes in bf16, got {spec.compute_dtype} (use a bf16 extract dtype)")
+    if spec.activation.lower() != "silu":
+        raise ValueError("point query kernel implements silu hidden layers only")
+    P, C, H, W = triplane.shape
+    k_total = sum(w[-1][0].shape[1] for w in heads)
+    if (
+        P != 3 or C != 40 or len(heads) != 2
+        or any(len(w) != _K6_LAYERS + 2 or w[0][0].shape != (3 * C, _HIDDEN) for w in heads)
+        or any(w[1 + i][0].shape != (_HIDDEN, _HIDDEN) for w in heads for i in range(_K6_LAYERS))
+        or k_total > 8
+    ):
+        raise ValueError("point query kernel takes two heads of 120 -> 64 and two hidden 64x64 layers, "
+                         "at most 8 outputs in all, over (3, 40, H, W) planes")
+    N = px.shape[0]
+    coords = [kernels.aligned(t.float()) for t in (px, py, pz)]
+    if any(t.shape != (N,) for t in coords):
+        raise ValueError("point query kernel takes three flat (N,) coordinate arrays")
+    dev = triplane.device
+    planes, Wp, bias = packed if packed is not None else pack_points_inputs(triplane, heads)
+    out = torch.empty((k_total, N), dtype=torch.float32, device=dev)
+    inv_r = _inv_radius(spec)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = _points_lib()(
+        planes.data_ptr(), *(t.data_ptr() for t in coords), Wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        N, H, W, k_total, inv_r, int(spec.align_corners), num_sms, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "points_multihead_fwd")
+    points_multihead.launches += 1
+    return out
+
+
+points_multihead.launches = 0
+
+
+def query_points_multihead(
+    triplane: torch.Tensor, head_weights: Dict[str, Weights], px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
+    spec: DensityGridSpec,
+) -> Dict[str, torch.Tensor]:
+    """Scattered multi-head query (the texture bake, ``sf3d/system.py:375-377``):
+    flat (N,) world coords -> {head: (K, N) f32 raw outputs}, channels
+    first; kernel K6 on the card."""
+    out = points_multihead(triplane, list(head_weights.values()), px, py, pz, spec)
     split, col = {}, 0
     for name, w in head_weights.items():
         k = w[-1][0].shape[1]

@@ -90,8 +90,8 @@ class TripoGenerator:
 
 class Fast3DGenerator:
     """Counterpart of ``sculptmate_tpu/pipelines/generate.py:Fast3DGenerator``
-    (``StableFast/generate.py:8-59``), untextured: the texture bake is
-    ROADMAP item 12, so ``enable_texture=True`` fails with return code 2."""
+    (``StableFast/generate.py:8-59``): a textured mesh by default, with the
+    albedo, normal and metallic-roughness maps in the GLB."""
 
     def __init__(self):
         self.model = None
@@ -122,8 +122,9 @@ class Fast3DGenerator:
         threshold: Optional[float] = None,
     ) -> int:
         """image: (H, W, 4) RGBA (or 3 channels), uint8-range or [0, 1].
-        Writes a GLB with normals and UVs. ``threshold`` overrides the
-        config's iso-level."""
+        Writes a GLB with normals and UVs and, with ``enable_texture``, the
+        three baked textures. ``threshold`` overrides the config's
+        iso-level."""
         if self.model is None:
             return 1
         try:
@@ -145,7 +146,7 @@ class Fast3DGenerator:
             if mesh is None or len(mesh["verts"]) == 0:
                 return 2
             write_glb(output_path or f"{mesh_name}.glb", mesh["verts"], mesh["faces"], normals=mesh["normals"],
-                      uvs=mesh["uvs"])
+                      uvs=mesh["uvs"], textures=mesh["texture_pngs"])
             return 0
         except Exception:
             print("[Generation Error]", traceback.format_exc())

@@ -1,27 +1,38 @@
-"""SF3D system: the Stable Fast 3D ("Pro") image -> mesh model in PyTorch.
+"""SF3D system: the Stable Fast 3D ("Pro") image -> textured mesh model in
+PyTorch.
 
 Counterpart of ``sculptmate_tpu/systems/sf3d.py`` (``sf3d/system.py:96-528``
-in the reference), untextured: camera-modulated DINOv2-large tokenizer ->
-learned 96^2 triplane tokens -> two-stream interleave backbone ->
-pixel-shuffle upsample to (3, 40, 384, 384) codes -> the density and
-vertex-offset heads of ``MaterialMLP`` over the 161^3 marching-tets lattice
-(kernel K5) -> wire-format marching tets on the device -> one uint8
-transfer -> faces rebuilt and snapped vertices welded on the host by the
-native wire decoder -> quadric decimation to the vertex budget -> host
-cube-projection UV unwrap.
+in the reference): camera-modulated DINOv2-large tokenizer -> learned 96^2
+triplane tokens -> two-stream interleave backbone -> pixel-shuffle upsample
+to (3, 40, 384, 384) codes -> the density and vertex-offset heads of
+``MaterialMLP`` over the 161^3 marching-tets lattice (kernel K5) ->
+wire-format marching tets on the device -> one uint8 transfer -> faces
+rebuilt and snapped vertices welded on the host by the native wire decoder
+-> quadric decimation to the vertex budget -> the cube-projection UV unwrap
+-> the texture bake.
+
+The unwrap runs on the device (kernel K9, with the rasterizer K8) when the
+model is on the card and on the host otherwise. The bake rasterizes the
+atlas (K8), interpolates world positions, queries the features and
+perturb-normal heads there (K6), composes the tangent-space bump map,
+dilates the islands and quantizes to uint8; the three PNGs are encoded on
+the host without PIL. On the card the unwrap and the bake run fused
+(``unwrap_bake``): one upload of u16-quantized rotated positions and int32
+faces, one set of asynchronous copies back (the textures as uint8, the
+per-corner UVs as f32), no host sync in the dispatch.
 
 Parameters are f32 and the encoder computes in ``dtype`` (bf16 on the card)
-under autocast; the lattice query computes in ``extract_dtype``, which
-follows it. The wire has a fixed vertex capacity whose counters are exact:
-an overflow is detected and re-extracted with a grown capacity, never
+under autocast; the lattice and texel queries compute in ``extract_dtype``,
+which follows it. The wire has a fixed vertex capacity whose counters are
+exact: an overflow is detected and re-extracted with a grown capacity, never
 decoded truncated; the capacity that worked is remembered on the instance
 and on disk (``runtime/capacity_cache.py``, key ``torch_sf3d_mt_r<res>``).
+The rasterizer has no capacity at all.
 
 Each stage runs inside a ``torch.profiler`` span named ``sf3d.<stage>``:
 ``encode``, ``extract`` (holding ``grid``, ``marching_tets``,
-``wire_to_host`` and ``wire_decode``), ``decimate`` and ``unwrap``. The
-texture bake (kernels K6, K8, K9 and the fused unwrap-and-bake) is not
-ported yet: ``enable_texture=True`` raises.
+``wire_to_host`` and ``wire_decode``), ``decimate``, then ``unwrap_bake``
+(fused) or ``unwrap`` and ``bake``.
 """
 
 from __future__ import annotations
@@ -36,10 +47,13 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from sculptmate_tpu_torch.geometry import mt_wire
+from sculptmate_tpu_torch.geometry import mt_wire, texture_bake
 from sculptmate_tpu_torch.geometry.decimate import decimate, vertex_normals
 from sculptmate_tpu_torch.geometry.marching_tets import N_WIRE_COUNTS, lattice_size, mt_wire_device
 from sculptmate_tpu_torch.geometry.mesh import Mesh
+from sculptmate_tpu_torch.geometry.uv_unwrap import _main_axis_rotation
+from sculptmate_tpu_torch.geometry.uv_unwrap_device import unwrap_core
+from sculptmate_tpu_torch.io.png import encode_png
 from sculptmate_tpu_torch.models.camera import LinearCameraEmbedder, default_cond_c2w, intrinsic_from_fov_deg
 from sculptmate_tpu_torch.models.clip import CLIPAttention
 from sculptmate_tpu_torch.models.dinov2 import DINOV2SingleImageTokenizer
@@ -53,11 +67,12 @@ from sculptmate_tpu_torch.ops.density_grid import (
     lattice_coords_tets,
     mlp_weights_from_params,
     query_grid_multihead,
+    query_points_multihead,
 )
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
 from sculptmate_tpu_torch.runtime import capacity_cache
 from sculptmate_tpu_torch.runtime.device import resolve_device
-from sculptmate_tpu_torch.systems.tsr import upload
+from sculptmate_tpu_torch.systems.tsr import _HostCopy, _to_host_async, upload
 
 DEFAULT_HEADS = (
     {"name": "density", "out_channels": 1, "out_bias": -1.0, "n_hidden_layers": 2,
@@ -71,6 +86,8 @@ DEFAULT_HEADS = (
 # the heads the lattice query runs, in output-channel order (kernel K5 takes
 # exactly this pair)
 _LATTICE_HEADS = ("density", "vertex_offset")
+# the heads the texel query runs, in output-channel order (kernel K6)
+_TEXEL_HEADS = ("features", "perturb_normal")
 # vertex budget per simplification setting (sf3d/system.py:346-351; "medium"
 # is accepted beside the reference's "med")
 _BUDGET = {"high": 0.75, "med": 0.4, "medium": 0.4, "low": 0.1}
@@ -312,89 +329,329 @@ class SF3D:
             self._mt_cap = persisted[0] if persisted else 24 * N * N
         return self._mt_cap
 
+    def extract_wire_async(self, scene_code: torch.Tensor, threshold: float, max_verts: int) -> _HostCopy:
+        """Enqueue one asset's lattice query and MT wire, then the wire's copy
+        to pinned host memory; nothing here waits for the device."""
+        return _to_host_async(self._extract_wire(scene_code, threshold, max_verts, float(self.config.weld_eps)))
+
+    def extract_mesh(self, scene_code: torch.Tensor, threshold: float, pending: Optional[Tuple[_HostCopy, int]] = None):
+        """Wire extraction of one asset -> (verts world f32, faces i32, raw
+        vertex count) or None for an empty surface. ``pending``: a wire
+        already in flight (``extract_wire_async``) and the vertex capacity it
+        was enqueued with. An overflow is re-extracted with a grown capacity,
+        never decoded truncated."""
+        c = self.config
+        res = c.isosurface_resolution
+        host, mv = pending if pending is not None else (None, self._capacity(res))
+        while True:
+            if host is None:
+                host = self.extract_wire_async(scene_code, threshold, mv)
+            with record_function("sf3d.wire_to_host"):
+                wire = host.wire()
+            nv = int(mt_wire.wire_counts(wire, N_WIRE_COUNTS)[0])
+            if nv <= mv:
+                break
+            mv, host = max(mv, 65536 * -(-int(1.2 * nv) // 65536)), None
+        # tighten toward the observed count, so one giant mesh does not
+        # inflate every later extraction; this wire keeps its capacity
+        self._mt_cap = capacity_cache.tighten(mv, nv)
+        capacity_cache.store(f"torch_sf3d_mt_r{res}", (self._mt_cap,))
+        if nv == 0:
+            return None
+        with record_function("sf3d.wire_decode"):
+            # weld the snapped vertices, drop the degenerate slivers
+            lverts, faces, _ = mt_wire.decode_wire(wire, res, mv, weld=c.weld_eps > 0)
+        return lverts * (2 * c.radius) - c.radius, faces, nv  # [0, 1] lattice -> world bbox
+
+    @staticmethod
+    def decimate_mesh(verts, faces, nv: int, vertex_simplification_factor: str, normals: bool):
+        """Quadric decimation to the vertex budget, which counts the raw
+        pre-weld vertices ``nv`` as the JAX package does -> (verts, faces,
+        vertex normals | None). With ``normals`` False (the fused bake derives
+        its own per-face normals) no normals are computed."""
+        vertex_count = round(_BUDGET.get(vertex_simplification_factor, 0.75) * nv)
+        if vertex_count < len(verts):
+            ratio = vertex_count / len(verts)
+            if normals:
+                return decimate(verts, faces, target_ratio=ratio, return_normals=True)
+            return (*decimate(verts, faces, target_ratio=ratio), None)
+        return verts, faces, vertex_normals(verts, faces) if normals else None
+
     def run_image(
         self,
         image,
+        bake_resolution: int = 512,
         remesh: str = "triangle",
         vertex_simplification_factor: str = "high",
         estimate_illumination: bool = False,
         enable_texture: bool = True,
         threshold: Optional[float] = None,
         timings: Optional[Dict[str, float]] = None,
+        fused: Optional[bool] = None,
     ) -> Optional[Dict[str, Any]]:
         """image: (1, H, W, 3|4) float in [0, 1] (array or tensor). Returns
-        the mesh as a dict of host arrays (verts, faces, uvs, normals; the
-        texture keys None), or None when the surface is empty.
+        the mesh as a dict of host arrays (verts, faces, uvs, normals) with
+        the textures (``textures``, ``texture_pngs``, ``roughness``,
+        ``metallic``; None without ``enable_texture``), or None when the
+        surface is empty.
 
-        ``timings``: when given, each stage (encode, extract, decimate,
-        unwrap) is bracketed by device syncs and its seconds stored there."""
-        if enable_texture:
-            raise NotImplementedError("SF3D texture bake (K6, K8, K9, unwrap_bake) is ROADMAP item 12")
+        ``fused``: the one-dispatch unwrap and bake (default: on when the
+        model is on the card). ``timings``: when given, each stage (encode,
+        extract, decimate, then unwrap_bake, or unwrap and bake) is bracketed
+        by device syncs and its seconds stored there."""
 
         def stage(name: str):
             return _stage(name, timings, self.device)
 
         c = self.config
+        use_fused = enable_texture and (fused if fused is not None else self.device.type == "cuda")
         with stage("encode"):
             mask, rgb = self.prepare_image(upload(image, self.device))
             scene_codes, direct_codes = self.get_scene_codes(rgb)
-            # the JAX package always runs the material estimate here; only
-            # the texture bake consumes it
-            self.estimate_materials(rgb * mask)
+            materials = self.estimate_materials(rgb * mask)
             if estimate_illumination:
                 self.estimate_illumination(direct_codes)
 
         thr = float(c.isosurface_threshold if threshold is None else threshold)
-        res = c.isosurface_resolution
-        mv = self._capacity(res)
         with stage("extract"):
-            while True:
-                wire = self._extract_wire(scene_codes[0], thr, mv, float(c.weld_eps))
-                with record_function("sf3d.wire_to_host"):
-                    wire = wire.cpu().numpy()
-                nv = int(mt_wire.wire_counts(wire, N_WIRE_COUNTS)[0])
-                if nv <= mv:  # overflow is detected, never decoded truncated
-                    break
-                mv = max(mv, 65536 * -(-int(1.2 * nv) // 65536))
-            # tighten toward the observed count, so one giant mesh does not
-            # inflate every later extraction; this wire keeps its capacity
-            self._mt_cap = capacity_cache.tighten(mv, nv)
-            capacity_cache.store(f"torch_sf3d_mt_r{res}", (self._mt_cap,))
-            if nv == 0:
-                return None
-            with record_function("sf3d.wire_decode"):
-                # weld the snapped vertices, drop the degenerate slivers
-                lverts, faces, _ = mt_wire.decode_wire(wire, res, mv, weld=c.weld_eps > 0)
-            verts = lverts * (2 * c.radius) - c.radius  # [0, 1] lattice -> world bbox
-
-        # the budget counts the raw pre-weld vertices (nv), as the JAX package
-        vertex_count = round(_BUDGET.get(vertex_simplification_factor, 0.75) * nv)
+            extracted = self.extract_mesh(scene_codes[0], thr)
+        if extracted is None:
+            return None
+        verts, faces, nv = extracted
         v_nrm = None
         if remesh == "triangle":
             with stage("decimate"):
-                if vertex_count < len(verts):
-                    verts, faces, v_nrm = decimate(
-                        verts, faces, target_ratio=vertex_count / len(verts), return_normals=True
-                    )
-                else:  # the weld already reached the budget: normals only
-                    v_nrm = vertex_normals(verts, faces)
+                verts, faces, v_nrm = self.decimate_mesh(verts, faces, nv, vertex_simplification_factor, not use_fused)
         mesh = Mesh(verts, faces)
         if v_nrm is not None:
             mesh._v_nrm = v_nrm
+        if use_fused:
+            with stage("unwrap_bake"):
+                uv_flat, textures = self.unwrap_bake(
+                    mesh.v_pos, mesh.t_pos_idx, scene_codes[0], materials, bake_resolution
+                )
+                mesh.apply_flat_uv(uv_flat)
+            return {**mesh_arrays(mesh), **textures}
         with stage("unwrap"):
-            # host unwrap: the JAX package's "auto" takes its device unwrap
-            # on an accelerator, whose port (K9) is ROADMAP item 12
-            mesh.unwrap_uv(backend="host")
-        return {
-            "verts": mesh.v_pos,
-            "faces": mesh.t_pos_idx,
-            "uvs": mesh.v_tex,
-            "normals": mesh.v_nrm,
-            "textures": None,
-            "texture_pngs": None,
-            "roughness": None,
-            "metallic": None,
-        }
+            # the device unwrap (K9) on the card, the host one on the CPU
+            mesh.unwrap_uv(backend="auto", device=self.device)
+        out = {**mesh_arrays(mesh), "textures": None, "texture_pngs": None, "roughness": None, "metallic": None}
+        if enable_texture:
+            with stage("bake"):
+                out.update(self.bake_textures(mesh, scene_codes[0], materials, bake_resolution))
+        return out
+
+    # -- stage 3: the texture bake ------------------------------------
+    def texel_head_weights(self):
+        """The features and perturb-normal heads' weights, in that order."""
+        return {n: mlp_weights_from_params(self.module.decoder.heads[n]) for n in _TEXEL_HEADS}
+
+    def _surface_query(self, scene_code, px, py, pz):
+        """Albedo (sigmoid of the features head) and the unit perturbed
+        normal at flat (N,) world positions (kernel K6 on the card)."""
+        out = query_points_multihead(scene_code, self.texel_head_weights(), px, py, pz,
+                                     self.grid_spec(self.extract_dtype))
+        albedo = torch.sigmoid(out["features"])
+        pn = out["perturb_normal"]
+        return albedo, pn / torch.linalg.vector_norm(pn, dim=0, keepdim=True).clamp_min(1e-12)
+
+    @torch.inference_mode()
+    def _bake_core(self, scene_code, uc, vc, pos_cf, fa, fb, fc, res: int):
+        """Rasterize per-corner UVs (K8), interpolate world positions, query
+        the materials (K6), compose the tangent-space bump, dilate the
+        islands. ``uc``/``vc``: the corners' flat (F,) UV rows; ``pos_cf``:
+        (3, Nv) world positions; ``fa/fb/fc``: the corners' vertex ids.
+        Returns (albedo (3, res, res), bump (3, res, res), mask (res, res))."""
+        with record_function("sf3d.raster"):
+            rast = texture_bake.rasterize_device(uc[0], vc[0], uc[1], vc[1], uc[2], vc[2], res)
+        mask = texture_bake.get_mask(rast)
+        tid = rast[3].to(torch.int64).clamp_min(0).flatten()  # the winner face
+        fa, fb, fc = (f.long() for f in (fa, fb, fc))
+        pos = texture_bake.interpolate_device(pos_cf, rast, fa, fb, fc)
+        p0, p1, p2 = (pos_cf[:, f[tid]] for f in (fa, fb, fc))
+        uv_rows = torch.stack([uc[0], vc[0], uc[1], vc[1], uc[2], vc[2]])[:, tid]
+        uv0, uv1, uv2 = uv_rows[0:2], uv_rows[2:4], uv_rows[4:6]
+        px, py, pz = pos.reshape(3, -1)
+        with record_function("sf3d.texel_query"):
+            albedo, perturb = self._surface_query(scene_code, px, py, pz)
+
+        def unit(x):
+            return x / torch.linalg.vector_norm(x, dim=0, keepdim=True).clamp_min(1e-12)
+
+        up = _column(pos_cf.device, 0.0, 0.0, 1.0)
+        fn = torch.linalg.cross(p1 - p0, p2 - p0, dim=0)
+        fn = torch.where((fn * fn).sum(0) <= 1e-20, up, fn)
+        duv1, duv2 = uv1 - uv0, uv2 - uv0
+        denom_t = duv1[0] * duv2[1] - duv1[1] * duv2[0]
+        tng = ((p1 - p0) * duv2[1][None] - (p2 - p0) * duv1[1][None]) / denom_t.clamp_min(1e-6)[None]
+        gb_nrm = unit(fn)
+        gb_tng = unit(tng)
+        gb_tng = unit(gb_tng - (gb_tng * gb_nrm).sum(0, keepdim=True) * gb_nrm)
+        gb_btng = unit(torch.linalg.cross(gb_tng, gb_nrm, dim=0))
+        normal = unit(perturb)
+        bump = torch.stack([
+            (normal * gb_tng).sum(0), (normal * gb_btng).sum(0), (normal * gb_nrm).sum(0).clamp(0.3, 1.0),
+        ])
+        bump = (bump * 0.5 + 0.5).clamp(0.0, 1.0)
+        m = mask.flatten()[None]
+        albedo_img = torch.where(m, albedo, 0.0).reshape(3, res, res)
+        flat = _column(pos_cf.device, 0.5, 0.5, 1.0)  # empty texels: a flat +z normal
+        bump_img = torch.where(m, bump, flat).reshape(3, res, res)
+        with record_function("sf3d.dilate"):
+            iters = max(res // 150, 1)
+            albedo_img = texture_bake.dilate_fill(albedo_img, mask, iters)
+            bump_img = texture_bake.dilate_fill(bump_img, mask, iters)
+        return albedo_img, bump_img, mask
+
+    def _dither_noise(self, shape) -> torch.Tensor:
+        """The bump map's dither: uniform in +-0.5 / 255 from a counter-based
+        generator seeded on the device, the same every call."""
+        g = torch.Generator(device=self.device).manual_seed(0)
+        return (torch.rand(shape, generator=g, device=self.device) - 0.5) / 255.0
+
+    @torch.inference_mode()
+    def unwrap_bake_async(
+        self, v_pos: np.ndarray, faces: np.ndarray, scene_code: torch.Tensor, materials, bake_resolution: int,
+        island_padding: float = 0.02,
+    ) -> _HostCopy:
+        """Host prep and dispatch of the fused unwrap and bake of one
+        (non-duplicated) mesh: the PCA rotation on the host, one upload of
+        the rotated positions (u16 over their bbox) and the int32 faces,
+        then the device unwrap (K9), the bake and the uint8 quantisation,
+        and the copies of the textures, the per-corner UVs and the
+        materials into pinned host memory. Nothing here waits for the
+        device; ``unwrap_bake_wait`` does."""
+        dev = self.device
+        v_pos = np.asarray(v_pos, np.float32)
+        faces = np.asarray(faces)
+        rot = _main_axis_rotation(v_pos)
+        rp = v_pos @ rot.T
+        bb_min = rp.min(axis=0) if len(rp) else np.zeros(3, np.float32)
+        bb_max = rp.max(axis=0) if len(rp) else np.ones(3, np.float32)
+        rng = np.maximum(bb_max - bb_min, 1e-12)
+        q = np.round((rp - bb_min) / rng * 65535.0).astype(np.uint16).T  # (3, Nv)
+        scale = (bb_max - bb_min).astype(np.float32) * np.float32(_INV_U16)
+        meta = np.concatenate([scale, bb_min, rot.reshape(-1)]).astype(np.float32)
+        q_d = _upload_exact(np.ascontiguousarray(q).view(np.int16), dev)
+        f_d = _upload_exact(np.ascontiguousarray(faces.T, np.int32), dev)
+        meta_d = _upload_exact(meta, dev)
+        rp_d = _dequantize(q_d, meta_d[0:3], meta_d[3:6])
+        uv6, _, _ = unwrap_core(rp_d[0], rp_d[1], rp_d[2], f_d[0], f_d[1], f_d[2], island_padding)
+        world = meta_d[6:15].reshape(3, 3).t() @ rp_d  # rotated = v @ rot.T, so world = rot.T @ rotated
+        uc, vc = (uv6[0], uv6[2], uv6[4]), (uv6[1], uv6[3], uv6[5])
+        albedo, bump, mask = self._bake_core(scene_code, uc, vc, world, f_d[0], f_d[1], f_d[2], bake_resolution)
+        albedo_u8, bump_u8 = quantize_textures(albedo, bump, mask, self._dither_noise(bump.shape))
+        rm = torch.stack([materials["decoder_roughness"].reshape(-1)[0], materials["decoder_metallic"].reshape(-1)[0]])
+        return _to_host_async((albedo_u8, bump_u8, uv6.t().contiguous(), rm.float()))
+
+    def unwrap_bake_wait(self, host: _HostCopy):
+        """Wait for the copies of ``unwrap_bake_async`` -> (per-corner UVs
+        (F, 3, 2) f32, the texture dict as ``bake_textures`` gives it)."""
+        if host.events:
+            host.events[-1].synchronize()
+        albedo_u8, bump_u8, uv, rm = (t.numpy() for t in host.parts)
+        return uv.reshape(-1, 3, 2), _texture_dict(
+            albedo_u8.transpose(1, 2, 0), bump_u8.transpose(1, 2, 0), float(rm[0]), float(rm[1])
+        )
+
+    def unwrap_bake(self, v_pos, faces, scene_code, materials, bake_resolution: int, island_padding: float = 0.02):
+        """The fused unwrap and bake of one mesh, waited for."""
+        return self.unwrap_bake_wait(
+            self.unwrap_bake_async(v_pos, faces, scene_code, materials, bake_resolution, island_padding)
+        )
+
+    @torch.inference_mode()
+    def bake_textures(self, mesh: Mesh, scene_code: torch.Tensor, materials, bake_resolution: int) -> Dict[str, Any]:
+        """The staged bake of an unwrapped mesh (``sf3d/system.py:359-512``),
+        as the JAX package's ``bake_textures``: positions (u16 over the
+        bbox) and UVs (u16) go up, the float textures come down, and the
+        host quantizes them with numpy's seeded dither."""
+        dev = self.device
+        nv = len(mesh.v_pos)
+        bb_min = mesh.v_pos.min(axis=0) if nv else np.zeros(3, np.float32)
+        bb_max = mesh.v_pos.max(axis=0) if nv else np.ones(3, np.float32)
+        rng = np.maximum(bb_max - bb_min, 1e-12)
+        q_pos = np.round((mesh.v_pos - bb_min) / rng * 65535.0).astype(np.uint16).T
+        q_uv = np.round(np.clip(mesh.v_tex, 0.0, 1.0) * 65535.0).astype(np.uint16).T
+        q = _upload_exact(np.ascontiguousarray(np.concatenate([q_pos, q_uv])).view(np.int16), dev)
+        q = (q.to(torch.int32) & 0xFFFF).float()
+        bb = _upload_exact(np.concatenate([bb_min, bb_max]).astype(np.float32), dev)
+        pos = q[0:3] * ((bb[3:6] - bb[0:3]) * _INV_U16)[:, None] + bb[0:3, None]
+        u, v = q[3] * _INV_U16, q[4] * _INV_U16
+        f = _upload_exact(np.ascontiguousarray(mesh.t_pos_idx.T, np.int32), dev).long()
+        albedo, bump, _ = self._bake_core(scene_code, [u[f[c]] for c in range(3)], [v[f[c]] for c in range(3)],
+                                          pos, f[0], f[1], f[2], bake_resolution)
+        albedo_np = albedo.permute(1, 2, 0).cpu().numpy()
+        bump_np = bump.permute(1, 2, 0).cpu().numpy()
+        roughness = float(materials["decoder_roughness"].reshape(-1)[0])
+        metallic = float(materials["decoder_metallic"].reshape(-1)[0])
+        flat = np.all(bump_np == np.array([0.5, 0.5, 1.0], np.float32), axis=-1, keepdims=True).astype(np.float32)
+        albedo_u8 = texture_bake.float32_to_uint8(albedo_np)
+        bump_u8 = texture_bake.float32_to_uint8(bump_np, dither=True, dither_mask=flat)
+        out = _texture_dict(albedo_u8, bump_u8, roughness, metallic)
+        out["textures"] = {"albedo": albedo_np, "bump": bump_np}
+        return out
+
+
+_INV_U16 = float(np.float32(1.0) / np.float32(65535.0))  # XLA's u16 dequantisation: a product with 1/65535
+
+
+def _column(device, *values: float) -> torch.Tensor:
+    """A (len(values), 1) f32 constant made on ``device`` by fills (a
+    tensor built from a host list would wait for the device)."""
+    col = torch.empty(len(values), 1, device=device)
+    for i, v in enumerate(values):
+        col[i] = v
+    return col
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    """(3, N) u16 values (held as int16) -> q * scale + offset in f32, the
+    product and the sum rounded once, as the JAX program's fused
+    multiply-add rounds them (the exact f32 product fits an f64)."""
+    qf = (q.to(torch.int32) & 0xFFFF).double()
+    return (qf * scale.double()[:, None] + offset.double()[:, None]).float()
+
+
+def _upload_exact(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array to ``device`` in its own dtype, through pinned memory
+    with a non-blocking copy on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def quantize_textures(albedo: torch.Tensor, bump: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor):
+    """The fused bake's uint8 quantisation (``float32_to_uint8`` semantics):
+    albedo plain, bump dithered by ``noise`` on covered texels only."""
+    albedo_u8 = (albedo.clamp(0.0, 1.0) * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+    bump_d = (bump + noise * mask[None].to(noise.dtype)).clamp(0.0, 1.0)
+    return albedo_u8, (bump_d * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+
+
+def _texture_dict(albedo_u8: np.ndarray, bump_u8: np.ndarray, roughness: float, metallic: float) -> Dict[str, Any]:
+    """The texture keys of a mesh dict from the (res, res, 3) uint8 maps;
+    the glTF metallic-roughness map holds roughness in G, metallic in B."""
+    mr = np.zeros_like(albedo_u8)
+    mr[..., 1] = int(np.clip(roughness, 0, 1) * 255)
+    mr[..., 2] = int(np.clip(metallic, 0, 1) * 255)
+    return {
+        "textures": {"albedo": albedo_u8.astype(np.float32) / 255.0, "bump": bump_u8.astype(np.float32) / 255.0},
+        "texture_pngs": {
+            "baseColor": encode_png(np.ascontiguousarray(albedo_u8)),
+            "normal": encode_png(np.ascontiguousarray(bump_u8)),
+            "metallicRoughness": encode_png(mr),
+        },
+        "roughness": roughness,
+        "metallic": metallic,
+    }
+
+
+def mesh_arrays(mesh: Mesh) -> Dict[str, np.ndarray]:
+    """A mesh's host arrays under ``run_image``'s keys."""
+    return {"verts": mesh.v_pos, "faces": mesh.t_pos_idx, "uvs": mesh.v_tex, "normals": mesh.v_nrm}
+
 
 
 @contextlib.contextmanager

@@ -114,18 +114,40 @@ def test_cli_fast_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["generate", str(png), "-o", str(tmp_path / "o.glb"), "--model", "fast", "--no-remove-bg"])
 
 
-def test_unported_sf3d_branches_raise():
-    """The texture bake and the device unwrap (ROADMAP item 12) raise
-    NotImplementedError instead of taking another path."""
+def test_sf3d_texture_branches_on_cpu():
+    """On a CPU mesh ``unwrap_uv("auto")`` is the host unwrap and
+    ``unwrap_uv("device")`` the plain version of K9; ``run_image`` bakes
+    textures (the three PNGs, roughness and metallic) on the CPU."""
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device
     from sculptmate_tpu_torch.geometry.mesh import Mesh
     from sculptmate_tpu_torch.systems.sf3d import SF3D
 
-    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
-    for backend in ("device", "auto"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            Mesh(verts, np.array([[0, 1, 2]])).unwrap_uv(backend=backend)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SF3D(SF3D_TINY, device="cpu").run_image(np.zeros((1, 56, 56, 4), np.float32), enable_texture=True)
+    # a lumpy lat-long sphere: every cube slice holds faces
+    th, ph = np.meshgrid(np.linspace(0.3, np.pi - 0.3, 6), np.linspace(0, 2 * np.pi, 9)[:-1], indexing="ij")
+    r = 1 + 0.2 * np.cos(3 * ph) * np.sin(2 * th)
+    verts = np.stack([r * np.sin(th) * np.cos(ph), 1.3 * r * np.sin(th) * np.sin(ph), 0.8 * r * np.cos(th)], -1)
+    verts = verts.reshape(-1, 3).astype(np.float32)
+    i, j = np.arange(5)[:, None] * 8, np.arange(8)[None, :]
+    a, b, c, d = i + j, i + (j + 1) % 8, i + 8 + j, i + 8 + (j + 1) % 8
+    faces = np.concatenate([np.stack([a, c, b], -1).reshape(-1, 3), np.stack([b, c, d], -1).reshape(-1, 3)])
+    launches = uv_unwrap_device.unwrap_core.launches
+    host = Mesh(verts, faces).unwrap_uv(backend="host")
+    auto = Mesh(verts, faces).unwrap_uv(backend="auto")
+    np.testing.assert_array_equal(auto.v_tex, host.v_tex)
+    dev = Mesh(verts, faces).unwrap_uv(backend="device")
+    assert dev.v_tex.shape == (3 * len(faces), 2) and np.isfinite(dev.v_tex).all()
+    assert uv_unwrap_device.unwrap_core.launches == launches  # the plain version, not the kernel
+    with pytest.raises(ValueError, match="backend"):
+        Mesh(verts, faces).unwrap_uv(backend="tpu")
+
+    sf3d = SF3D(SF3D_TINY, device="cpu", dtype=torch.float32)
+    img = np.random.default_rng(0).random((1, 56, 56, 4)).astype(np.float32)
+    codes, _ = sf3d.get_scene_codes(sf3d.prepare_image(torch.from_numpy(img))[1])
+    density = sf3d.query_lattice(codes[0])["density"][0]
+    thr = float(torch.exp(density - 1.0).mean())
+    out = sf3d.run_image(img, bake_resolution=32, threshold=thr)
+    assert out is not None and set(out["texture_pngs"]) == {"baseColor", "normal", "metallicRoughness"}
+    assert out["textures"]["albedo"].shape == (32, 32, 3) and 0 <= out["roughness"] <= 1
 
 
 def test_generator_writes_glb_on_cpu(tmp_path, rng):
@@ -188,7 +210,9 @@ def test_planted_faults_apply_to_the_sources():
         import chip_smoke
     finally:
         sys.path.remove(str(PKG.parent))
-    assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {"flash_attn", "density_grid", "grid_multihead"}
+    assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {
+        "flash_attn", "density_grid", "grid_multihead", "raster_winner", "points_multihead", "uv_unwrap"
+    }
     for name, kernel, text, replacement in chip_smoke.PLANTED_FAULTS:
         src = (PKG / "csrc" / f"{kernel}.cu").read_text()
         assert src.count(text) == 1 and text != replacement, name

@@ -235,13 +235,13 @@ def test_run_image_untextured_matches_jax(rng, jax_sf3d, port):
     assert got["uvs"].min() >= 0 and got["uvs"].max() <= 1
     assert np.abs(got["verts"]).max() <= port.config.radius * (1 + 2 / port.config.isosurface_resolution)
     np.testing.assert_allclose(np.linalg.norm(got["normals"], axis=1), 1.0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port.run_image(img, enable_texture=True, threshold=thr)
+    assert got["textures"] is None and got["texture_pngs"] is None
 
 
 def test_fast3d_generator_writes_glb_on_cpu(tmp_path, rng, port, jax_sf3d):
-    """0 and a GLB with normals and UVs; 1 before initiate_model; 2 for an
-    empty mesh and for the texture bake, which is not ported."""
+    """0 and a GLB with normals and UVs, untextured or (the default) with
+    the three baked textures; 1 before initiate_model; 2 for an empty
+    mesh."""
     from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
 
     gen = Fast3DGenerator()
@@ -255,14 +255,18 @@ def test_fast3d_generator_writes_glb_on_cpu(tmp_path, rng, port, jax_sf3d):
     assert data[:4] == b"glTF"
     gltf = json.loads(data[20 : 20 + int.from_bytes(data[12:16], "little")])
     assert {"POSITION", "NORMAL", "TEXCOORD_0"} <= set(gltf["meshes"][0]["primitives"][0]["attributes"])
+    assert "images" not in gltf
     assert gen.generate_mesh(img, output_path=str(out), enable_texture=False, threshold=1e9) == 2
-    assert gen.generate_mesh(img, output_path=str(out), threshold=thr) == 2  # texture: ROADMAP item 12
+    assert gen.generate_mesh(img, output_path=str(out), threshold=thr) == 0
+    data = out.read_bytes()
+    gltf = json.loads(data[20 : 20 + int.from_bytes(data[12:16], "little")])
+    assert len(gltf["images"]) == 3 and gltf["meshes"][0]["primitives"][0]["material"] == 0
 
 
 def test_cli_generate_fast_on_cpu(tmp_path, monkeypatch, capsys, rng, port, jax_sf3d):
     """``generate --model fast --device cpu`` on a PNG (host matting,
-    ratio 0.85 with alpha): exit 0, a GLB, the JSON line; ``--texture``
-    raises."""
+    ratio 0.85 with alpha): exit 0, a GLB, the JSON line; with
+    ``--texture`` the GLB holds the three baked textures."""
     from PIL import Image
 
     from sculptmate_tpu_torch import cli
@@ -286,5 +290,8 @@ def test_cli_generate_fast_on_cpu(tmp_path, monkeypatch, capsys, rng, port, jax_
     assert rc == 0 and out.read_bytes()[:4] == b"glTF"
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["model"] == "fast" and line["verts"] > 0 and line["faces"] > 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["generate", str(png), "--model", "fast", "--device", "cpu", "--texture"])
+    rc = cli.main(["generate", str(png), "-o", str(out), "--model", "fast", "--device", "cpu", "--texture",
+                   "--threshold", str(thr), "--vertex-simplification", "low"])
+    data = out.read_bytes()
+    gltf = json.loads(data[20 : 20 + int.from_bytes(data[12:16], "little")])
+    assert rc == 0 and len(gltf["images"]) == 3

@@ -204,8 +204,8 @@ def test_decimate_and_normals_match_jax(decoded, tmp_path):
 
 def test_host_unwrap_matches_jax(decoded):
     """The host cube-projection unwrap of the decoded mesh: the same
-    duplicated faces, UVs within 1e-5 and in [0, 1]; the device unwrap
-    (K9) is not ported and raises."""
+    duplicated faces, UVs within 1e-5 and in [0, 1]; on a CPU mesh "auto"
+    is the host unwrap and "device" the plain version of K9."""
     _, _, (verts, faces, _), _ = decoded
     m, jm = Mesh(verts, faces), JMesh(verts, faces)
     m.unwrap_uv(backend="host")
@@ -215,9 +215,11 @@ def test_host_unwrap_matches_jax(decoded):
     np.testing.assert_allclose(m.v_nrm, jm.v_nrm, atol=1e-5)
     assert m.v_tex.min() >= 0 and m.v_tex.max() <= 1
     np.testing.assert_allclose(m.v_tng, jm.v_tng, atol=1e-4)
-    for backend in ("device", "auto"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            Mesh(verts, faces).unwrap_uv(backend=backend)
+    auto = Mesh(verts, faces).unwrap_uv(backend="auto")
+    np.testing.assert_array_equal(auto.v_tex, m.v_tex)
+    dev = Mesh(verts, faces).unwrap_uv(backend="device")
+    assert np.array_equal(dev.t_pos_idx, m.t_pos_idx) and np.isfinite(dev.v_tex).all()
+    assert dev.v_tex.min() >= 0 and dev.v_tex.max() <= 1
 
 
 def test_cli_decimate_matches_jax(tmp_path, decoded, capsys):
