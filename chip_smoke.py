@@ -15,14 +15,29 @@ Phases (any failure raises and exits non-zero):
    plain PyTorch version on the same inputs, with its time, the plain
    version's time, a library yardstick where one exists, the least time the
    card could take (bound) and the ratios ms / library ms and bound / ms.
+   The Lean kernels run on the main path's asset (``lean_scene``: its
+   codes, threshold and 256^3 level): K4 (``csrc/triplane_points.cu``) at
+   its ~0.6 M wire vertices, at render view 0's 8.39 M samples and at a
+   ragged N partly outside the box; K3 and K10 (``csrc/marching_cubes.cu``)
+   byte- and entry-equal at its level, at a ragged 64 x 72 x 80 lattice and
+   at undersized capacities.
    Then each check is run on kernels rebuilt with a planted fault
    (``PLANTED_FAULTS``), and must fail every one of them.
 3. The Lean main path at full width (default ``TSRConfig``: ViT-B/16,
    16 x 1024 backbone, 256^3 grid) with seeded random weights: one asset
-   through ``TripoGenerator`` with the launch counters read around it, then
-   a warm-up and three timed assets through the same calls
-   (``scene_codes`` -> ``extract_mesh``); and a narrow model on the card
-   against the same model on the CPU.
+   through ``TripoGenerator`` with the launch counters (K1, K2, K3, K4) read
+   around it, then a warm-up and three timed assets through the same calls
+   (``scene_codes`` -> ``extract_mesh``); a narrow model on the card
+   against the same model on the CPU, its codes and (bf16) its render.
+   Then the render path: one ``TSR.render_views`` at the defaults (8 views,
+   256^2, 128 samples) with the K1 and K4 counters, its views checked and
+   one written as PNG, three timed renders (``render_sec``) and a profile
+   (``tsr.render*`` spans); and the packed path: one asset's
+   ``extract_mesh(mode="packed", has_vertex_color=True)`` with the K2, K4
+   and K10 counters, held to wire mode on the same codes (counts, positions
+   at the same lattice edge, triangles, colors), three timed assets
+   (``packed_sec_per_asset`` beside the wire's ``sec_per_asset``), one
+   ``AssetFarm`` packed batch of 2, and a profile.
 4. Frontend checks: a narrow u2net (``SMALL_CONFIG``) at 64^2 on the card
    against the same weights on the CPU; the full u2net at 320^2 on the card
    (finite, masks in [0, 1]); ``preprocess_batch_device`` on the card
@@ -35,7 +50,7 @@ Phases (any failure raises and exits non-zero):
 6. The asynchronous contract: the dispatch half of three in-flight assets
    (the farm's front, then ``extract_mesh_async``) under
    ``torch.cuda.set_sync_debug_mode("error")``, so any host sync fails the
-   run; then their waits.
+   run (K3 and K4 dispatch there); then their waits.
 7. Profiles: one asset (``tsr.*`` spans) and one farm chunk (``farm.*``
    and ``tsr.*`` spans), each with the device's idle share.
 8. SF3D checks: K5 (``csrc/grid_multihead.cu``) against its plain version
@@ -70,8 +85,9 @@ Phases (any failure raises and exits non-zero):
    serving batch and K1's times summed over a Lean asset, as before the
    SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys; K5's
    launches counted on the untextured SF3D asset; K6's, K8's and K9's on
-   the textured one), then the card line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   the textured one; K3's and K4's on the TripoGenerator asset, K4's per
+   path beside them; K10's on the packed asset), then the card line, then
+   the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
 """
@@ -130,6 +146,21 @@ K6_SPREAD_SHARE = 0.1
 K9_ATLAS_SHARE = 0.999
 K9_UV_LIMIT = 1e-4
 K9_ANGLE_LIMIT = 1e-4
+# K4 is held on each output (d, exp(d + bias), then the three colors) within
+# this share of the output's spread, as K6; exp(d + bias) on its log, as K2
+# is held on d before the exp (one bf16 ulp of d moves the exp by up to 12 %
+# where d reaches 16). Its checks scale the decoder's
+# fan-in weights by K4_WEIGHT_GAIN and give it N(0, K5_BIAS_STD) biases: at
+# the fan-in scale nine SiLU layers shrink the point's part of the output
+# ~200x (spread 0.03 on d), so every point would give nearly the same output
+# and a dropped tap would hide under one bf16 ulp; at 1.5 d spreads ~0.5
+K4_SPREAD_SHARE = 0.1
+K4_WEIGHT_GAIN = 1.5
+# K3 must give its plain version's wire byte for byte and the same vertex
+# positions; K10 every position, face and counter of its plain version
+# A narrow model's render on the card (K4, bf16) against the CPU's (plain
+# K4, bf16) from the same codes, on views in [0, 1]
+RENDER_LIMIT = 0.02
 
 # Deliberate faults, each one edit to a kernel source, that the kernel
 # checks must fail: (name, kernel, text, replacement)
@@ -170,6 +201,20 @@ PLANTED_FAULTS = (
      "key[f] = part ? ~sortable(depth[f]) : SINK - 1;", "key[f] = part ? sortable(depth[f]) : SINK - 1;"),
     ("K9 skips the slice rotation", "uv_unwrap",
      "const float ca = angles[s], sa = angles[6 + s];", "const float ca = 1.f, sa = 0.f;"),
+    ("K4 drops the last bilinear tap", "triplane_points",
+     "for (int t = 0; t < 4; ++t) {", "for (int t = 0; t < 3; ++t) {"),
+    ("K4 gives hidden layer l + 1 layer l's weights", "triplane_points",
+     "hidden_layer(a, wh + l * WH_ELEMS,", "hidden_layer(a, wh + (l > 0 ? l - 1 : 0) * WH_ELEMS,"),
+    ("K4 drops the output bias", "triplane_points",
+     "const float v = bf16r(add(o[2 * rr + e], bout[ch]));", "const float v = bf16r(o[2 * rr + e]);"),
+    ("K3 takes the next block's base", "marching_cubes",
+     "int id = vbase[a * NB + q.blk] + rank[a];", "int id = vbase[min(a * NB + q.blk + 1, 3 * NB - 1)] + rank[a];"),
+    ("K3 truncates t instead of rounding it", "marching_cubes",
+     "const int u = __float2int_rn(__fmul_rn(t, 65535.f));", "const int u = (int)__fmul_rn(t, 65535.f);"),
+    ("K10 swaps a face's winding", "marching_cubes",
+     "const int le = tri[(cs * maxtri + s) * 3 + c];", "const int le = tri[(cs * maxtri + s) * 3 + (3 - c) % 3];"),
+    ("K10's face corners leave out their row's base", "marching_cubes",
+     "int id = row_base[row3];", "int id = 0;"),
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
@@ -625,6 +670,193 @@ def check_unwrap(scene, timed=True):
     return max(uv_err, 1.0 - share), row, by
 
 
+def lean_scene(tsr):
+    """The Lean asset the K3, K4 and K10 checks run on: the main path's
+    image, its codes and threshold (as ``main_path`` sets it), its 256^3
+    level from K2, the world positions of its wire's vertices from the plain
+    K3, and view 0's render sample positions at the defaults (8.39 M)."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.rays import get_spherical_cameras
+
+    image = np.random.default_rng(0).random((512, 512, 3), np.float32)
+    codes = tsr.scene_codes(image[None])
+    weights = tsr.decoder_weights()
+    d64 = dg.query_density_grid(codes[0], weights, tsr.grid_spec(64, tsr.extract_dtype))
+    threshold = float(torch.quantile(d64.flatten().float(), 0.99))
+    level = dg.query_density_grid(codes[0], weights, tsr.grid_spec(256, tsr.extract_dtype)) - threshold
+    recorded = []
+    wire, _ = mc.mc_wire_device_plain(level, 1 << 20, lambda *v: recorded.append(torch.stack(v)) or v)
+    nv = int.from_bytes(wire[-8:-4].cpu().numpy().tobytes(), "little")
+    r = tsr.config.radius
+    verts = recorded[0][:, :nv] * (2 * r / 255.0) - r
+    rays_o, rays_d = get_spherical_cameras(8, 0.0, 1.9, 40.0, 256, 256, device="cuda")
+    render_pts, _, _ = tsr._render_points(rays_o[0], rays_d[0], 128)
+    log(json.dumps({"lean_scene": "the main path's asset for the K3, K4 and K10 checks",
+                    "codes_dtype": str(codes.dtype),
+                    "threshold": threshold, "verts": nv, "render_points": render_pts[0].numel()}))
+    return {"image": image, "codes": codes, "threshold": threshold, "level": level.contiguous(),
+            "verts": [v.contiguous() for v in verts], "render_pts": render_pts, "nv": nv}
+
+
+def check_triplane_points(tsr, scene, timed=True):
+    """K4 at the Lean asset's wire vertices, at view 0's 8.39 M render
+    samples and at a ragged N with a tenth of the points outside the box,
+    on random unit-scale bf16 codes with the full-width decoder (weights
+    K4_WEIGHT_GAIN times their fan-in scale, N(0, K5_BIAS_STD) biases),
+    against its plain version on the same inputs: each output within
+    K4_SPREAD_SHARE of its spread. Every case is checked and printed before
+    a failure raises; with ``timed``, the vertex and render cases also get
+    their time, the plain version's and their bound."""
+    from sculptmate_tpu_torch.ops import density_grid as dg
+
+    g = torch.Generator(device="cuda").manual_seed(4)  # the same inputs in every call
+    weights = [(K4_WEIGHT_GAIN * w, K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g))
+               for w, b in tsr.decoder_weights()]
+    spec = tsr.grid_spec(2, torch.bfloat16)
+    codes = torch.randn(3, tsr.config.upsample_out_channels, 64, 64, device="cuda", generator=g).to(torch.bfloat16)
+    n_ragged = 100_003
+    ragged = [(torch.rand(n_ragged, device="cuda", generator=g) * 2.2 - 1.1) * spec.radius for _ in range(3)]
+    cases = [("Lean asset's vertices", scene["verts"]), ("render view 0 samples", scene["render_pts"]),
+             ("ragged, a tenth outside the box", ragged)]
+    rows, failures = {}, []
+    packed = dg.pack_triplane_inputs(codes, weights)
+    for name, pts in cases:
+        out = dg.triplane_points(codes, weights, *pts, spec)
+        torch.cuda.synchronize()
+        ref = dg.triplane_points_plain(codes, weights, *pts, spec)
+        got = torch.cat([out[:1], out[1:2].log(), out[2:]])
+        ref = torch.cat([ref[:1], ref[1:2].log(), ref[2:]])
+        errs = [(got[k] - ref[k]).abs().max().item() for k in range(5)]
+        limits = [K4_SPREAD_SHARE * (ref[k] - ref[k].mean()).abs().max().item() for k in range(5)]
+        del ref, got
+        bad = [k for k in range(5) if not errs[k] <= limits[k]]
+        N = pts[0].numel()
+        line = {"check": "K4", "case": name, "points": N, "dtype": "bfloat16", "max_abs_err": max(errs),
+                "max_abs_err_per_output": errs, "limit_per_output": limits, "outputs": "d, log exp(d + bias), r, g, b"}
+        if bad or not torch.isfinite(out).all():
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"{name}: outputs {bad} past {K4_SPREAD_SHARE} of their spread")
+            continue
+        if not timed or name.startswith("ragged"):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # per point: 120 -> 64, 8 hidden 64 x 64, 64 -> 4; bytes: the codes
+        # read once, three f32 coordinates in, five f32 outputs out
+        flops = N * 2 * (120 * 64 + 8 * 64 * 64 + 64 * 4)
+        bound, by = bound_ms(flops, codes.numel() * codes.element_size() + N * (12 + 20), PEAK_BF16_FLOPS)
+        row = {"ms": cuda_ms(lambda: dg.triplane_points(codes, weights, *pts, spec, packed=packed), iters=5),
+               "relayout_ms": cuda_ms(lambda: dg.pack_triplane_inputs(codes, weights), iters=10),
+               "plain_ms": cuda_ms(lambda: dg.triplane_points_plain(codes, weights, *pts, spec), iters=2, warmup=1,
+                                   graph=False),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_share": bound / row["ms"]}))
+        rows[name] = (max(errs), row)
+    if failures:
+        raise AssertionError("K4 " + "; ".join(failures))
+    return rows
+
+
+def _ragged_level():
+    """A 64 x 72 x 80 lattice (its z side, 80, not a multiple of K10's
+    32-edge words) of a smooth field with a cut surface through most
+    blocks."""
+    rng = np.random.default_rng(7)
+    coarse = torch.from_numpy(rng.standard_normal((1, 1, 9, 10, 11)).astype(np.float32))
+    return torch.nn.functional.interpolate(coarse, size=(64, 72, 80), mode="trilinear")[0, 0].cuda().contiguous()
+
+
+def check_mc_wire(scene, timed=True):
+    """K3 against its plain version, which it must equal byte for byte
+    (and in the vertex positions it hands the color query): on the Lean
+    asset's 256^3 level, on a ragged 64 x 72 x 80 lattice, and at half the
+    asset's vertex count (overflow: exact counters, the leading ids kept).
+    With ``timed``, the asset's case also gets its time (the wire alone),
+    the plain version's and its bound."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+
+    level, nv = scene["level"], scene["nv"]
+    cases = [("Lean asset 256^3", level, 1 << 20), ("ragged 64x72x80", _ragged_level(), 1 << 18),
+             ("Lean asset 256^3, half the vertex capacity", level, nv // 2)]
+    result, failures = None, []
+    for name, lev, mv in cases:
+        rec = {}
+
+        def colors(tag):
+            def fn(vx, vy, vz):
+                rec[tag] = torch.stack([vx, vy, vz])
+                return vx * 0, vy * 0, vz * 0
+            return fn
+
+        got, _ = mc.mc_wire_device(lev, mv, colors("kernel"))
+        torch.cuda.synchronize()
+        ref, _ = mc.mc_wire_device_plain(lev, mv, colors("plain"))
+        differ = int((got != ref).sum())
+        pos_differ = int((rec["kernel"] != rec["plain"]).sum())
+        count = int.from_bytes(ref[-8:-4].cpu().numpy().tobytes(), "little")
+        line = {"check": "K3", "case": name, "shape": list(lev.shape), "max_verts": mv, "num_verts": count,
+                "bytes_differing": differ, "positions_differing": pos_differ, "limit": 0}
+        if differ or pos_differ:
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"{name}: {differ} wire bytes and {pos_differ} positions differ")
+            continue
+        if not (timed and name == "Lean asset 256^3"):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # bytes: the f32 level read once; the bits, 2 B of t per vertex and
+        # the counters written
+        n3 = lev.numel()
+        bound, by = bound_ms(0, 4 * n3 + n3 // 8 + 2 * count + 8, PEAK_F32_FLOPS)
+        row = {"ms": cuda_ms(lambda: mc.mc_wire_device(lev, mv), iters=10),
+               "plain_ms": cuda_ms(lambda: mc.mc_wire_device_plain(lev, mv), iters=3, graph=False),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_share": bound / row["ms"]}))
+        result = row
+    if failures:
+        raise AssertionError("K3 " + "; ".join(failures))
+    return result
+
+
+def check_marching_cubes(scene, timed=True):
+    """K10 against its plain version, which it must equal in every
+    position, face and counter: on the Lean asset's 256^3 level, on the
+    ragged 64 x 72 x 80 lattice, and at half the asset's vertex and face
+    counts. With ``timed``, the asset's case also gets its time, the plain
+    version's and its bound."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+
+    level, nv = scene["level"], scene["nv"]
+    cases = [("Lean asset 256^3", level, 1 << 20, 1 << 21), ("ragged 64x72x80", _ragged_level(), 1 << 18, 1 << 19),
+             ("Lean asset 256^3, half the capacities", level, nv // 2, nv)]
+    result, failures = None, []
+    for name, lev, mv, mf in cases:
+        got = mc.marching_cubes(lev, mv, mf)
+        torch.cuda.synchronize()
+        ref = mc.marching_cubes_plain(lev, mv, mf)
+        differ = {k: int((getattr(got, k) != getattr(ref, k)).sum()) for k in mc.MCResult._fields}
+        counts = [int(c) for c in ref[6:]]
+        line = {"check": "K10", "case": name, "shape": list(lev.shape), "capacities": [mv, mf], "counts": counts,
+                "differing": {k: v for k, v in differ.items() if v}, "limit": 0}
+        if any(differ.values()):
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"{name}: {sum(differ.values())} entries differ")
+            continue
+        if not (timed and name == "Lean asset 256^3"):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # bytes: the f32 level read once; 12 B per vertex and per face and
+        # the counters written
+        bound, by = bound_ms(0, 4 * lev.numel() + 12 * counts[0] + 12 * counts[1] + 16, PEAK_F32_FLOPS)
+        row = {"ms": cuda_ms(lambda: mc.marching_cubes(lev, mv, mf), iters=10),
+               "plain_ms": cuda_ms(lambda: mc.marching_cubes_plain(lev, mv, mf), iters=2, warmup=1, graph=False),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_share": bound / row["ms"]}))
+        result = row
+    if failures:
+        raise AssertionError("K10 " + "; ".join(failures))
+    return result
+
+
 def randomize_modulations(sf3d, generator, share=0.1):
     """Nonzero AdaLN modulation weights (the module zero-initialises them,
     so a seeded model would never exercise the camera conditioning):
@@ -883,7 +1115,7 @@ def sf3d_farm_path(sf3d, scene):
                     threshold=scene["threshold"]), prefixes=("sf3d_farm.", "sf3d."))
 
 
-def planted_faults(g, tsr, sf3d, scene):
+def planted_faults(g, tsr, sf3d, scene, lean):
     """Rebuild each kernel from a copy of the sources with one planted fault
     (PLANTED_FAULTS) and run its check, which must fail, at the cases in
     PLANTED_MUST_FAIL among others; then return to the real kernels. The
@@ -907,7 +1139,10 @@ def planted_faults(g, tsr, sf3d, scene):
                   "grid_multihead": lambda: check_grid_multihead(g, sf3d, timed=False),
                   "raster_winner": lambda: check_raster(scene, timed=False),
                   "points_multihead": lambda: check_points(g, sf3d, timed=False),
-                  "uv_unwrap": lambda: check_unwrap(scene, timed=False)}
+                  "uv_unwrap": lambda: check_unwrap(scene, timed=False),
+                  "triplane_points": lambda: check_triplane_points(tsr, lean, timed=False),
+                  "marching_cubes": lambda: (check_mc_wire(lean, timed=False),
+                                             check_marching_cubes(lean, timed=False))}
         with kernels.sources_from(csrc):
             try:
                 checks[kernel]()
@@ -955,6 +1190,7 @@ def mesh_ok(verts, faces, colors, radius):
 def main_path(gen):
     """Full-width Lean path: TripoGenerator once with the launch counters
     around it, then a warm-up and 3 timed assets."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
     from sculptmate_tpu_torch.ops import density_grid as dg
     from sculptmate_tpu_torch.ops.attention import flash_attention
 
@@ -972,18 +1208,20 @@ def main_path(gen):
     with tempfile.TemporaryDirectory() as tmp:
         glb = os.path.join(tmp, "asset.glb")
         torch.cuda.synchronize()
-        flash_attention.launches = dg.density_mlp.launches = 0
+        flash_attention.launches = dg.density_mlp.launches = mc.mc_wire_device.launches = 0
+        dg.triplane_points.launches = 0
         rc = gen.generate_mesh(image, output_path=glb, threshold=threshold)
         torch.cuda.synchronize()
-        launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches}
+        launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
+                    "K4": dg.triplane_points.launches}
         glb_bytes = os.path.getsize(glb) if rc == 0 else 0
-    # K2 runs twice when the first 256^3 extraction outgrows the default
-    # vertex capacity: the exact counter triggers one re-extraction
+    # K2, K3 and K4 run twice when the first 256^3 extraction outgrows the
+    # default vertex capacity: the exact counter triggers one re-extraction
     log(json.dumps({"main_path": "TripoGenerator.generate_mesh", "rc": rc, "launches": launches,
                     "glb_bytes": glb_bytes}))
     if rc != 0:
         raise RuntimeError(f"generate_mesh returned {rc}")
-    if launches["K1"] != 44 or launches["K2"] < 1:
+    if launches["K1"] != 44 or launches["K2"] < 1 or launches["K3"] < 1 or launches["K4"] < 1:
         raise AssertionError(f"main path missed a kernel: {launches}")
 
     times = []
@@ -1012,7 +1250,160 @@ def main_path(gen):
         lambda: tsr.extract_mesh(tsr.scene_codes(image[None]), has_vertex_color=True, resolution=256,
                                  threshold=threshold),
     )
-    return launches
+    return launches, sec
+
+
+def render_path(tsr, scene):
+    """Full-width novel views: one ``TSR.render_views`` of the Lean asset at
+    the defaults (8 views, 256^2, 128 samples) from its encode, with the K1
+    and K4 counters read around both; the views checked (finite, in [0, 1],
+    partly opaque) and view 0 written through ``io/png.py``; then a warm-up
+    and three timed renders of the same codes, and a profile of one."""
+    from sculptmate_tpu_torch.io.png import write_png
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+    from sculptmate_tpu_torch.ops.rays import get_spherical_cameras
+
+    torch.cuda.synchronize()
+    flash_attention.launches = dg.triplane_points.launches = 0
+    codes = tsr.scene_codes(scene["image"][None])
+    views = tsr.render_views(codes)[0]
+    torch.cuda.synchronize()
+    launches = {"K1": flash_attention.launches, "K4": dg.triplane_points.launches}
+    rays_o, rays_d = get_spherical_cameras(8, 0.0, 1.9, 40.0, 256, 256, device="cuda")
+    _, opacity = tsr._render_rays(codes[0], rays_o[0], rays_d[0], 128)
+    opaque = float((opacity > 0.01).float().mean())
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "view_0.png")
+        write_png(png, (np.clip(views[0], 0, 1) * 255).astype(np.uint8))
+        with open(png, "rb") as fh:
+            head = fh.read(24)
+    png_ok = head[:8] == b"\x89PNG\r\n\x1a\n" and head[16:24] == (256).to_bytes(4, "big") * 2
+    ok = bool(views.shape == (8, 256, 256, 3) and np.isfinite(views).all() and views.min() >= 0
+              and views.max() <= 1 + 1e-5 and opaque > 0 and png_ok)
+    times = []
+    for it in range(4):  # 1 warm-up + 3 timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tsr.render_views(codes)
+        if it:
+            times.append(time.perf_counter() - t0)
+    sec = float(np.median(times))
+    points = 8 * 256 * 256 * 128
+    log(json.dumps({"render_path": "TSR.render_views (8 views, 256^2, 128 samples)", "launches": launches,
+                    "codes_dtype": str(codes.dtype), "render_sec": sec, "points_per_sec": points / sec,
+                    "runs_sec": [round(t, 4) for t in times], "opaque_share_view0": opaque, "png_ok": png_ok,
+                    "view_min_max": [float(views.min()), float(views.max())], "views_ok": ok}))
+    if not ok:
+        raise AssertionError("rendered views failed their checks")
+    if launches["K1"] != 44 or launches["K4"] != 8:
+        raise AssertionError(f"render path missed a kernel: {launches}")
+    where_time_goes("one render (8 views, 256^2, 128 samples)", lambda: tsr.render_views(codes),
+                    prefixes=("tsr.render",))
+    return launches, sec
+
+
+def small_render_check():
+    """A narrow TSR's render on the card (K4, bf16) against the same
+    weights on the CPU (plain K4, bf16) from the card's codes: 2 views,
+    32^2, 32 samples, within RENDER_LIMIT."""
+    from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
+
+    cfg = TSRConfig(cond_image_size=64, plane_size=8, num_channels=64, num_attention_heads=1,
+                    attention_head_dim=64, num_layers=2, cross_attention_dim=128, vit_hidden_size=128,
+                    vit_num_layers=2, vit_num_heads=2, vit_intermediate_size=256)
+    cpu = TSR(cfg, seed=1, dtype=torch.float32, extract_dtype=torch.bfloat16, device="cpu")
+    card = TSR(cfg, state_dict=cpu.module.state_dict(), dtype=torch.float32, extract_dtype=torch.bfloat16,
+               device="cuda")
+    codes = card.scene_codes(np.random.default_rng(1).random((1, 64, 64, 3), np.float32))
+    kw = dict(n_views=2, height=32, width=32, num_samples=32)
+    got = card.render_views(codes, **kw)[0]
+    ref = cpu.render_views(codes.cpu(), **kw)[0]
+    err = float(np.abs(got - ref).max())
+    log(json.dumps({"check": "small model render, card vs CPU (bf16)", "max_abs_err": err, "limit": RENDER_LIMIT,
+                    "view_mean": float(ref.mean())}))
+    if not err <= RENDER_LIMIT:
+        raise AssertionError(f"small-model render disagrees: {err} > {RENDER_LIMIT}")
+
+
+def _matched_to_packed(level):
+    """For each wire vertex (block-major order), the index of the same cut
+    edge among the packed mesh's vertices (axis-major, flat order)."""
+    from sculptmate_tpu_torch.geometry.marching_cubes import _cut_masks, _to_blocks
+
+    masks = _cut_masks(level > 0)
+    edge_ids = torch.arange(masks.numel(), device=level.device).reshape(masks.shape)
+    wire_edges = _to_blocks(edge_ids)[_to_blocks(masks)]
+    return torch.searchsorted(torch.nonzero(masks.reshape(-1)).reshape(-1), wire_edges)
+
+
+def packed_path(tsr, scene, wire_sec):
+    """Full-width packed extraction: one asset's ``extract_mesh(mode=
+    "packed", has_vertex_color=True)`` at 256^3 with the K2, K4 and K10
+    counters read around it, against wire mode on the same codes (the same
+    vertex and face counts, each vertex within 2/65535 lattice units of the
+    wire's at the same lattice edge, the same triangles, colors within the
+    wire's u8 step); then a warm-up and three timed assets (encode + packed
+    extraction), beside the same run's wire ``sec_per_asset``; one farm
+    packed batch of 2; and a profile of one asset."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.parallel.farm import AssetFarm
+
+    image, threshold, r = scene["image"], scene["threshold"], tsr.config.radius
+    codes = scene["codes"]  # the codes of the scene's level, which matches the two meshes' vertices
+    torch.cuda.synchronize()
+    dg.density_mlp.launches = dg.triplane_points.launches = mc.marching_cubes.launches = 0
+    vp, fp, cp = tsr.extract_mesh(codes, has_vertex_color=True, resolution=256, threshold=threshold, mode="packed")[0]
+    torch.cuda.synchronize()
+    launches = {"K2": dg.density_mlp.launches, "K4": dg.triplane_points.launches, "K10": mc.marching_cubes.launches}
+    vw, fw, cw = tsr.extract_mesh(codes, has_vertex_color=True, resolution=256, threshold=threshold)[0]
+    scale = 2 * r / 255.0
+    same_counts = len(vp) == len(vw) and len(fp) == len(fw)
+    pos_err = tri_equal = col_err = None
+    if same_counts:
+        match = _matched_to_packed(scene["level"]).cpu().numpy()
+        pos_err = float(np.abs(vp[match] - vw).max() / scale)
+        col_err = float(np.abs(cp[match] - cw).max())
+        key = lambda f: np.sort((f[:, 0] * len(vp) + f[:, 1]) * len(vp) + f[:, 2])  # noqa: E731
+        tri_equal = bool(np.array_equal(key(fp), key(match[fw])))
+    ok = bool(same_counts and pos_err <= 2 / 65535 and tri_equal and col_err <= 1 / 255 + 1e-6
+              and mesh_ok(vp, fp, cp, r))
+    log(json.dumps({"packed_path": "extract_mesh(mode='packed', has_vertex_color=True) vs wire", "launches": launches,
+                    "verts": [len(vp), len(vw)], "faces": [len(fp), len(fw)],
+                    "max_pos_err_lattice_units": pos_err, "triangles_equal": tri_equal,
+                    "max_color_err": col_err, "passed": ok}))
+    if not ok:
+        raise AssertionError("the packed mesh disagrees with the wire mesh")
+    if launches["K10"] < 1 or launches["K4"] < 1 or launches["K2"] < 1:
+        raise AssertionError(f"packed path missed a kernel: {launches}")
+
+    times = []
+    for it in range(4):  # 1 warm-up + 3 timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tsr.extract_mesh(tsr.scene_codes(image[None]), has_vertex_color=True, resolution=256, threshold=threshold,
+                         mode="packed")
+        if it:
+            times.append(time.perf_counter() - t0)
+    farm = AssetFarm(tsr)
+    cond = np.stack([image, np.random.default_rng(8).random((512, 512, 3), np.float32)])
+    mc.marching_cubes.launches = 0
+    res = farm.generate_batch(cond, resolution=256, threshold=threshold, mode="packed")
+    nv, nf = res.num_verts.cpu().numpy(), res.num_faces.cpu().numpy()
+    mv, mf = res.vx.shape[1], res.fa.shape[1]
+    farm_ok = bool(res.vx.shape[0] == 2 and (nv > 0).all() and (nf > 0).all()
+                   and all(int(res.faces[b, : min(nf[b], mf)].max()) < nv[b] for b in range(2)))
+    log(json.dumps({"packed_path": "timed", "packed_sec_per_asset": float(np.median(times)),
+                    "wire_sec_per_asset": wire_sec, "runs_sec": [round(t, 4) for t in times],
+                    "farm_packed_batch": {"launches_K10": mc.marching_cubes.launches, "num_verts": nv.tolist(),
+                                          "num_faces": nf.tolist(), "capacities": [mv, mf], "ok": farm_ok}}))
+    if not farm_ok or mc.marching_cubes.launches != 2:
+        raise AssertionError("the farm's packed batch failed its checks")
+    where_time_goes("one packed asset (encode + extract_mesh packed 256^3 + colors)",
+                    lambda: tsr.extract_mesh(tsr.scene_codes(image[None]), has_vertex_color=True, resolution=256,
+                                             threshold=threshold, mode="packed"))
+    return launches, float(np.median(times))
 
 
 def where_time_goes(label, fn, prefixes=("tsr.",)):
@@ -1098,6 +1489,7 @@ def serving_path(tsr, matting):
     """``AssetFarm.generate_batch_rgba`` on eight raw 512^2 RGBA images, as
     ``bench.py:bench_farm`` drives the JAX farm: the counted batch (also
     the warm-up), then three timed batches; every mesh checked."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
     from sculptmate_tpu_torch.ops import density_grid as dg
     from sculptmate_tpu_torch.ops.attention import flash_attention
     from sculptmate_tpu_torch.parallel.farm import AssetFarm
@@ -1116,10 +1508,11 @@ def serving_path(tsr, matting):
                                         has_vertex_color=True)
 
     torch.cuda.synchronize()
-    flash_attention.launches = dg.density_mlp.launches = 0
+    flash_attention.launches = dg.density_mlp.launches = mc.mc_wire_device.launches = dg.triplane_points.launches = 0
     meshes = run()
     torch.cuda.synchronize()
-    launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches}
+    launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
+                "K4": dg.triplane_points.launches}
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1132,7 +1525,7 @@ def serving_path(tsr, matting):
                     "verts": [len(m[0]) for m in meshes], "faces": [len(m[1]) for m in meshes],
                     "farm_sec_per_asset": float(np.median(times)) / batch,
                     "batch_sec": [round(t, 4) for t in times], "threshold": threshold, "meshes_failing_checks": bad}))
-    if launches["K1"] != 44 * batch or launches["K2"] < batch:
+    if launches["K1"] != 44 * batch or min(launches["K2"], launches["K3"], launches["K4"]) < batch:
         raise AssertionError(f"serving path missed a kernel: {launches}")
     if bad or len(meshes) != batch:
         raise AssertionError(f"serving-path meshes {bad} failed their checks")
@@ -1145,11 +1538,14 @@ def async_contract(farm, matting, rgba, threshold, served):
     sync anywhere there raises. Then the waits, in order; whether asset 2's
     last copy was still pending when asset 0's wait returned is printed for
     information."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.ops import density_grid as dg
     from sculptmate_tpu_torch.systems.tsr import upload
 
     n = 3
     x = upload(rgba[:n], farm.device)
     torch.cuda.synchronize()
+    mc.mc_wire_device.launches = dg.triplane_points.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         handles = [farm.extract_batch_wire_async(farm._front(x[i : i + 1], matting, 0.75), 256, threshold, 0, True)
@@ -1161,8 +1557,12 @@ def async_contract(farm, matting, rgba, threshold, served):
     meshes = first + [m for h in handles[1:] for m in farm.extract_batch_wire_wait(h)]
     r = farm.tsr.config.radius
     same = [len(m[0]) == len(s[0]) and len(m[1]) == len(s[1]) for m, s in zip(meshes, served)]
+    dispatched = {"K3": mc.mc_wire_device.launches, "K4": dg.triplane_points.launches}
     log(json.dumps({"check": "no host sync on the dispatch path", "assets_in_flight": n, "passed": True,
+                    "kernels_dispatched": dispatched,
                     "asset2_pending_when_asset0_returned": pending, "counts_as_served": same}))
+    if min(dispatched.values()) < n:
+        raise AssertionError(f"the dispatch under sync debug mode missed K3 or K4: {dispatched}")
     if not all(mesh_ok(*m, r) for m in meshes):
         raise AssertionError("meshes of the async-contract run failed their checks")
 
@@ -1185,15 +1585,22 @@ def main():
     with torch.no_grad():
         randomize_modulations(fast.model, torch.Generator(device="cuda").manual_seed(0))
     scene = sf3d_scene(fast)
+    lean = lean_scene(gen.model)
     k1_err, k1, k1_by = check_attention(g)
     k2_err, k2_limit, k2, k2_by = check_density(g, gen.model)
     k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
     k8 = check_raster(scene)
     k6_err, k6, k6_by = check_points(g, fast.model)
     k9_err, k9, k9_by = check_unwrap(scene)
-    planted_faults(g, gen.model, fast.model, scene)
+    k4 = check_triplane_points(gen.model, lean)
+    k3 = check_mc_wire(lean)
+    k10 = check_marching_cubes(lean)
+    planted_faults(g, gen.model, fast.model, scene, lean)
     small_model_check()
-    lean_launches = main_path(gen)
+    small_render_check()
+    lean_launches, wire_sec = main_path(gen)
+    render_launches, _ = render_path(gen.model, lean)
+    packed_launches, _ = packed_path(gen.model, lean, wire_sec)
     matting = frontend_checks()
     farm, rgba, threshold, launches, served = serving_path(gen.model, matting)
     async_contract(farm, matting, rgba, threshold, served)
@@ -1246,6 +1653,27 @@ def main():
          "limit": f"atlas equal on {K9_ATLAS_SHARE}, UVs within {K9_UV_LIMIT}", "check": "pass",
          "ms": k9["ms"], "plain_ms": k9["plain_ms"], "bound_ms": k9["bound_ms"], "bound_by": k9_by,
          "library_ms": None},
+        {"name": "mc_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
+         "replaces": "sculptmate_tpu/geometry/marching_cubes.py:454", "launches": lean_launches["K3"],
+         "launches_by_path": {"tripo_generator": lean_launches["K3"], "serving_batch_of_8": launches["K3"]},
+         "max_abs_err": 0.0, "limit": "byte-equal wire and equal positions", "check": "pass",
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": None},
+        {"name": "triplane_points_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/triplane_points.cu",
+         "replaces": "sculptmate_tpu/ops/density_grid.py:366", "launches": lean_launches["K4"],
+         "launches_by_path": {"tripo_generator": lean_launches["K4"], "serving_batch_of_8": launches["K4"],
+                              "render": render_launches["K4"], "packed_asset": packed_launches["K4"]},
+         "max_abs_err": max(e for e, _ in k4.values()),
+         "limit": f"{K4_SPREAD_SHARE} of each output's spread (exp(d + bias) on its log)",
+         "check": "pass", **{key: k4["Lean asset's vertices"][1][key] for key in
+                             ("ms", "relayout_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{f"render_view_{key}": k4["render view 0 samples"][1][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        {"name": "marching_cubes", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
+         "replaces": "sculptmate_tpu/geometry/marching_cubes.py:538", "launches": packed_launches["K10"],
+         "max_abs_err": 0.0, "limit": "equal positions, faces and counters", "check": "pass",
+         "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
+         "library_ms": None},
     ]}
     log("# kernel times per asset: K1's ms, plain_ms, bound_ms and library_ms sum its 44 Lean launches (16 attn1 +"
         " 16 attn2 + 12 ViT) and its launches are those of one 8-asset serving batch, as before the SF3D path;"
@@ -1256,7 +1684,11 @@ def main():
         " kernel alone, its relayout_ms the planes' bf16 channels-last copy and the weights' packing it takes once"
         " per asset; K8's times sum its bake raster (512^2) and its two unwrap rasters (1024^2), each measured; K9's"
         " ms include its two K8 rasters, its plain_ms the plain K8's; K9's max_abs_err is the larger of its UV error"
-        " and the share of faces whose atlas index differs")
+        " and the share of faces whose atlas index differs; K3 is the Lean asset's 256^3 wire (its launches the"
+        " TripoGenerator asset's, ms the wire without the color positions); K4's launches are the TripoGenerator"
+        " asset's (per path beside them), its ms the asset's ~0.6 M vertices and render_view_ms one view's 8.39 M"
+        " samples, relayout_ms its once-per-code packing; K10 is the asset's 256^3 packed mesh, its launches those of"
+        " the packed asset")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

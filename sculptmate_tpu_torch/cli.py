@@ -1,9 +1,11 @@
 """Command line: image in, mesh out, on the port.
 
-Counterpart of ``sculptmate_tpu/cli.py``'s ``generate`` and ``decimate``:
+Counterpart of ``sculptmate_tpu/cli.py``'s ``generate``, ``decimate`` and
+``render``:
 
     python -m sculptmate_tpu_torch.cli generate input.png -o out.glb [--model lean|fast] [--device cpu]
     python -m sculptmate_tpu_torch.cli decimate in.obj out.obj --ratio 0.5
+    python -m sculptmate_tpu_torch.cli render input.png -o view_{}.png [--n-views 8] [--size 256] [--device cpu]
 
 ``generate`` mattes the image on the host (``frontend.remove`` with the u2net
 session, on ``--device``) and crops and frames it (``preprocess_image``:
@@ -12,7 +14,10 @@ reference's panel does); then TSR encodes and extracts it (Lean), or SF3D's
 ``run_image`` makes a mesh with normals and UVs, baked with its albedo,
 normal and metallic-roughness textures under ``--texture`` (fast). The mesh
 is written as GLB (with the textures) or OBJ and one JSON line reports its
-size and the timings. Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
+size and the timings; ``--simplify-faces N`` decimates the Lean mesh to
+about N faces (dropping its colors), ``--bake-resolution`` sizes SF3D's
+maps. ``render`` writes spherical novel views of the Lean model's scene as
+PNGs (``io/png.py``). Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
 where present, else they are random from ``--seed``.
 """
 
@@ -56,6 +61,7 @@ def _cmd_generate(args: argparse.Namespace) -> int:
         t1 = time.time()
         mesh = sf3d.run_image(
             arr,
+            bake_resolution=args.bake_resolution,
             vertex_simplification_factor=args.vertex_simplification,
             enable_texture=args.texture,
             threshold=args.threshold,
@@ -76,6 +82,11 @@ def _cmd_generate(args: argparse.Namespace) -> int:
             codes, has_vertex_color=args.texture, resolution=args.resolution,
             threshold=25.0 if args.threshold is None else args.threshold,
         )[0]
+        if args.simplify_faces and len(faces) > args.simplify_faces:
+            from sculptmate_tpu_torch.geometry.decimate import decimate
+
+            verts, faces = decimate(verts, faces, target_ratio=args.simplify_faces / len(faces))
+            colors = None  # the vertices changed: their colors would need a new query
         t2 = time.time()
         if len(verts) == 0:
             print("[sculptmate] empty mesh (no density above threshold)", file=sys.stderr)
@@ -118,6 +129,25 @@ def _cmd_decimate(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_render(args: argparse.Namespace) -> int:
+    """Spherical novel views of the Lean model's scene (the reference's
+    volume-render path, ``nerf_renderer.py:93-172``), one PNG per view."""
+    import numpy as np
+    from PIL import Image, ImageOps
+
+    from sculptmate_tpu_torch.io.png import write_png
+
+    img = ImageOps.exif_transpose(Image.open(args.image)).convert("RGB")
+    arr = np.asarray(img, dtype=np.float32)[None] / 255.0
+    tsr = TSR(seed=args.seed, device=args.device)
+    codes = tsr.scene_codes(arr)
+    views = tsr.render_views(codes, n_views=args.n_views, height=args.size, width=args.size)[0]
+    for i, view in enumerate(views):
+        write_png(args.output.replace("{}", str(i)), (np.clip(view, 0, 1) * 255).astype(np.uint8))
+    print(json.dumps({"views": len(views), "pattern": args.output}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sculptmate_tpu_torch.cli", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -132,11 +162,22 @@ def main(argv=None) -> int:
     g.add_argument("--ratio", type=float, default=None, help="foreground framing ratio (default 0.75 lean / 0.85 fast)")
     g.add_argument("--texture", action="store_true",
                    help="vertex colors (lean); baked albedo, normal and metallic-roughness textures (fast)")
+    g.add_argument("--bake-resolution", type=int, default=512, help="texture size of the baked maps (fast)")
+    g.add_argument("--simplify-faces", type=int, default=0, help="decimate the lean mesh to ~N faces (e.g. 20000)")
     g.add_argument("--vertex-simplification", default="high", choices=["high", "medium", "low"])
     g.add_argument("--no-remove-bg", dest="remove_bg", action="store_false")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     g.set_defaults(func=_cmd_generate)
+
+    r = sub.add_parser("render", help="render spherical novel views (lean model)")
+    r.add_argument("image")
+    r.add_argument("-o", "--output", default="view_{}.png", help="pattern with {}")
+    r.add_argument("--n-views", type=int, default=8)
+    r.add_argument("--size", type=int, default=256)
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    r.set_defaults(func=_cmd_render)
 
     d = sub.add_parser("decimate", help="quadric mesh decimation (OBJ in/out)")
     d.add_argument("input")

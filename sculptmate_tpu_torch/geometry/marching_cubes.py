@@ -1,8 +1,14 @@
-"""Wire-format marching cubes on the device (plain torch).
+"""Marching cubes on the device: the wire format (kernel K3) and the
+face-emitting extraction (kernel K10).
 
-Counterpart of ``sculptmate_tpu/geometry/marching_cubes.py:mc_wire_device``.
-Faces are pure table logic on the occupancy field, so the device ships only
-what the host cannot rebuild, as one uint8 buffer (order version 2):
+Counterpart of ``sculptmate_tpu/geometry/marching_cubes.py``:
+``mc_wire_device`` and ``marching_cubes``. Each routes to its kernel in
+``csrc/marching_cubes.cu`` on a CUDA tensor and to its plain version
+(``mc_wire_device_plain``, ``marching_cubes_plain``) on a CPU tensor.
+
+The wire. Faces are pure table logic on the occupancy field, so the device
+ships only what the host cannot rebuild, as one uint8 buffer (order
+version 2):
 
     [occupancy bits  n3/8 B][t lo  mv B][t hi  mv B]
     [counts: num_verts, n_vblocks  4 B each, little-endian u32]
@@ -18,16 +24,60 @@ host decoder (``geometry/mc_wire.py``) re-derives the same order from the
 bits. The buffer has ``max_verts`` slots; the counters are exact, so a
 caller detects overflow (num_verts > max_verts) and retries with a larger
 capacity, never decoding a truncated mesh. Nothing here syncs with the host.
+
+The packed mesh (``MCResult``). Vertices are the cut edges numbered
+axis-major, then in flat x-major (i, j, k) order; faces are emitted
+block-major (8^3 blocks in (bx, by, bz) order, cells in (ox, oy, oz) order
+within a block, then the table's triangles). At most ``max_verts`` and
+``max_faces`` rows are written, the rest are zero, and the four counters are
+exact. ``level > 0`` is inside; positions are lattice index coords; faces
+are wound so normals point away from the inside.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import ctypes
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from sculptmate_tpu_torch.geometry.mc_tables import EDGE_AXIS, EDGE_OFFSET, build_tables
+from sculptmate_tpu_torch.runtime import kernels
 
 BS = 8  # block side
 N_WIRE_COUNTS = 2  # num_verts, n_vblocks
+
+
+class MCResult(NamedTuple):
+    """Structure-of-arrays mesh with fixed capacities: (max_verts,) f32
+    lattice positions, (max_faces,) int32 face corners, and 0-d int32
+    counters (a leading batch dimension on each for a farm batch)."""
+
+    vx: torch.Tensor
+    vy: torch.Tensor
+    vz: torch.Tensor
+    fa: torch.Tensor
+    fb: torch.Tensor
+    fc: torch.Tensor
+    num_verts: torch.Tensor
+    num_faces: torch.Tensor
+    num_active_blocks: torch.Tensor  # max(active (axis, block) pairs of cut edges, blocks with faces)
+    num_active_cells: torch.Tensor  # cells that emit at least one face
+
+    @property
+    def verts(self) -> torch.Tensor:
+        return torch.stack([self.vx, self.vy, self.vz], dim=-1)
+
+    @property
+    def faces(self) -> torch.Tensor:
+        return torch.stack([self.fa, self.fb, self.fc], dim=-1)
+
+
+def _check_shape(level: torch.Tensor) -> None:
+    if level.dim() != 3 or any(s % BS or s < BS for s in level.shape):
+        raise ValueError(f"lattice {tuple(level.shape)} must be a multiple of {BS} per axis")
 
 
 def _cut_masks(inside: torch.Tensor) -> torch.Tensor:
@@ -41,11 +91,20 @@ def _cut_masks(inside: torch.Tensor) -> torch.Tensor:
 
 
 def _to_blocks(m: torch.Tensor) -> torch.Tensor:
-    """(3, RX, RY, RZ) -> (3 * NB, 512) rows in block-major order."""
-    _, RX, RY, RZ = m.shape
+    """(K, RX, RY, RZ) -> (K * NB, 512) rows in block-major order."""
+    K, RX, RY, RZ = m.shape
     nbx, nby, nbz = RX // BS, RY // BS, RZ // BS
-    m = m.reshape(3, nbx, BS, nby, BS, nbz, BS).permute(0, 1, 3, 5, 2, 4, 6)
-    return m.reshape(3 * nbx * nby * nbz, BS**3)
+    m = m.reshape(K, nbx, BS, nby, BS, nbz, BS).permute(0, 1, 3, 5, 2, 4, 6)
+    return m.reshape(K * nbx * nby * nbz, BS**3)
+
+
+def _edge_t(flat: torch.Tensor, lin: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """Interpolation parameter of the edges from flat point ``lin`` to
+    ``lin + step``: clamp(l0 / (l0 - l1, or 1 where that is 0), 0, 1)."""
+    l0 = flat[lin]
+    l1 = flat[(lin + step).clamp(max=flat.numel() - 1)]
+    denom = l0 - l1
+    return (l0 / torch.where(denom == 0, 1.0, denom)).clamp(0.0, 1.0)
 
 
 def pack_bits_u8(flags: torch.Tensor) -> torch.Tensor:
@@ -60,20 +119,17 @@ def _u32_le_bytes(counts: torch.Tensor) -> torch.Tensor:
     return ((counts.long()[:, None] >> shifts) & 0xFF).to(torch.uint8).reshape(-1)
 
 
-def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None):
-    """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of 8
-    -> the (W,) uint8 wire, or ``(wire, colors (3 * max_verts,) uint8)``
-    with ``color_fn``.
+def _quantize_colors(color_fn, vx, vy, vz) -> torch.Tensor:
+    rgb = [torch.round(c * 255.0).clamp(0, 255).to(torch.uint8) for c in color_fn(vx, vy, vz)]
+    return torch.cat(rgb)
 
-    ``color_fn(vx, vy, vz) -> (r, g, b)``: color query at the (max_verts,)
-    vertex positions in lattice index coords (unused slots sit at the
-    origin); returns rows in [0, 1], quantized here to uint8.
-    """
+
+def mc_wire_device_plain(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None):
+    """Plain version of kernel K3; ``mc_wire_device``'s arguments and
+    result."""
+    _check_shape(level)
     RX, RY, RZ = level.shape
-    if RX % BS or RY % BS or RZ % BS:
-        raise ValueError(f"lattice {tuple(level.shape)} must be a multiple of {BS} per axis")
     dev = level.device
-    n3 = RX * RY * RZ
     nby, nbz = RY // BS, RZ // BS
     NB = (RX // BS) * nby * nbz
 
@@ -103,11 +159,7 @@ def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Calla
     k = (blk % nbz) * BS + col % BS
     lin = (i * RY + j) * RZ + k
     step = torch.where(axis == 0, RY * RZ, torch.where(axis == 1, RZ, 1))
-    flat = level.reshape(-1)
-    l0 = flat[lin]
-    l1 = flat[(lin + step).clamp(max=n3 - 1)]
-    denom = l0 - l1
-    t = torch.where(valid, (l0 / torch.where(denom == 0, 1.0, denom)).clamp(0.0, 1.0), 0.0)
+    t = torch.where(valid, _edge_t(level.reshape(-1), lin, step), 0.0)
     t16 = torch.round(t * 65535.0).to(torch.int32)
 
     zero = torch.zeros((), device=dev)
@@ -121,6 +173,177 @@ def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Calla
     wire = torch.cat([occ, t_lo, t_hi, _u32_le_bytes(torch.stack([num_verts, n_vblocks]))])
     if color_fn is None:
         return wire
-    rgb = [torch.round(c * 255.0).clamp(0, 255).to(torch.uint8) for c in color_fn(vx, vy, vz)]
-    return wire, torch.cat(rgb)
+    return wire, _quantize_colors(color_fn, vx, vy, vz)
 
+
+def _mc_lib(name: str, nargs_ptr: int, nargs_int: int):
+    fn = getattr(kernels.load("marching_cubes"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * nargs_ptr + [ctypes.c_int] * nargs_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_level(level: torch.Tensor, what: str) -> torch.Tensor:
+    _check_shape(level)
+    if level.dtype != torch.float32:
+        raise TypeError(f"{what} kernel takes an f32 level, got {level.dtype}")
+    if level.numel() >= 2**31:
+        raise ValueError(f"{what} kernel indexes the lattice with 32-bit ints: {tuple(level.shape)} is too large")
+    return kernels.aligned(level)
+
+
+def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None):
+    """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of 8
+    -> the (W,) uint8 wire, or ``(wire, colors (3 * max_verts,) uint8)``
+    with ``color_fn``. Kernel K3 on a CUDA tensor, its plain version on a
+    CPU tensor.
+
+    ``color_fn(vx, vy, vz) -> (r, g, b)``: color query at the (max_verts,)
+    vertex positions in lattice index coords (unused slots sit at the
+    origin); returns rows in [0, 1], quantized here to uint8.
+    """
+    if not level.is_cuda:
+        return mc_wire_device_plain(level, max_verts, color_fn)
+    level = _check_level(level, "wire marching cubes")
+    if max_verts < 1:
+        raise ValueError(f"max_verts must be positive, got {max_verts}")
+    RX, RY, RZ = level.shape
+    dev = level.device
+    n3 = RX * RY * RZ
+    NB = n3 // BS**3
+    wire = torch.zeros(n3 // 8 + 2 * max_verts + 4 * N_WIRE_COUNTS, dtype=torch.uint8, device=dev)
+    pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev) if color_fn is not None else None
+    vcnt = torch.empty(3 * NB, dtype=torch.int32, device=dev)
+    vbase = torch.empty(3 * NB, dtype=torch.int32, device=dev)
+    err = _mc_lib("mc_wire_fwd", 5, 4)(
+        level.data_ptr(), wire.data_ptr(), None if pos is None else pos.data_ptr(), vcnt.data_ptr(), vbase.data_ptr(),
+        RX, RY, RZ, max_verts, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "mc_wire_fwd")
+    mc_wire_device.launches += 1
+    if color_fn is None:
+        return wire
+    return wire, _quantize_colors(color_fn, pos[0], pos[1], pos[2])
+
+
+mc_wire_device.launches = 0
+
+
+# -- the face-emitting extraction (kernel K10) --
+
+
+def _tables_torch(device):
+    """(tri_table (256, maxtri, 3) long, tri_count (256,) long, maxtri,
+    edge_axis (12,) long, edge_offset (12, 3) long) on ``device``."""
+    tri, cnt, maxtri = build_tables()
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(device)  # noqa: E731
+    return as_t(tri), as_t(cnt), maxtri, as_t(EDGE_AXIS), as_t(EDGE_OFFSET)
+
+
+def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int) -> MCResult:
+    """Plain version of kernel K10: the packed mesh's semantics (see the
+    module docstring), written as torch over the whole lattice."""
+    _check_shape(level)
+    RX, RY, RZ = level.shape
+    dev = level.device
+    n3 = RX * RY * RZ
+    tri, tri_count, maxtri, edge_axis, edge_off = _tables_torch(dev)
+
+    inside = level > 0
+    masks = _cut_masks(inside)  # (3, RX, RY, RZ)
+    flat_mask = masks.reshape(-1)
+    vid = torch.cumsum(flat_mask, 0) - 1  # axis-major, flat x-major order
+    num_verts = flat_mask.sum()
+    edges = torch.nonzero(flat_mask).reshape(-1)[:max_verts]
+    axis, lin = edges // n3, edges % n3
+    i, j, k = lin // (RY * RZ), (lin // RZ) % RY, lin % RZ
+    step = torch.where(axis == 0, RY * RZ, torch.where(axis == 1, RZ, 1))
+    t = _edge_t(level.reshape(-1), lin, step)
+    pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev)
+    n = len(edges)
+    pos[0, :n] = i.float() + t * (axis == 0)
+    pos[1, :n] = j.float() + t * (axis == 1)
+    pos[2, :n] = k.float() + t * (axis == 2)
+
+    # cell cases; cells on the +x, +y and +z boundary emit nothing
+    pad = F.pad(inside.to(torch.int64), (0, 1, 0, 1, 0, 1))
+    case = torch.zeros((RX, RY, RZ), dtype=torch.int64, device=dev)
+    for c in range(8):
+        ox, oy, oz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+        case += pad[ox : ox + RX, oy : oy + RY, oz : oz + RZ] << c
+    ntri = tri_count[case]
+    ntri[-1], ntri[:, -1], ntri[:, :, -1] = 0, 0, 0
+    # block-major cell order: blocks (bx, by, bz), cells (ox, oy, oz)
+    cell_ids = _to_blocks(torch.arange(n3, device=dev).reshape(1, RX, RY, RZ)).reshape(-1)
+    ntri_b = ntri.reshape(-1)[cell_ids]
+    active = ntri_b > 0
+    face_cell = torch.repeat_interleave(cell_ids[active], ntri_b[active])
+    first = torch.cumsum(ntri_b, 0) - ntri_b
+    slot = torch.arange(len(face_cell), device=dev) - torch.repeat_interleave(first[active], ntri_b[active])
+    face_cell, slot = face_cell[:max_faces], slot[:max_faces]
+    ci, cj, ck = face_cell // (RY * RZ), (face_cell // RZ) % RY, face_cell % RZ
+    fcase = case.reshape(-1)[face_cell]
+    corners = torch.zeros((3, max_faces), dtype=torch.int32, device=dev)
+    for c in range(3):
+        le = tri[fcase, slot, c]
+        g = edge_axis[le] * n3 + ((ci + edge_off[le, 0]) * RY + cj + edge_off[le, 1]) * RZ + ck + edge_off[le, 2]
+        corners[c, : len(le)] = vid[g].to(torch.int32)
+
+    n_vblocks = _to_blocks(masks).any(dim=1).sum()
+    n_fblocks = (ntri_b.reshape(-1, BS**3).sum(dim=1) > 0).sum()
+    i32 = lambda x: x.to(torch.int32)  # noqa: E731
+    return MCResult(
+        pos[0], pos[1], pos[2], corners[0], corners[1], corners[2],
+        i32(num_verts), i32(ntri.sum()), i32(torch.maximum(n_vblocks, n_fblocks)), i32(active.sum()),
+    )
+
+
+_TABLES = {}
+
+
+def _tables_packed(device) -> tuple:
+    """K10's tables on ``device``, uploaded once per device: int32
+    [tri_count (256)][tri_table (256 * maxtri * 3)][edge_axis (12)]
+    [edge_offset (12 * 3)], and maxtri."""
+    key = (device.type, device.index)
+    if key not in _TABLES:
+        tri, cnt, maxtri = build_tables()
+        buf = np.concatenate([cnt.ravel(), tri.ravel(), EDGE_AXIS.ravel(), EDGE_OFFSET.ravel()]).astype(np.int32)
+        _TABLES[key] = (torch.from_numpy(buf).to(device), maxtri)
+    return _TABLES[key]
+
+
+def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int) -> MCResult:
+    """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of
+    8 -> ``MCResult`` (see the module docstring). Kernel K10 on a CUDA
+    tensor, its plain version on a CPU tensor. Nothing here waits for the
+    device (after the tables' first upload to it)."""
+    if not level.is_cuda:
+        return marching_cubes_plain(level, max_verts, max_faces)
+    level = _check_level(level, "marching cubes")
+    if max_verts < 1 or max_faces < 1:
+        raise ValueError(f"capacities must be positive, got {max_verts} and {max_faces}")
+    RX, RY, RZ = level.shape
+    dev = level.device
+    NB = RX * RY * RZ // BS**3
+    tables, maxtri = _tables_packed(dev)
+    pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev)
+    corners = torch.zeros((3, max_faces), dtype=torch.int32, device=dev)
+    counts = torch.empty(4, dtype=torch.int32, device=dev)
+    nwords = -(-RZ // 32)
+    cutbits = torch.empty(3 * RX * RY * nwords, dtype=torch.int32, device=dev)
+    row_base = torch.empty(3 * RX * RY, dtype=torch.int32, device=dev)
+    blocks = torch.empty(5 * NB, dtype=torch.int32, device=dev)  # face counts (then bases), active cells, axis flags
+    scratch = torch.empty(8, dtype=torch.int32, device=dev)
+    err = _mc_lib("marching_cubes_fwd", 9, 6)(
+        level.data_ptr(), tables.data_ptr(), pos.data_ptr(), corners.data_ptr(), counts.data_ptr(),
+        cutbits.data_ptr(), row_base.data_ptr(), blocks.data_ptr(), scratch.data_ptr(),
+        RX, RY, RZ, max_verts, max_faces, maxtri, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "marching_cubes_fwd")
+    marching_cubes.launches += 1
+    return MCResult(pos[0], pos[1], pos[2], corners[0], corners[1], corners[2], *counts.unbind())
+
+
+marching_cubes.launches = 0

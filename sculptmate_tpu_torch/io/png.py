@@ -36,3 +36,9 @@ def encode_png(rgb: np.ndarray, level: int = 1) -> bytes:
         + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
         + _chunk(b"IEND", b"")
     )
+
+
+def write_png(path: str, rgb: np.ndarray, level: int = 1) -> None:
+    """Write an (H, W, 3) uint8 image to ``path`` as a PNG."""
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb, level))

@@ -13,7 +13,9 @@ rests on two observations:
 The rest of the MLP over all R^3 points is kernel K2
 (``csrc/density_grid.cu``) on a CUDA tensor, and the z-slab loop of
 ``density_mlp_plain`` on a CPU tensor. The scattered query
-(``query_triplane_points``, mesh-vertex colors) is plain torch.
+(``query_triplane_points``: mesh-vertex colors and the renderer's samples)
+is kernel K4 (``csrc/triplane_points.cu``) on a CUDA tensor and
+``triplane_points_plain`` on a CPU tensor.
 
 SF3D's lattice query (``query_grid_multihead``) uses the same scheme for two
 heads at once, their first layers side by side; the rest of both heads is
@@ -197,16 +199,18 @@ def query_density_grid(triplane: torch.Tensor, weights: Weights, spec: DensityGr
     return density_mlp(A, Bm, Cm, weights, spec)
 
 
-def query_triplane_points(
+def triplane_points_plain(
     triplane: torch.Tensor,
     weights: Weights,
     px: torch.Tensor,
     py: torch.Tensor,
     pz: torch.Tensor,
     spec: DensityGridSpec,
-) -> Dict[str, torch.Tensor]:
-    """Scattered query at flat (N,) world coords in (-radius, radius):
-    density/density_act (N,) and color (3, N), channels first."""
+) -> torch.Tensor:
+    """Plain version of kernel K4. triplane (3, C, H, W), flat (N,) world
+    coords in (-radius, radius) -> (5, N) f32: density, density_act, then
+    color (3 rows). The planes are sampled in their own dtype and only the
+    features are cast to the compute dtype, as the JAX package does."""
     cd = spec.compute_dtype
     act = get_activation(spec.activation)
     r = spec.radius
@@ -216,11 +220,122 @@ def query_triplane_points(
     W, b = weights[-1]
     out = (W.to(cd).t() @ h + b.to(cd)[:, None]).float()  # (4, N)
     density = out[0]
-    return {
-        "density": density,
-        "density_act": get_activation(spec.density_activation)(density + spec.density_bias),
-        "color": torch.sigmoid(out[1:4]),
-    }
+    density_act = get_activation(spec.density_activation)(density + spec.density_bias)
+    return torch.cat([density[None], density_act[None], torch.sigmoid(out[1:4])])
+
+
+def _triplane_lib():
+    fn = kernels.load("triplane_points").triplane_points_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# padded rows (bf16 values) of the point-query kernels' weights, copied to
+# shared memory as they lie: 128-deep rows (the 120 features) and 64-deep rows
+_ROW = 128 + 8
+_HROW = _HIDDEN + 8
+
+
+def pack_triplane_weights(weights: Weights, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder in kernel K4's layout, bf16 rows (out, in) padded so the
+    kernel copies them to shared memory as they lie: the first layer (64
+    rows of 120 features), the hidden 64 x 64 layers, then an 8-row output
+    tile (its 4 channels, then zeros). Biases f32 of the bf16 values: the
+    first layer's, each hidden layer's, then the output's zero-padded to 8."""
+    bf = lambda t: t.detach().to(device, torch.bfloat16)  # noqa: E731
+    w1 = torch.zeros(_HIDDEN, _ROW, dtype=torch.bfloat16, device=device)
+    w1[:, : weights[0][0].shape[0]] = bf(weights[0][0]).t()
+    hidden = torch.zeros(_LAYERS, _HIDDEN, _HROW, dtype=torch.bfloat16, device=device)
+    for layer, (w, _) in enumerate(weights[1:-1]):
+        hidden[layer, :, :_HIDDEN] = bf(w).t()
+    w_out, b_out = weights[-1]
+    wout = torch.zeros(8, _HROW, dtype=torch.bfloat16, device=device)
+    wout[: w_out.shape[1], :_HIDDEN] = bf(w_out).t()
+    bias_out = torch.zeros(8, dtype=torch.bfloat16, device=device)
+    bias_out[: w_out.shape[1]] = bf(b_out)
+    W = torch.cat([w1.flatten(), hidden.flatten(), wout.flatten()])
+    bias = torch.cat([bf(b) for _, b in weights[:-1]] + [bias_out]).float()
+    return W.contiguous(), bias.contiguous()
+
+
+def pack_triplane_inputs(triplane: torch.Tensor, weights: Weights):
+    """Kernel K4's inputs besides the points, laid out once per scene code:
+    the planes as f32 (3, H, W, C) channels last, so that a bilinear tap is
+    one contiguous 160-byte row (f32 holds bf16 codes exactly, so the taps
+    are summed from the planes' own values), and the decoder as
+    ``pack_triplane_weights`` packs it -> (planes, weights, biases)."""
+    planes = triplane.float().permute(0, 2, 3, 1).contiguous()
+    return (planes, *pack_triplane_weights(weights, triplane.device))
+
+
+def triplane_points(
+    triplane: torch.Tensor,
+    weights: Weights,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    pz: torch.Tensor,
+    spec: DensityGridSpec,
+    packed=None,
+) -> torch.Tensor:
+    """Kernel K4 on CUDA tensors, its plain version on CPU tensors (same
+    arguments and result as ``triplane_points_plain``). ``packed``: the
+    result of ``pack_triplane_inputs`` for these planes and weights, when
+    the caller has it already."""
+    if not triplane.is_cuda:
+        return triplane_points_plain(triplane, weights, px, py, pz, spec)
+    if spec.compute_dtype != torch.bfloat16:
+        raise TypeError(
+            f"triplane point kernel computes in bf16, got {spec.compute_dtype} (use a bf16 extract dtype)"
+        )
+    if spec.activation.lower() != "silu" or spec.density_activation.lower() != "exp":
+        raise ValueError("triplane point kernel implements silu hidden layers and exp density only")
+    P, C, H, W = triplane.shape
+    if (
+        P != 3 or C != 40 or len(weights) != _LAYERS + 2
+        or weights[0][0].shape != (3 * C, _HIDDEN) or weights[-1][0].shape != (_HIDDEN, 4)
+        or any(w.shape != (_HIDDEN, _HIDDEN) for w, _ in weights[1:-1])
+    ):
+        raise ValueError(f"triplane point kernel takes 120 -> 64, {_LAYERS} hidden 64x64 layers and 64 -> 4 "
+                         "over (3, 40, H, W) planes")
+    N = px.shape[0]
+    coords = [kernels.aligned(t.float()) for t in (px, py, pz)]
+    if any(t.shape != (N,) or not t.is_cuda for t in coords):
+        raise ValueError("triplane point kernel takes three flat (N,) coordinate arrays on the card")
+    dev = triplane.device
+    planes, Wp, bias = packed if packed is not None else pack_triplane_inputs(triplane, weights)
+    out = torch.empty((5, N), dtype=torch.float32, device=dev)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = _triplane_lib()(
+        planes.data_ptr(), *(t.data_ptr() for t in coords), Wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        N, H, W, float(spec.radius), float(spec.density_bias), int(spec.align_corners), num_sms,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "triplane_points_fwd")
+    triplane_points.launches += 1
+    return out
+
+
+triplane_points.launches = 0
+
+
+def query_triplane_points(
+    triplane: torch.Tensor,
+    weights: Weights,
+    px: torch.Tensor,
+    py: torch.Tensor,
+    pz: torch.Tensor,
+    spec: DensityGridSpec,
+    packed=None,
+) -> Dict[str, torch.Tensor]:
+    """Scattered query at flat (N,) world coords in (-radius, radius):
+    density/density_act (N,) and color (3, N), channels first; kernel K4 on
+    the card."""
+    out = triplane_points(triplane, weights, px, py, pz, spec, packed)
+    return {"density": out[0], "density_act": out[1], "color": out[2:5]}
 
 
 # -- SF3D: the multi-head query over the marching-tets lattice (kernel K5) --
@@ -407,8 +522,6 @@ def _points_lib():
 
 
 _K6_LAYERS = 2  # hidden 64x64 layers per head kernel K6 is built for (MaterialMLP's features/perturb_normal)
-_K6_ROW = 128 + 8  # padded row of the first and output layers, in bf16 values
-_K6_HROW = _HIDDEN + 8  # padded row of a hidden layer's per-head block
 
 
 def pack_points_weights(heads: Sequence[Weights], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -422,12 +535,12 @@ def pack_points_weights(heads: Sequence[Weights], device) -> Tuple[torch.Tensor,
     k0 = heads[0][-1][0].shape[1]
     dev = heads[0][0][0].device
     bf = lambda t: t.detach().to(torch.bfloat16)  # noqa: E731
-    w1 = torch.zeros(2 * _HIDDEN, _K6_ROW, dtype=torch.bfloat16, device=dev)
+    w1 = torch.zeros(2 * _HIDDEN, _ROW, dtype=torch.bfloat16, device=dev)
     w1[:, : heads[0][0][0].shape[0]] = torch.cat([bf(h[0][0]).t() for h in heads])
-    hidden = torch.zeros(_K6_LAYERS, 2 * _HIDDEN, _K6_HROW, dtype=torch.bfloat16, device=dev)
+    hidden = torch.zeros(_K6_LAYERS, 2 * _HIDDEN, _HROW, dtype=torch.bfloat16, device=dev)
     for layer in range(_K6_LAYERS):
         hidden[layer, :, :_HIDDEN] = torch.cat([bf(h[1 + layer][0]).t() for h in heads])
-    wout = torch.zeros(8, _K6_ROW, dtype=torch.bfloat16, device=dev)
+    wout = torch.zeros(8, _ROW, dtype=torch.bfloat16, device=dev)
     bias_out = torch.zeros(8, dtype=torch.bfloat16, device=dev)
     for i, (w, b) in enumerate(h[-1] for h in heads):
         off = 0 if i == 0 else k0

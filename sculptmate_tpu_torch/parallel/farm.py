@@ -13,9 +13,13 @@ Each stage of the front runs inside a ``torch.profiler`` span
 (``farm.matting``, ``farm.preprocess``, ``farm.encode``), beside the TSR's
 ``tsr.*`` spans.
 
-The packed extraction mode, tensor parallelism (``tp_axis``) and the
-sharded extractions are multi-device or packed-mode work, ROADMAP item 9,
-and raise ``NotImplementedError``.
+``mode="packed"`` returns one batched ``MCResult`` of device tensors in
+lattice coords, without colors, as the JAX farm does: each asset's density
+grid (K2) and face-emitting marching cubes (K10), one after another on the
+card where the JAX farm vmaps them.
+
+Tensor parallelism (``tp_axis``) and the sharded extractions are
+multi-device work, ROADMAP item 9, and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ from torch.profiler import record_function
 
 from sculptmate_tpu_torch.frontend.matting import U2NET_SIZE
 from sculptmate_tpu_torch.frontend.preprocess import preprocess_batch_device
+from sculptmate_tpu_torch.geometry.marching_cubes import MCResult
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
 from sculptmate_tpu_torch.runtime.device import resolve_device
 from sculptmate_tpu_torch.systems.tsr import upload
 
-_LATER = "is multi-device or packed-mode work, not ported yet (ROADMAP item 9)"
+_LATER = "is multi-device work, not ported yet (ROADMAP item 9)"
+_MODES = ("wire", "packed")
 _NO_MAX_FACES = (
     "max_faces is not applicable in wire mode (faces are rebuilt on the host from the wire counters)"
 )
@@ -61,14 +67,32 @@ class AssetFarm:
         mode: str = "wire",
         has_vertex_color: bool = False,
     ):
-        """Cond images (B, S, S, 3) -> a list of (verts, faces, colors |
-        None) numpy triples in world coords, like ``TSR.extract_mesh``."""
-        if mode != "wire":
-            raise NotImplementedError(f"mode={mode!r} {_LATER}")
-        if max_faces > 0:
+        """Cond images (B, S, S, 3) -> in wire mode a list of (verts, faces,
+        colors | None) numpy triples in world coords, like
+        ``TSR.extract_mesh``; in packed mode one ``MCResult`` of (B, mv) and
+        (B, mf) tensors (see ``extract_batch_packed``)."""
+        if mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+        if mode == "wire" and max_faces > 0:
             raise ValueError(_NO_MAX_FACES)
         codes = self.tsr.scene_codes(images)
+        if mode == "packed":
+            return self.extract_batch_packed(codes, resolution, threshold, max_verts, max_faces)
         return self.extract_batch_wire(codes, resolution, threshold, max_verts, has_vertex_color)
+
+    def extract_batch_packed(
+        self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0, max_faces: int = 0
+    ) -> MCResult:
+        """Packed extraction of a batch of codes (B, 3, C, H, W): each
+        asset's density grid and K10 on the card -> one ``MCResult`` whose
+        fields have a leading batch dimension: (B, mv) f32 lattice positions,
+        (B, mf) int32 faces, (B,) int32 counters. Capacities default to
+        8 R^2 and 16 R^2; rows past them are dropped and the counters stay
+        exact, so the caller sees an overflow."""
+        mv = max_verts if max_verts > 0 else 8 * resolution * resolution
+        mf = max_faces if max_faces > 0 else 16 * resolution * resolution
+        results = [self.tsr._packed_mesh(code, resolution, float(threshold), mv, mf) for code in codes]
+        return MCResult(*(torch.stack(field) for field in zip(*results)))
 
     def extract_batch_wire(
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0,
@@ -144,9 +168,13 @@ class AssetFarm:
         ``chunk``-sized slices (default 1) with up to three chunks in
         flight, so chunk i's host copy and decode overlap the device work of
         the chunks after it. Returns a list of (verts, faces, colors | None)
-        triples in batch order."""
-        if mode != "wire":
-            raise NotImplementedError(f"mode={mode!r} {_LATER}")
+        triples in batch order; in packed mode the whole batch's cond images
+        go through ``generate_batch(mode="packed")`` (one ``MCResult``)."""
+        if mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+        if mode == "packed":
+            cond = self._prep_cond(upload(rgba, self.device), matting, ratio)
+            return self.generate_batch(cond, resolution, threshold, max_verts, max_faces, mode="packed")
         if max_faces > 0:
             raise ValueError(_NO_MAX_FACES)
         B = rgba.shape[0]

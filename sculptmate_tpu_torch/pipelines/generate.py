@@ -95,6 +95,7 @@ class Fast3DGenerator:
 
     def __init__(self):
         self.model = None
+        self.texture_resolution = 512  # the baked maps' size
 
     def initiate_model(self, checkpoint_dir: Optional[str] = None, device: str = "cuda") -> int:
         """Build the model with random weights; 1 on failure. Loading the
@@ -138,6 +139,7 @@ class Fast3DGenerator:
                 arr = arr[None]
             mesh = self.model.run_image(
                 arr,
+                bake_resolution=self.texture_resolution,
                 vertex_simplification_factor=vertex_simplification_factor,
                 enable_texture=enable_texture,
                 threshold=threshold,

@@ -8,8 +8,12 @@ ConvTranspose upsample -> NeRF MLP decoder, in two stages:
   (B, 3, 40, 64, 64), parameters in f32 and compute in ``dtype`` (bf16 on
   the card) under autocast;
 - ``extract_mesh``: codes -> density lattice (kernel K2) -> wire-format
-  marching cubes with per-vertex colors on the device -> one uint8 transfer
-  -> faces rebuilt on the host by the native wire decoder.
+  marching cubes (K3) with per-vertex colors (K4) on the device -> one
+  uint8 transfer -> faces rebuilt on the host by the native wire decoder;
+  or, with ``mode="packed"``, face-emitting marching cubes (K10) and exact
+  f32 colors (K4) on the device, and only the live rows copied back;
+- ``render_views``: codes -> spherical novel views, the decoder (K4) at
+  every ray sample, alpha-composited onto white.
 
 The wire buffer has a fixed vertex capacity. Its counters are exact, so an
 overflow is detected and the extraction retried with a grown capacity,
@@ -32,7 +36,7 @@ a profile of one asset splits its host and device time by stage.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +44,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from sculptmate_tpu_torch.geometry import mc_wire
-from sculptmate_tpu_torch.geometry.marching_cubes import N_WIRE_COUNTS, mc_wire_device
+from sculptmate_tpu_torch.geometry.marching_cubes import N_WIRE_COUNTS, MCResult, marching_cubes, mc_wire_device
 from sculptmate_tpu_torch.models.heads import NeRFMLP
 from sculptmate_tpu_torch.models.tokenizers import Triplane1DTokenizer
 from sculptmate_tpu_torch.models.transformer import Transformer1D
@@ -49,9 +53,11 @@ from sculptmate_tpu_torch.models.vit import DINOSingleImageTokenizer
 from sculptmate_tpu_torch.ops.density_grid import (
     DensityGridSpec,
     mlp_weights_from_params,
+    pack_triplane_inputs,
     query_density_grid,
     query_triplane_points,
 )
+from sculptmate_tpu_torch.ops.rays import get_spherical_cameras, rays_intersect_bbox
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
 from sculptmate_tpu_torch.runtime import capacity_cache
 from sculptmate_tpu_torch.runtime.device import resolve_device
@@ -262,6 +268,7 @@ class TSR:
             self.module.load_state_dict(state_dict)
         self.module.eval().requires_grad_(False)
         self._wire_cap_cache = {}
+        self._packed_cap_cache = {}
 
     # -- stage 1: image -> scene codes --------------------------------
     @torch.inference_mode()
@@ -293,18 +300,23 @@ class TSR:
     def decoder_weights(self):
         return mlp_weights_from_params(self.module.decoder.layers)
 
+    @staticmethod
+    def _query_points(scene_code, weights, spec, wx, wy, wz, packed=None):
+        """``query_triplane_points`` at flat world positions: one K4 launch
+        on the card; on the CPU in chunks, which only bound the plain
+        version's feature tensors."""
+        if scene_code.is_cuda:
+            return query_triplane_points(scene_code, weights, wx, wy, wz, spec, packed)
+        parts = [
+            query_triplane_points(scene_code, weights, wx[s : s + _COLOR_CHUNK], wy[s : s + _COLOR_CHUNK],
+                                  wz[s : s + _COLOR_CHUNK], spec)
+            for s in range(0, wx.shape[0], _COLOR_CHUNK)
+        ]
+        return {key: torch.cat([p[key] for p in parts], dim=-1) for key in parts[0]}
+
     def _color_query(self, scene_code, weights, spec, wx, wy, wz) -> torch.Tensor:
-        """Colors at world positions, in chunks -> (3, N)."""
-        return torch.cat(
-            [
-                query_triplane_points(
-                    scene_code, weights, wx[s : s + _COLOR_CHUNK], wy[s : s + _COLOR_CHUNK],
-                    wz[s : s + _COLOR_CHUNK], spec,
-                )["color"]
-                for s in range(0, wx.shape[0], _COLOR_CHUNK)
-            ],
-            dim=1,
-        )
+        """Colors at world positions -> (3, N)."""
+        return self._query_points(scene_code, weights, spec, wx, wy, wz)["color"]
 
     @torch.inference_mode()
     def _extract_wire(self, scene_code, resolution, threshold, max_verts, want_colors):
@@ -410,11 +422,29 @@ class TSR:
         resolution: int = 256,
         threshold: float = 25.0,
         max_verts: int = 0,
+        max_faces: int = 0,
+        mode: str = "wire",
     ):
         """A list of (verts, faces, colors | None) numpy triples, verts in
         (-radius, radius) world coords like the reference
-        (``tsr/system.py:185-189``). Every asset is enqueued before the
-        first is decoded, so the host decode overlaps device work."""
+        (``tsr/system.py:185-189``).
+
+        ``mode="wire"`` (default): occupancy bits, u16 t and u8 colors come
+        to the host, which rebuilds the faces; every asset is enqueued
+        before the first is decoded, so the decode overlaps device work.
+        There is no device face buffer, so ``max_faces`` raises.
+        ``mode="packed"``: faces come from the device (kernel K10), with
+        exact f32 positions and colors; see ``_extract_mesh_packed``."""
+        if mode == "packed":
+            return self._extract_mesh_packed(scene_codes, has_vertex_color, resolution, threshold, max_verts,
+                                             max_faces)
+        if mode != "wire":
+            raise ValueError(f'mode must be "wire" or "packed", got {mode!r}')
+        if max_faces > 0:
+            raise ValueError(
+                "max_faces is not applicable in wire mode (faces are rebuilt on the host without a device face "
+                'buffer); use mode="packed" to bound the device face capacity'
+            )
         handles = [
             self.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts)
             for code in scene_codes
@@ -427,6 +457,147 @@ class TSR:
             out.append(mesh)
         if handles:
             self._wire_caps_store(resolution, mv, nv_seen)
+        return out
+
+    # -- packed extraction: faces from the device (kernel K10) ----------
+    @torch.inference_mode()
+    def _packed_mesh(self, scene_code, resolution: int, threshold: float, mv: int, mf: int) -> MCResult:
+        """The density lattice (K2) and the face-emitting marching cubes
+        (K10) of one code -> its ``MCResult`` in lattice coords."""
+        spec = self.grid_spec(resolution, compute_dtype=self.extract_dtype)
+        with record_function("tsr.density_grid"):
+            density = query_density_grid(scene_code, self.decoder_weights(), spec)
+        with record_function("tsr.marching_cubes"):
+            return marching_cubes(density - threshold, mv, mf)
+
+    @torch.inference_mode()
+    def _extract_packed(self, scene_code, resolution: int, threshold: float, mv: int, mf: int, want_colors: bool):
+        """One asset on the device: ``_packed_mesh``, world coordinates and
+        (with ``want_colors``) K4 at every vertex slot -> verts (mv, 3) f32
+        world, faces (mf, 3) int32, colors (mv, 3) f32 | None, counts (2,)
+        int32 (num_verts, num_faces)."""
+        res = self._packed_mesh(scene_code, resolution, threshold, mv, mf)
+        r = self.config.radius
+        scale = 2 * r / (resolution - 1.0)
+        wx, wy, wz = res.vx * scale - r, res.vy * scale - r, res.vz * scale - r
+        colors = None
+        if want_colors:
+            with record_function("tsr.color_query"):
+                spec = self.grid_spec(resolution, compute_dtype=self.extract_dtype)
+                colors = self._color_query(scene_code, self.decoder_weights(), spec, wx, wy, wz).t()
+        return torch.stack([wx, wy, wz], dim=1), res.faces, colors, torch.stack([res.num_verts, res.num_faces])
+
+    def _packed_caps(self, resolution: int, max_verts: int, max_faces: int) -> Tuple[int, int]:
+        """(mv, mf) to dispatch with: the defaults 8 R^2 and 16 R^2 or the
+        caller's, raised to capacities that worked before at this
+        resolution (in this process, else persisted by an earlier one);
+        a capacity the caller gave is used as given."""
+        cached = self._packed_cap_cache.get(resolution)
+        if cached is None:
+            cached = capacity_cache.load(f"torch_tsr_packed_r{resolution}")
+        mv = max_verts if max_verts > 0 else 8 * resolution * resolution
+        mf = max_faces if max_faces > 0 else 16 * resolution * resolution
+        if cached is not None and len(cached) == 2:
+            mv = mv if max_verts > 0 else max(mv, cached[0])
+            mf = mf if max_faces > 0 else max(mf, cached[1])
+        return mv, mf
+
+    def _extract_mesh_packed(self, scene_codes, has_vertex_color, resolution, threshold, max_verts, max_faces):
+        """Packed extraction of each code: the counters are read first (the
+        one wait per asset); an overflow of either capacity is re-extracted
+        with both grown to 1.2x the count, never truncated; then only the
+        live rows come to the host. The capacities are tightened toward the
+        counts seen and remembered (``torch_tsr_packed_r<R>``)."""
+        up64k = lambda n: 65536 * -(-n // 65536)  # noqa: E731
+        out = []
+        for code in scene_codes:
+            mv, mf = self._packed_caps(resolution, max_verts, max_faces)
+            while True:
+                verts, faces, colors, counts = self._extract_packed(
+                    code, resolution, float(threshold), mv, mf, bool(has_vertex_color)
+                )
+                with record_function("tsr.packed_to_host"):
+                    nv, nf = (int(c) for c in counts.cpu())
+                if nv <= mv and nf <= mf:
+                    break
+                mv, mf = max(mv, up64k(int(1.2 * nv))), max(mf, up64k(int(1.2 * nf)))
+            caps = (capacity_cache.tighten(mv, nv), capacity_cache.tighten(mf, nf))
+            self._packed_cap_cache[resolution] = caps
+            capacity_cache.store(f"torch_tsr_packed_r{resolution}", caps)
+            with record_function("tsr.packed_to_host"):
+                v = verts[:nv].cpu().numpy()
+                f = faces[:nf].cpu().numpy().astype(np.int64)
+                c = colors[:nv].cpu().numpy() if colors is not None and nv > 0 else None
+            out.append((v, f, c))
+        return out
+
+    # -- novel-view rendering (the reference's spherical render path,
+    # -- nerf_renderer.py:93-172 with get_spherical_cameras) ---------------
+    def _render_points(self, rays_o: torch.Tensor, rays_d: torch.Tensor, num_samples: int):
+        """Sample positions of (..., 3) rays: the bbox slab test, then the
+        midpoints of ``num_samples`` equal steps between t_near and t_far ->
+        (px, py, pz) flat (N * S,), t_vals (S + 1,), valid (N,)."""
+        o, d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        t_near, t_far, valid = rays_intersect_bbox(o, d, self.config.radius)
+        t_vals = torch.linspace(0.0, 1.0, num_samples + 1, device=o.device)
+        t_mid = (t_vals[:-1] + t_vals[1:]) / 2.0
+        z = t_near[:, None] * (1 - t_mid)[None] + t_far[:, None] * t_mid[None]
+        pts = [(o[:, a : a + 1] + z * d[:, a : a + 1]).reshape(-1) for a in range(3)]
+        return pts, t_vals, valid
+
+    @torch.inference_mode()
+    def _render_rays(self, scene_code, rays_o, rays_d, num_samples: int, packed=None):
+        """Volume-render (H, W, 3) rays of one scene code -> (rgb (H, W, 3)
+        on white, opacity (H, W)). The decoder runs at every sample (K4 on
+        the card, in ``extract_dtype``); alpha = 1 - exp(-delta sigma) with
+        delta the spacing of ``t_vals`` (1 / S), the JAX package's spec."""
+        shape = rays_o.shape[:-1]
+        weights = self.decoder_weights()
+        spec = self.grid_spec(2, compute_dtype=self.extract_dtype)  # resolution unused for point queries
+        (px, py, pz), t_vals, valid = self._render_points(rays_o, rays_d, num_samples)
+        with record_function("tsr.render_query"):
+            out = self._query_points(scene_code, weights, spec, px, py, pz, packed)
+        with record_function("tsr.render_composite"):
+            sigma = out["density_act"].reshape(-1, num_samples)
+            color = out["color"].reshape(3, -1, num_samples)
+            delta = (t_vals[1:] - t_vals[:-1])[None]
+            alpha = 1.0 - torch.exp(-delta * sigma)
+            accum = torch.cat(
+                [torch.ones_like(alpha[:, :1]), torch.cumprod(1.0 - alpha[:, :-1] + 1e-10, dim=-1)], dim=-1
+            )
+            w = alpha * accum
+            rgb = torch.einsum("ns,cns->nc", w, color)
+            opacity = w.sum(-1)
+            zero = torch.zeros((), device=rgb.device)
+            rgb = torch.where(valid[:, None], rgb, zero)
+            opacity = torch.where(valid, opacity, zero)
+            rgb = rgb + (1.0 - opacity[:, None])  # white background
+        return rgb.reshape(*shape, 3), opacity.reshape(shape)
+
+    def render_views(
+        self,
+        scene_codes,
+        n_views: int = 8,
+        elevation_deg: float = 0.0,
+        camera_distance: float = 1.9,
+        fovy_deg: float = 40.0,
+        height: int = 256,
+        width: int = 256,
+        num_samples: int = 128,
+    ):
+        """Spherical novel views of each scene code -> a list of (n_views,
+        H, W, 3) f32 numpy arrays, one per code."""
+        out = []
+        with record_function("tsr.render"):
+            rays_o, rays_d = get_spherical_cameras(
+                n_views, elevation_deg, camera_distance, fovy_deg, height, width, device=self.device
+            )
+            for code in scene_codes:
+                packed = None
+                if code.is_cuda:  # K4's planes and weights, laid out once per code
+                    packed = pack_triplane_inputs(code, self.decoder_weights())
+                views = [self._render_rays(code, rays_o[v], rays_d[v], num_samples, packed)[0] for v in range(n_views)]
+                out.append(torch.stack(views).cpu().numpy())
         return out
 
     def image_to_mesh(

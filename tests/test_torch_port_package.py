@@ -211,7 +211,8 @@ def test_planted_faults_apply_to_the_sources():
     finally:
         sys.path.remove(str(PKG.parent))
     assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {
-        "flash_attn", "density_grid", "grid_multihead", "raster_winner", "points_multihead", "uv_unwrap"
+        "flash_attn", "density_grid", "grid_multihead", "raster_winner", "points_multihead", "uv_unwrap",
+        "triplane_points", "marching_cubes",
     }
     for name, kernel, text, replacement in chip_smoke.PLANTED_FAULTS:
         src = (PKG / "csrc" / f"{kernel}.cu").read_text()

@@ -95,8 +95,9 @@ def test_farm_refuses_what_is_not_ported(farms):
     from sculptmate_tpu_torch.parallel import farm as farm_mod
 
     _, _, farm, _, rgba = farms
-    with pytest.raises(NotImplementedError, match="item 9"):
-        farm.generate_batch_rgba(rgba, mode="packed")
+    # packed mode is ported (tests/test_torch_port_packed.py); an unknown mode raises
+    with pytest.raises(ValueError, match="mode"):
+        farm.generate_batch_rgba(rgba, mode="dense")
     with pytest.raises(NotImplementedError, match="item 9"):
         AssetFarm(farm.tsr, device="cpu", tp_axis="tp")
     for fn in (farm_mod.sharded_density_grid, farm_mod.sharded_extract, farm_mod.sharded_extract_wire):
