@@ -20,9 +20,15 @@ Phases (any failure raises and exits non-zero):
    its ~0.6 M wire vertices, at render view 0's 8.39 M samples and at a
    ragged N partly outside the box; K3 and K10 (``csrc/marching_cubes.cu``)
    byte- and entry-equal at its level, at a ragged 64 x 72 x 80 lattice and
-   at undersized capacities.
+   at undersized capacities. K7 (``csrc/marching_tets.cu``) byte-equal on
+   the full-width SF3D asset's 161^3 lattice (snap_eps 0.2 and 0), on a
+   ragged res = 37 lattice with a surface on its faces and at an undersized
+   capacity.
    Then each check is run on kernels rebuilt with a planted fault
-   (``PLANTED_FAULTS``), and must fail every one of them.
+   (``PLANTED_FAULTS``), and must fail every one of them. Then F1: one Lean
+   and one SF3D encode with the encoders' weights stored in bf16 once,
+   against the same seeded weights kept in f32 under autocast: cast ops,
+   copy kernels and device time under the profiler, codes bit-equal.
 3. The Lean main path at full width (default ``TSRConfig``: ViT-B/16,
    16 x 1024 backbone, 256^3 grid) with seeded random weights: one asset
    through ``TripoGenerator`` with the launch counters (K1, K2, K3, K4) read
@@ -80,13 +86,19 @@ Phases (any failure raises and exits non-zero):
    profile; the dispatch of two in-flight ``unwrap_bake_async`` calls under
    ``torch.cuda.set_sync_debug_mode("error")``; one ``SF3DFarm`` batch of
    four textured assets (``sf3d_farm_sec_per_asset``) and a profile of a
-   batch of two (``sf3d_farm.*`` and ``sf3d.*`` spans).
+   batch of two (``sf3d_farm.*`` and ``sf3d.*`` spans). The untextured and
+   textured assets and the farm batch count K7's launches. Then SF3D from
+   its checkpoint directory: the full-width weights written as an F16
+   ``model.safetensors`` (and ``config.yaml`` where ``yaml`` imports),
+   ``Fast3DGenerator().initiate_model(dir)`` timed, and one untextured
+   asset equal to that of a model given the same weights directly.
 10. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
    serving batch and K1's times summed over a Lean asset, as before the
    SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys; K5's
    launches counted on the untextured SF3D asset; K6's, K8's and K9's on
    the textured one; K3's and K4's on the TripoGenerator asset, K4's per
-   path beside them; K10's on the packed asset), then the card line, then
+   path beside them; K10's on the packed asset; K7's on the untextured SF3D
+   asset, per path beside them), then the card line, then
    the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
@@ -215,6 +227,14 @@ PLANTED_FAULTS = (
      "const int le = tri[(cs * maxtri + s) * 3 + c];", "const int le = tri[(cs * maxtri + s) * 3 + (3 - c) % 3];"),
     ("K10's face corners leave out their row's base", "marching_cubes",
      "int id = row_base[row3];", "int id = 0;"),
+    ("K7's class 6 takes (1, 1, 0) for its step", "marching_tets",
+     "STEP_Z = 0b1110100u", "STEP_Z = 0b0110100u"),
+    ("K7's domain mask drops its z test", "marching_tets",
+     "k + dz < N && occupied(", "occupied("),
+    ("K7 ignores snap_eps", "marching_tets",
+     "t = t < w.eps_lo ? 0.f : (t > w.eps_hi ? 1.f : t);", "t = t;"),
+    ("K7's emit takes the next block's base", "marching_tets",
+     "int id = vbase[c * NB + q.blk] + rank[c];", "int id = vbase[min(c * NB + q.blk + 1, NCLS * NB - 1)] + rank[c];"),
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
@@ -267,6 +287,10 @@ def phase_environment():
     ).stdout.strip()
     log(f"# card: {card}")
     log(f"# python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    import importlib.util
+
+    log(f"# yaml imports: {importlib.util.find_spec('yaml') is not None}; "
+        f"safetensors imports: {importlib.util.find_spec('safetensors') is not None}")
     t0 = time.perf_counter()
     per_kernel = kernels.build_all()
     log(f"# built {sorted(per_kernel)} in {time.perf_counter() - t0:.2f} s (parallel nvcc; per kernel "
@@ -506,6 +530,9 @@ def sf3d_scene(fast):
                                   dataclasses.replace(sf3d.grid_spec(sf3d.extract_dtype), resolution=41))["density"]
     threshold = float(torch.quantile(torch.exp(d41[0].flatten() - 1.0), 0.99))
     log(f"# sf3d threshold (99th percentile of the 41^3 density): {threshold}")
+    grids = sf3d.query_lattice(codes[0])  # K7's inputs, as SF3D._extract_wire forms them
+    mt_inputs = [(torch.exp(grids["density"][0] - 1.0) - threshold).contiguous()]
+    mt_inputs += [o.contiguous() for o in grids["vertex_offset"]]
     verts, faces, nv = sf3d.extract_mesh(codes[0], threshold)
     verts, faces, _ = sf3d.decimate_mesh(verts, faces, nv, "high", False)
     rp = verts @ _main_axis_rotation(verts).T
@@ -517,11 +544,12 @@ def sf3d_scene(fast):
         uv6, _, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
     finally:
         ud.binned_winner_plain = winner_fn
-    log(json.dumps({"sf3d_scene": "full-width asset for the texture checks", "verts": len(verts),
-                    "faces": len(faces), "threshold": threshold,
+    log(json.dumps({"sf3d_scene": "full-width asset for the texture and K7 checks", "verts": len(verts),
+                    "faces": len(faces), "mt_raw_verts": nv, "threshold": threshold,
                     "round2_faces": int((recorded[1][6] < ud.WINNER_SINK - 1).sum())}))
     return {"image": image, "threshold": threshold, "codes": codes, "materials": materials, "verts": verts,
-            "faces": faces, "pos": pos, "f": f, "uv6": uv6, "round1": recorded[0], "round2": recorded[1]}
+            "faces": faces, "pos": pos, "f": f, "uv6": uv6, "round1": recorded[0], "round2": recorded[1],
+            "mt": mt_inputs, "mt_res": sf3d.config.isosurface_resolution, "mt_nv": nv}
 
 
 def check_raster(scene, timed=True):
@@ -857,14 +885,87 @@ def check_marching_cubes(scene, timed=True):
     return result
 
 
+def _ragged_border_mt():
+    """A ragged res = 37 tet lattice (N = 38 points, not a multiple of 8) of
+    a smooth field whose sdf is positive on all six faces, so the classes
+    that step along two or three axes reach past the last real point unless
+    the domain mask holds; offsets N(0, 1)."""
+    rng = np.random.default_rng(11)
+    N = 38
+    x = np.linspace(-1, 1, N, dtype=np.float32)
+    g = np.stack(np.meshgrid(x, x, x, indexing="ij"))
+    sdf = np.sin(3 * g[0]) * np.cos(2 * g[1]) + 0.5 * g[2] + 0.1 * rng.standard_normal((N, N, N))
+    border = np.zeros((N, N, N), bool)
+    for a in range(3):
+        border[(slice(None),) * a + (0,)] = border[(slice(None),) * a + (-1,)] = True
+    sdf = np.where(border, np.abs(sdf) + 0.1, sdf).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (sdf, *(rng.standard_normal((N, N, N)).astype(np.float32)
+                                                         for _ in range(3)))]
+
+
+def check_mt_wire(scene, timed=True):
+    """K7 against its plain version, which it must equal byte for byte
+    (occupancy bits, the u16 positions and the counters): on the full-width
+    SF3D asset's 161^3 lattice (its sdf and raw offsets) at snap_eps 0.2
+    (the default weld_eps) and 0, on the ragged res = 37 lattice with a
+    surface on its faces, and at a third of the asset's vertex count
+    (overflow: exact counters, the leading ids kept). With ``timed``, the
+    asset's case at 0.2 also gets its time, the plain version's and its
+    bound."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+
+    sdf, dx, dy, dz = scene["mt"]
+    res = scene["mt_res"]
+    nv = scene["mt_nv"]
+    cases = [("SF3D asset 161^3, snap 0.2", (sdf, dx, dy, dz), res, 1 << 21, 0.2),
+             ("SF3D asset 161^3, snap 0", (sdf, dx, dy, dz), res, 1 << 21, 0.0),
+             ("ragged res 37, surface on the faces", _ragged_border_mt(), 37, 1 << 17, 0.2),
+             ("SF3D asset 161^3, a third of the vertex capacity", (sdf, dx, dy, dz), res, nv // 3, 0.2)]
+    result, failures = None, []
+    for name, inputs, r, mv, eps in cases:
+        got = mt.mt_wire_device(*inputs, r, mv, eps)
+        torch.cuda.synchronize()
+        ref = mt.mt_wire_device_plain(*inputs, r, mv, eps)
+        n_bits = (-(-(r + 1) // 8) * 8) ** 3 // 8
+        q = lambda w: (w[n_bits:-8].reshape(6, mv)[0::2].int() | (w[n_bits:-8].reshape(6, mv)[1::2].int() << 8))  # noqa: E731
+        count = int.from_bytes(ref[-8:-4].cpu().numpy().tobytes(), "little")
+        line = {"check": "K7", "case": name, "resolution": r, "max_verts": mv, "snap_eps": eps, "num_verts": count,
+                "bits_differing": int((got[:n_bits] != ref[:n_bits]).sum()),
+                "position_bytes_differing": int((got[n_bits:-8] != ref[n_bits:-8]).sum()),
+                "max_u16_step_differing": int((q(got) - q(ref)).abs().max()),
+                "counters_equal": bool(torch.equal(got[-8:], ref[-8:])), "limit": "byte-equal"}
+        if not torch.equal(got, ref):
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"{name}: {line['bits_differing']} bit bytes, {line['position_bytes_differing']} position "
+                            f"bytes differ, counters equal {line['counters_equal']}")
+            continue
+        if not (timed and name == "SF3D asset 161^3, snap 0.2"):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # bytes: the f32 sdf and three offsets read once; the bits, 6 B per
+        # vertex and the counters written
+        N = r + 1
+        bound, by = bound_ms(0, 16 * N**3 + n_bits + 6 * min(count, mv) + 8, PEAK_F32_FLOPS)
+        row = {"ms": cuda_ms(lambda: mt.mt_wire_device(*inputs, r, mv, eps), iters=10),
+               "plain_ms": cuda_ms(lambda: mt.mt_wire_device_plain(*inputs, r, mv, eps), iters=3, graph=False),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_share": bound / row["ms"]}))
+        result = row
+    if failures:
+        raise AssertionError("K7 " + "; ".join(failures))
+    return result
+
+
 def randomize_modulations(sf3d, generator, share=0.1):
     """Nonzero AdaLN modulation weights (the module zero-initialises them,
     so a seeded model would never exercise the camera conditioning):
-    fan-in normal scaled by ``share``."""
+    fan-in normal scaled by ``share``, drawn in f32 and rounded to the
+    weight's own dtype (bf16 on a bf16 model, as autocast would round)."""
     for layer in sf3d.module.image_tokenizer.model.encoder.layer:
         for mod in (layer.norm1_modulation, layer.norm2_modulation):
             w = mod.linear2.weight
-            w.normal_(0.0, share * w.shape[1] ** -0.5, generator=generator)
+            w.copy_(torch.empty(w.shape, device=w.device).normal_(0.0, share * w.shape[1] ** -0.5,
+                                                                  generator=generator))
 
 
 def randomize_lattice_biases(sf3d, generator):
@@ -930,6 +1031,7 @@ def sf3d_path(gen, scene):
     launch counters around it (the unwrap is K9's on the card), then a
     warm-up and 3 timed assets through run_image, then a profile of one
     asset."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
     from sculptmate_tpu_torch.geometry import texture_bake as tb
     from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
     from sculptmate_tpu_torch.ops import density_grid as dg
@@ -941,17 +1043,19 @@ def sf3d_path(gen, scene):
         glb = os.path.join(tmp, "asset.glb")
         torch.cuda.synchronize()
         flash_attention.launches = dg.grid_multihead.launches = tb.binned_winner.launches = 0
-        ud.unwrap_core.launches = 0
+        ud.unwrap_core.launches = mt.mt_wire_device.launches = 0
         rc = gen.generate_mesh(image, output_path=glb, enable_texture=False, threshold=threshold)
         torch.cuda.synchronize()
         launches = {"K1": flash_attention.launches, "K5": dg.grid_multihead.launches,
-                    "K8": tb.binned_winner.launches, "K9": ud.unwrap_core.launches}
+                    "K7": mt.mt_wire_device.launches, "K8": tb.binned_winner.launches,
+                    "K9": ud.unwrap_core.launches}
         glb_bytes = os.path.getsize(glb) if rc == 0 else 0
     log(json.dumps({"sf3d_path": "Fast3DGenerator.generate_mesh(enable_texture=False)", "rc": rc,
                     "launches": launches, "glb_bytes": glb_bytes}))
     if rc != 0:
         raise RuntimeError(f"Fast3DGenerator.generate_mesh returned {rc}")
-    if launches["K1"] != 68 or launches["K5"] < 1 or launches["K9"] < 1 or launches["K8"] < 2:
+    if (launches["K1"] != 68 or launches["K5"] < 1 or launches["K7"] < 1 or launches["K9"] < 1
+            or launches["K8"] < 2):
         raise AssertionError(f"SF3D path missed a kernel: {launches}")
 
     runs, meshes = [], []
@@ -1005,6 +1109,7 @@ def sf3d_textured_path(gen, scene):
     K9, K8 >= 3: two visibility rounds and the bake, K6) and a GLB holding
     three images; then a warm-up and 3 timed run_image assets, every mesh
     and map checked; then a profile of one asset."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
     from sculptmate_tpu_torch.geometry import texture_bake as tb
     from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
     from sculptmate_tpu_torch.ops import density_grid as dg
@@ -1016,13 +1121,13 @@ def sf3d_textured_path(gen, scene):
         glb = os.path.join(tmp, "asset.glb")
         torch.cuda.synchronize()
         flash_attention.launches = dg.grid_multihead.launches = tb.binned_winner.launches = 0
-        ud.unwrap_core.launches = dg.points_multihead.launches = 0
+        ud.unwrap_core.launches = dg.points_multihead.launches = mt.mt_wire_device.launches = 0
         rc = gen.generate_mesh(image, output_path=glb, threshold=threshold)  # enable_texture defaults to True
         torch.cuda.synchronize()
         data = b""
         launches = {"K1": flash_attention.launches, "K5": dg.grid_multihead.launches,
-                    "K6": dg.points_multihead.launches, "K8": tb.binned_winner.launches,
-                    "K9": ud.unwrap_core.launches}
+                    "K6": dg.points_multihead.launches, "K7": mt.mt_wire_device.launches,
+                    "K8": tb.binned_winner.launches, "K9": ud.unwrap_core.launches}
         images = 0
         if rc == 0:
             with open(glb, "rb") as fh:
@@ -1033,8 +1138,8 @@ def sf3d_textured_path(gen, scene):
                     "glb_bytes": len(data), "glb_images": images}))
     if rc != 0:
         raise RuntimeError(f"Fast3DGenerator.generate_mesh returned {rc}")
-    if (launches["K1"] != 68 or launches["K5"] < 1 or launches["K6"] < 1 or launches["K8"] < 3
-            or launches["K9"] < 1 or images != 3):
+    if (launches["K1"] != 68 or launches["K5"] < 1 or launches["K6"] < 1 or launches["K7"] < 1
+            or launches["K8"] < 3 or launches["K9"] < 1 or images != 3):
         raise AssertionError(f"textured SF3D path missed a kernel or a texture: {launches}, {images} images")
 
     runs, meshes = [], []
@@ -1091,6 +1196,7 @@ def sf3d_farm_path(sf3d, scene):
     """``SF3DFarm.generate_batch`` on four matted 512^2 RGBA images (the
     scene's disc, then three with other colors), textured at 512^2: one
     warm-up batch, one timed; every mesh and map checked."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
     from sculptmate_tpu_torch.parallel.sf3d_farm import SF3DFarm
 
     batch = 4
@@ -1100,19 +1206,25 @@ def sf3d_farm_path(sf3d, scene):
     farm = SF3DFarm(sf3d)
     farm.generate_batch(images[:1], threshold=scene["threshold"])  # warm-up
     torch.cuda.synchronize()
+    mt.mt_wire_device.launches = 0
     t0 = time.perf_counter()
     meshes = farm.generate_batch(images, threshold=scene["threshold"])
     sec = time.perf_counter() - t0
+    k7 = mt.mt_wire_device.launches
     checks = [textures_ok(m, 512) if m is not None else (False, 0.0) for m in meshes]
     bad = [i for i, m in enumerate(meshes) if m is None or not sf3d_mesh_ok(m, sf3d) or not checks[i][0]]
     log(json.dumps({"sf3d_farm_path": "SF3DFarm.generate_batch (textured 512^2)", "batch": batch,
+                    "launches": {"K7": k7},
                     "sf3d_farm_sec_per_asset": sec / batch, "batch_sec": round(sec, 4),
                     "faces": [len(m["faces"]) for m in meshes if m], "covered_share": [round(c, 4) for _, c in checks],
                     "meshes_failing_checks": bad}))
     if bad or len(meshes) != batch:
         raise AssertionError(f"SF3D farm meshes {bad} failed their checks")
+    if k7 < batch:
+        raise AssertionError(f"the SF3D farm's extraction missed K7: {k7} launches for {batch} assets")
     where_time_goes("one SF3D farm batch of 2 (textured)", lambda: farm.generate_batch(images[:2],
                     threshold=scene["threshold"]), prefixes=("sf3d_farm.", "sf3d."))
+    return {"K7": k7}
 
 
 def planted_faults(g, tsr, sf3d, scene, lean):
@@ -1142,7 +1254,8 @@ def planted_faults(g, tsr, sf3d, scene, lean):
                   "uv_unwrap": lambda: check_unwrap(scene, timed=False),
                   "triplane_points": lambda: check_triplane_points(tsr, lean, timed=False),
                   "marching_cubes": lambda: (check_mc_wire(lean, timed=False),
-                                             check_marching_cubes(lean, timed=False))}
+                                             check_marching_cubes(lean, timed=False)),
+                  "marching_tets": lambda: check_mt_wire(scene, timed=False)}
         with kernels.sources_from(csrc):
             try:
                 checks[kernel]()
@@ -1154,6 +1267,219 @@ def planted_faults(g, tsr, sf3d, scene, lean):
                     raise AssertionError(f"planted fault {name!r} passed the check at {missed}") from e
                 continue
         raise AssertionError(f"planted fault {name!r} passed its check")
+
+
+def f1_check(tsr, sf3d, scene):
+    """The encoders' matrix weights are stored in bf16 once, so autocast
+    casts none of them per call. For one Lean encode (``tsr.scene_codes``)
+    and one SF3D encode (the ``sf3d.encode`` stage: prepare, codes,
+    material estimate), against the same seeded weights kept in f32 and run
+    under autocast (the encode as it ran before): the cast ops
+    (``aten::_to_copy``), the copy kernels and their device time, and the
+    encode span's device range, each under the profiler; and the codes (and
+    SF3D's direct codes and materials) bit-equal to the f32 weights' under
+    autocast. The cast kernels must fall below half."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sculptmate_tpu_torch.systems.sf3d import SF3D
+    from sculptmate_tpu_torch.systems.tsr import TSR, upload
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def profiled(fn, span):
+        """fn() under the profiler inside ``span``: the casts, the copy
+        kernels and the device range and busy time of the kernels."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(span):
+                out = fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        kernels_ = [e for e in events if e.device_type == cuda and not e.name.startswith(("tsr.", "sf3d."))]
+        copies = [e for e in kernels_ if "copy_kernel" in e.name]
+        return out, {"cast_ops": sum(e.name == "aten::_to_copy" for e in events), "copy_kernels": len(copies),
+                     "copy_kernel_ms": sum(e.time_range.elapsed_us() for e in copies) / 1e3,
+                     "kernels": len(kernels_),
+                     "device_busy_ms": sum(e.time_range.elapsed_us() for e in kernels_) / 1e3,
+                     "device_range_ms": (max(e.time_range.end for e in kernels_)
+                                         - min(e.time_range.start for e in kernels_)) / 1e3}
+
+    def under_autocast(fn):
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return fn()
+
+    out = {}
+    image = np.random.default_rng(0).random((1, 512, 512, 3), np.float32)
+    ref = TSR(seed=0, dtype=torch.float32, device="cuda")  # the main path's seed, kept in f32
+    x = upload(image, tsr.device)
+    tsr.scene_codes(image)  # warm-up
+    new, after = profiled(lambda: tsr.scene_codes(image), "tsr.encode")
+    old, before = profiled(lambda: under_autocast(lambda: ref.module(x)), "tsr.encode")
+    out["lean"] = {"after": after, "before": before, "codes_bit_equal": bool(torch.equal(new, old)),
+                   "dtype": str(new.dtype)}
+    del ref
+
+    ref = SF3D(seed=0, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        randomize_modulations(ref, torch.Generator(device="cuda").manual_seed(0))  # as main() does to the model
+    img = torch.from_numpy(scene["image"][None]).cuda()
+
+    def encode(m):
+        mask, rgb = m.prepare_image(img)
+        return (*m.get_scene_codes(rgb), m.estimate_materials(rgb * mask))
+
+    def encode_f32(m):
+        mask, rgb = m.prepare_image(img)
+        codes, direct = m.module(rgb, m._c2w.expand(1, 4, 4), m._Kn.expand(1, 3, 3))
+        return codes, direct, m.module.image_estimator(rgb * mask)
+
+    encode(sf3d)  # warm-up
+    new, after = profiled(lambda: encode(sf3d), "sf3d.encode")
+    old, before = profiled(lambda: under_autocast(lambda: encode_f32(ref)), "sf3d.encode")
+    equal = torch.equal(new[0], old[0]) and torch.equal(new[1], old[1]) and all(
+        torch.equal(new[2][k], old[2][k]) for k in old[2])
+    out["sf3d"] = {"after": after, "before": before, "codes_bit_equal": bool(equal), "dtype": str(new[0].dtype)}
+    del ref
+    torch.cuda.empty_cache()
+    log(json.dumps({"check": "F1: encoder weights cast once (after) against f32 weights under autocast (before)",
+                    **out}))
+    for path, r in out.items():
+        if not r["codes_bit_equal"] or not r["after"]["copy_kernels"] < r["before"]["copy_kernels"] / 2:
+            raise AssertionError(f"F1 {path}: codes bit-equal {r['codes_bit_equal']}, copy kernels "
+                                 f"{r['after']['copy_kernels']} after against {r['before']['copy_kernels']} before")
+    return out
+
+
+# stabilityai/stable-fast-3d's config.yaml layout (the keys SF3DConfig reads
+# and their neighbours), the default SF3DConfig's values, with interpolations
+SF3D_CONFIG_YAML = """
+cond_image_size: 512
+isosurface_resolution: 160
+isosurface_threshold: 10.0
+radius: 0.87
+background_color: [0.5, 0.5, 0.5]
+default_fovy_deg: 40.0
+default_distance: 1.6
+camera_embedder_cls: sf3d.models.camera.LinearCameraEmbedder
+camera_embedder:
+  in_channels: 25
+  out_channels: 768
+  conditions: [c2w_cond, intrinsic_normed_cond]
+image_tokenizer_cls: sf3d.models.tokenizers.image.DINOV2SingleImageTokenizer
+image_tokenizer:
+  pretrained_model_name_or_path: "facebook/dinov2-large"
+  width: ${cond_image_size}
+  height: ${cond_image_size}
+  modulation_cond_dim: ${camera_embedder.out_channels}
+tokenizer_cls: sf3d.models.tokenizers.triplane.TriplaneLearnablePositionalEmbedding
+tokenizer:
+  plane_size: 96
+  num_channels: 1024
+backbone_cls: sf3d.models.transformers.backbone.TwoStreamInterleaveTransformer
+backbone:
+  num_attention_heads: 16
+  attention_head_dim: 64
+  raw_triplane_channels: ${tokenizer.num_channels}
+  triplane_channels: ${tokenizer.num_channels}
+  raw_image_channels: 1024
+  num_latents: 1792
+  num_blocks: 4
+  num_basic_blocks: 3
+post_processor_cls: sf3d.models.network.PixelShuffleUpsampleNetwork
+post_processor:
+  in_channels: ${tokenizer.num_channels}
+  out_channels: 40
+  scale_factor: 4
+  conv_layers: ${backbone.num_blocks}
+decoder_cls: sf3d.models.network.MaterialMLP
+decoder:
+  in_channels: 120
+  n_neurons: 64
+  activation: silu
+  heads:
+    - {name: density, out_channels: 1, out_bias: -1.0, n_hidden_layers: 2, output_activation: trunc_exp}
+    - {name: features, out_channels: 3, n_hidden_layers: 3, output_activation: sigmoid}
+    - {name: perturb_normal, out_channels: 3, n_hidden_layers: 3, output_activation: normalize_channel_last}
+    - {name: vertex_offset, out_channels: 3, n_hidden_layers: 2}
+"""
+
+_ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16", torch.int64: "I64",
+             torch.int32: "I32"}
+
+
+def write_safetensors(path, tensors):
+    """A minimal ``.safetensors`` writer (CPU tensors): the 8-byte
+    little-endian header length, the JSON header padded to 8 bytes, then
+    each tensor's raw little-endian bytes in order."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def sf3d_checkpoint_path(fast, scene):
+    """SF3D from its checkpoint directory: the full-width model's weights
+    written as ``model.safetensors`` in F16 (``write_safetensors``) and,
+    where ``yaml`` imports, ``config.yaml`` in the published layout with
+    interpolations, in a temporary directory; ``Fast3DGenerator().
+    initiate_model(dir)`` on the card (its seconds and the file's size);
+    one untextured asset of the loaded model, which must equal, vertex for
+    vertex and face for face, the mesh of ``SF3D(state_dict=...)`` given
+    the same F16-rounded weights directly. Both models and the directory
+    are freed afterwards."""
+    import importlib.util
+
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+    from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
+    from sculptmate_tpu_torch.systems.sf3d import SF3D, SF3DConfig
+
+    image, threshold = scene["image"][None], scene["threshold"]
+    sd16 = {k: v.to(torch.float16).cpu() for k, v in fast.model.module.state_dict().items()}
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.safetensors")
+        t0 = time.perf_counter()
+        write_safetensors(path, sd16)
+        write_sec = time.perf_counter() - t0
+        if has_yaml:
+            with open(os.path.join(tmp, "config.yaml"), "w") as f:
+                f.write(SF3D_CONFIG_YAML)
+        gen = Fast3DGenerator()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = gen.initiate_model(tmp, device="cuda")
+        torch.cuda.synchronize()
+        load_sec = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+    if rc != 0:
+        raise RuntimeError(f"Fast3DGenerator.initiate_model(checkpoint_dir) returned {rc}")
+    mt.mt_wire_device.launches = 0
+    got = gen.model.run_image(image, enable_texture=False, threshold=threshold)
+    k7 = mt.mt_wire_device.launches
+    direct = SF3D(state_dict={k: v.float() for k, v in sd16.items()}, device="cuda")
+    ref = direct.run_image(image, enable_texture=False, threshold=threshold)
+    same = got is not None and ref is not None and all(np.array_equal(got[k], ref[k]) for k in ("verts", "faces"))
+    line = {"sf3d_checkpoint": "Fast3DGenerator.initiate_model(dir) with model.safetensors (F16)"
+                               + (" and config.yaml" if has_yaml else ", no config.yaml (yaml does not import)"),
+            "yaml_imports": has_yaml, "config_from_yaml_is_default": gen.model.config == SF3DConfig(),
+            "file_bytes": file_bytes, "tensors": len(sd16), "write_sec": write_sec, "load_sec": load_sec,
+            "launches": {"K7": k7}, "verts": [len(m["verts"]) for m in (got, ref) if m],
+            "faces": [len(m["faces"]) for m in (got, ref) if m], "equal_to_direct_state_dict": same}
+    log(json.dumps(line))
+    del gen, direct, sd16
+    torch.cuda.empty_cache()
+    if not same or not sf3d_mesh_ok(got, fast.model) or k7 < 1:
+        raise AssertionError("the model loaded from its checkpoint directory disagrees with the same weights "
+                             "given directly")
+    return line
 
 
 def small_model_check():
@@ -1595,7 +1921,9 @@ def main():
     k4 = check_triplane_points(gen.model, lean)
     k3 = check_mc_wire(lean)
     k10 = check_marching_cubes(lean)
+    k7 = check_mt_wire(scene)
     planted_faults(g, gen.model, fast.model, scene, lean)
+    f1_check(gen.model, fast.model, scene)
     small_model_check()
     small_render_check()
     lean_launches, wire_sec = main_path(gen)
@@ -1614,7 +1942,8 @@ def main():
     sf3d_launches = sf3d_path(fast, scene)
     tex_launches = sf3d_textured_path(fast, scene)
     sf3d_async_contract(fast.model, scene)
-    sf3d_farm_path(fast.model, scene)
+    farm_launches = sf3d_farm_path(fast.model, scene)
+    sf3d_checkpoint_path(fast, scene)
 
     sf3d_k1 = {f"sf3d_{key}": value for key, value in k1["sf3d"].items()}
     kernels_line = {"kernels": [
@@ -1674,6 +2003,13 @@ def main():
          "max_abs_err": 0.0, "limit": "equal positions, faces and counters", "check": "pass",
          "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
          "library_ms": None},
+        {"name": "mt_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_tets.cu",
+         "replaces": "sculptmate_tpu/geometry/marching_tets.py:388", "launches": sf3d_launches["K7"],
+         "launches_by_path": {"fast3d_generator": sf3d_launches["K7"], "fast3d_generator_textured": tex_launches["K7"],
+                              "sf3d_farm_batch_of_4": farm_launches["K7"]},
+         "max_abs_err": 0.0, "limit": "byte-equal wire (bits, u16 positions, counters)", "check": "pass",
+         "ms": k7["ms"], "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+         "library_ms": None},
     ]}
     log("# kernel times per asset: K1's ms, plain_ms, bound_ms and library_ms sum its 44 Lean launches (16 attn1 +"
         " 16 attn2 + 12 ViT) and its launches are those of one 8-asset serving batch, as before the SF3D path;"
@@ -1688,7 +2024,8 @@ def main():
         " TripoGenerator asset's, ms the wire without the color positions); K4's launches are the TripoGenerator"
         " asset's (per path beside them), its ms the asset's ~0.6 M vertices and render_view_ms one view's 8.39 M"
         " samples, relayout_ms its once-per-code packing; K10 is the asset's 256^3 packed mesh, its launches those of"
-        " the packed asset")
+        " the packed asset; K7 is the full-width SF3D asset's 161^3 wire at snap_eps 0.2, its launches the untextured"
+        " Fast3DGenerator asset's (per path beside them)")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

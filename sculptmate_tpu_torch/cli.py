@@ -1,11 +1,12 @@
 """Command line: image in, mesh out, on the port.
 
-Counterpart of ``sculptmate_tpu/cli.py``'s ``generate``, ``decimate`` and
-``render``:
+Counterpart of ``sculptmate_tpu/cli.py``'s ``generate``, ``decimate``,
+``render`` and ``convert``:
 
     python -m sculptmate_tpu_torch.cli generate input.png -o out.glb [--model lean|fast] [--device cpu]
     python -m sculptmate_tpu_torch.cli decimate in.obj out.obj --ratio 0.5
     python -m sculptmate_tpu_torch.cli render input.png -o view_{}.png [--n-views 8] [--size 256] [--device cpu]
+    python -m sculptmate_tpu_torch.cli convert model.safetensors sf3d.pt
 
 ``generate`` mattes the image on the host (``frontend.remove`` with the u2net
 session, on ``--device``) and crops and frames it (``preprocess_image``:
@@ -17,7 +18,9 @@ is written as GLB (with the textures) or OBJ and one JSON line reports its
 size and the timings; ``--simplify-faces N`` decimates the Lean mesh to
 about N faces (dropping its colors), ``--bake-resolution`` sizes SF3D's
 maps. ``render`` writes spherical novel views of the Lean model's scene as
-PNGs (``io/png.py``). Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
+PNGs (``io/png.py``). ``convert`` turns a reference checkpoint (``.ckpt``,
+``.safetensors`` or ``.onnx``) into the port's state dict (``torch.save``;
+the JAX package writes orbax trees instead). Weights come from ``$SCULPTMATE_CHECKPOINTS`` (``u2net.onnx``)
 where present, else they are random from ``--seed``.
 """
 
@@ -148,6 +151,30 @@ def _cmd_render(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_convert(args: argparse.Namespace) -> int:
+    """A reference checkpoint (TripoSR ``model.ckpt``, SF3D
+    ``model.safetensors`` or ``u2net.onnx``) -> the port's state dict,
+    written with ``torch.save``."""
+    import torch
+
+    from sculptmate_tpu_torch.runtime import checkpoint as ck
+
+    src = args.input
+    if src.endswith(".ckpt"):
+        sd = torch.load(src, map_location="cpu", weights_only=True)
+        sd = sd.get("state_dict", sd)
+    elif src.endswith(".safetensors"):
+        sd = ck.load_sf3d_state_dict(src)
+    elif src.endswith(".onnx"):
+        sd = ck.u2net_state_dict_from_onnx(src)
+    else:
+        print(f"[sculptmate] unknown checkpoint format: {src}", file=sys.stderr)
+        return 1
+    torch.save(sd, args.output)
+    print(json.dumps({"input": src, "output": args.output}))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="sculptmate_tpu_torch.cli", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -185,6 +212,11 @@ def main(argv=None) -> int:
     d.add_argument("--ratio", type=float, default=0.5, help="target face ratio")
     d.add_argument("--aggressiveness", type=float, default=7.0)
     d.set_defaults(func=_cmd_decimate)
+
+    c = sub.add_parser("convert", help="reference checkpoint -> the port's state dict (torch.save)")
+    c.add_argument("input", help="model.ckpt | model.safetensors | u2net.onnx")
+    c.add_argument("output", help="output file, read back with torch.load")
+    c.set_defaults(func=_cmd_convert)
 
     args = p.parse_args(argv)
     return args.func(args)

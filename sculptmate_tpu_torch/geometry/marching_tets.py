@@ -1,7 +1,9 @@
-"""Wire-format marching tetrahedra on the device (plain torch).
+"""Wire-format marching tetrahedra on the device (kernel K7).
 
 Counterpart of ``sculptmate_tpu/geometry/marching_tets.py:mt_wire_device``
-(with ``_mt_vertex_side_wire`` and ``_mt_positions``): marching tets on the
+(with ``_mt_vertex_side_wire`` and ``_mt_positions``). ``mt_wire_device``
+runs the hand-written kernel ``csrc/marching_tets.cu`` on a CUDA tensor and
+its plain version ``mt_wire_device_plain`` on a CPU tensor: marching tets on the
 Freudenthal lattice of ``mt_tables.py``, whose tet edges fall into 7
 direction classes anchored at a lattice point. Every cut edge gives one
 vertex at the sdf-weighted interpolation of its two deformed endpoints
@@ -22,15 +24,17 @@ are u16 over [-1/res, 1 + 1/res] in [0, 1] lattice units. The buffer has
 ``max_verts`` slots and the counters are exact, so a caller detects
 overflow (num_verts > max_verts) and retries; there is no block capacity,
 since the compaction scans every block. Nothing here syncs with the host.
-Its Hopper kernel (K7) is queued beside K3's.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from sculptmate_tpu_torch.geometry.marching_cubes import BS, _u32_le_bytes, pack_bits_u8
 from sculptmate_tpu_torch.geometry.mt_tables import EDGE_DIRS
+from sculptmate_tpu_torch.runtime import kernels
 
 N_WIRE_COUNTS = 2  # num_verts, n_vblocks
 # bit c of _DIR_MASKS[a] is edge class c's step along axis a
@@ -59,7 +63,7 @@ def _to_blocks(m: torch.Tensor) -> torch.Tensor:
     return m.reshape(7 * nb**3, BS**3)
 
 
-def mt_wire_device(
+def mt_wire_device_plain(
     sdf: torch.Tensor,
     deform_x: torch.Tensor,
     deform_y: torch.Tensor,
@@ -68,13 +72,8 @@ def mt_wire_device(
     max_verts: int,
     snap_eps: float = 0.0,
 ) -> torch.Tensor:
-    """sdf and the raw offsets: (N, N, N) or flat (N^3,) f32 over the
-    (res+1)^3 lattice, x-major -> the (W,) uint8 wire.
-
-    ``snap_eps`` > 0 snaps the interpolation parameter t to {0, 1} within
-    eps, so such vertices land exactly on the deformed lattice point that
-    every incident edge shares and the decoder can weld them
-    (``mt_wire.decode_wire(weld=True)``)."""
+    """Plain version of kernel K7; ``mt_wire_device``'s arguments and
+    result."""
     N = lattice_size(resolution)
     Np = -(-N // BS) * BS
     dev = sdf.device
@@ -140,3 +139,66 @@ def mt_wire_device(
 
     occ_bytes = pack_bits_u8(occ.reshape(-1))
     return torch.cat([occ_bytes, *parts, _u32_le_bytes(torch.stack([num_verts, n_vblocks]))])
+
+
+def _mt_fn():
+    fn = kernels.load("marching_tets").mt_wire_fwd  # the library of the sources in use (kernels.sources_from)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def mt_wire_device(
+    sdf: torch.Tensor,
+    deform_x: torch.Tensor,
+    deform_y: torch.Tensor,
+    deform_z: torch.Tensor,
+    resolution: int,
+    max_verts: int,
+    snap_eps: float = 0.0,
+) -> torch.Tensor:
+    """sdf and the raw offsets: (N, N, N) or flat (N^3,) f32 over the
+    (res+1)^3 lattice, x-major -> the (W,) uint8 wire. Kernel K7 on a CUDA
+    ``sdf`` (the offsets on the same device), its plain version on a CPU
+    one.
+
+    ``snap_eps`` > 0 snaps the interpolation parameter t to {0, 1} within
+    eps, so such vertices land exactly on the deformed lattice point that
+    every incident edge shares and the decoder can weld them
+    (``mt_wire.decode_wire(weld=True)``)."""
+    if not sdf.is_cuda:
+        return mt_wire_device_plain(sdf, deform_x, deform_y, deform_z, resolution, max_verts, snap_eps)
+    N = lattice_size(resolution)
+    if max_verts < 1:
+        raise ValueError(f"max_verts must be positive, got {max_verts}")
+    if N**3 >= 2**31:
+        raise ValueError(f"the MT kernel indexes the lattice with 32-bit ints: resolution {resolution} is too large")
+    inputs = []
+    for name, t in (("sdf", sdf), ("deform_x", deform_x), ("deform_y", deform_y), ("deform_z", deform_z)):
+        if t.device != sdf.device or t.dtype != torch.float32 or t.numel() != N**3:
+            raise ValueError(f"{name}: the MT kernel takes {N}^3 f32 values on {sdf.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        inputs.append(kernels.aligned(t.reshape(-1)))
+    Np = -(-N // BS) * BS
+    NB = (Np // BS) ** 3
+    dev = sdf.device
+    wire = torch.zeros(Np**3 // 8 + 6 * max_verts + 4 * N_WIRE_COUNTS, dtype=torch.uint8, device=dev)
+    vcnt = torch.empty(7 * NB, dtype=torch.int32, device=dev)
+    vbase = torch.empty(7 * NB, dtype=torch.int32, device=dev)
+    # the scalars as the plain version's f32 arithmetic rounds them on the
+    # card (ctypes rounds each double to f32); PyTorch divides a CUDA tensor
+    # by a Python scalar as a product with the scalar's reciprocal, taken
+    # in double and rounded to f32 (the f32 quotient 1.f / span differs by
+    # an ulp at res 160 and moves ~0.2 % of the u16 positions a step)
+    err = _mt_fn()(
+        *(t.data_ptr() for t in inputs), wire.data_ptr(), vcnt.data_ptr(), vbase.data_ptr(), N, max_verts,
+        1.0 / resolution, -1.0 / resolution, 1.0 / (1.0 + 2.0 / resolution), snap_eps, 1.0 - snap_eps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "mt_wire_fwd")
+    mt_wire_device.launches += 1
+    return wire
+
+
+mt_wire_device.launches = 0

@@ -19,7 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
+
+from sculptmate_tpu_torch.runtime.device import resolve_device
 
 
 def _scatter_add_rows(out: np.ndarray, idx: np.ndarray, vals: np.ndarray) -> None:
@@ -127,14 +128,17 @@ class Mesh:
         return tangents / np.maximum(np.linalg.norm(tangents, axis=1, keepdims=True), 1e-12)
 
     # -- UVs --------------------------------------------------------------
-    def unwrap_uv(self, island_padding: float = 0.02, backend: str = "host", device="cpu") -> "Mesh":
+    def unwrap_uv(self, island_padding: float = 0.02, backend: str = "host", device=None) -> "Mesh":
         """Cube-projection unwrap, then vertices duplicated per face.
         ``backend``: "host" (numpy and the C++ overlap painter), "device"
         (``uv_unwrap_device.unwrap_device`` on ``device``: kernel K9 on the
-        card, its plain version on the CPU) or "auto" (the device on a CUDA
-        ``device``, the host otherwise)."""
+        card, its plain version on the CPU) or "auto" (the device backend on
+        a CUDA device, the host one on ``device="cpu"``). For "device" and
+        "auto", ``device`` defaults to the card and raises without one."""
+        if backend in ("auto", "device"):
+            device = resolve_device(device)
         if backend == "auto":
-            backend = "device" if torch.device(device).type == "cuda" else "host"
+            backend = "device" if device.type == "cuda" else "host"
         if backend == "device":
             from sculptmate_tpu_torch.geometry.uv_unwrap_device import unwrap_device
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from sculptmate_tpu_torch.runtime import kernels
+from sculptmate_tpu_torch.runtime.device import resolve_device
 
 WINNER_SINK = 2**31 - 1  # empty-texel key (the scatter-min identity)
 _CANDIDATES = 1 << 22  # (face, texel) candidates per step of the plain version
@@ -198,8 +199,10 @@ def rasterize_device(u0, v0, u1, v1, u2, v2, resolution: int) -> torch.Tensor:
     return rast.reshape(4, resolution, resolution)
 
 
-def rasterize(uv: np.ndarray, faces: np.ndarray, resolution: int, device="cpu") -> torch.Tensor:
-    """uv (Nv, 2), faces (F, 3) host arrays -> (4, res, res) on ``device``."""
+def rasterize(uv: np.ndarray, faces: np.ndarray, resolution: int, device=None) -> torch.Tensor:
+    """uv (Nv, 2), faces (F, 3) host arrays -> (4, res, res) on ``device``
+    (the card by default; it raises without one)."""
+    device = resolve_device(device)
     tri = np.asarray(uv, np.float32)[np.asarray(faces)]  # (F, 3, 2)
     corners = [torch.from_numpy(np.ascontiguousarray(tri[:, c, d])).to(device) for c in range(3) for d in range(2)]
     return rasterize_device(*corners, resolution)

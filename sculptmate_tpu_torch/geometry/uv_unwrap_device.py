@@ -53,6 +53,7 @@ import torch
 from sculptmate_tpu_torch.geometry.texture_bake import WINNER_SINK, binned_winner, binned_winner_plain
 from sculptmate_tpu_torch.geometry.uv_unwrap import _FACE_RULES, _main_axis_rotation
 from sculptmate_tpu_torch.runtime import kernels
+from sculptmate_tpu_torch.runtime.device import resolve_device
 
 RASTER_RES = 1024  # 4x4 grid of slice cells, 256^2 each
 _CELL_INSET = 0.05  # keeps the barycentric margin's coverage inside each cell
@@ -362,15 +363,17 @@ def unwrap_device(
     faces: np.ndarray,
     island_padding: float = 0.02,
     return_flat: bool = False,
-    device="cpu",
+    device=None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-    """Device unwrap of a host mesh. Returns (unique_uv (U, 2) f32, vtex_idx
-    (F, 3)) like ``uv_unwrap.unwrap``, or with ``return_flat`` the per-corner
-    UVs (F, 3, 2) f32 and None. The host applies the PCA rotation only."""
+    """Device unwrap of a host mesh on ``device`` (the card by default; it
+    raises without one, ``device="cpu"`` runs the plain version). Returns
+    (unique_uv (U, 2) f32, vtex_idx (F, 3)) like ``uv_unwrap.unwrap``, or
+    with ``return_flat`` the per-corner UVs (F, 3, 2) f32 and None. The
+    host applies the PCA rotation only."""
+    dev = resolve_device(device)
     v_pos = np.asarray(v_pos, np.float32)
     faces = np.asarray(faces, np.int64)
     rp = v_pos @ _main_axis_rotation(v_pos).T
-    dev = torch.device(device)
     pos = torch.from_numpy(np.ascontiguousarray(rp.T)).to(dev)
     f = torch.from_numpy(np.ascontiguousarray(faces.T, np.int32)).to(dev)
     uv6, _, _ = unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2], island_padding)

@@ -4,7 +4,8 @@ Counterparts of ``sculptmate_tpu/pipelines/generate.py``: ``TripoGenerator``
 (Lean, ``TripoSR/generate.py:8-43``) and ``Fast3DGenerator`` (SF3D,
 ``StableFast/generate.py:8-59``), each a lazy ``initiate_model`` +
 ``generate_mesh`` with the same return codes (0 ok / 1 not initialized / 2
-error). The model runs on the card unless ``device="cpu"`` is passed to
+error); ``initiate_model`` loads a checkpoint directory in the reference's
+layout. The model runs on the card unless ``device="cpu"`` is passed to
 ``initiate_model``. The result is written as GLB (importing into Blender is
 not ported yet).
 """
@@ -98,15 +99,22 @@ class Fast3DGenerator:
         self.texture_resolution = 512  # the baked maps' size
 
     def initiate_model(self, checkpoint_dir: Optional[str] = None, device: str = "cuda") -> int:
-        """Build the model with random weights; 1 on failure. Loading the
-        reference's ``model.safetensors`` and ``config.yaml`` from
-        ``checkpoint_dir`` waits for a checkpoint in the repository."""
+        """Build the model, from ``checkpoint_dir`` (the reference's
+        ``config.yaml`` and ``model.safetensors``, each where present) when
+        given, else with random weights. Returns 0, or 1 on failure."""
         try:
-            from sculptmate_tpu_torch.systems.sf3d import SF3D
+            from sculptmate_tpu_torch.runtime.checkpoint import load_sf3d_state_dict
+            from sculptmate_tpu_torch.systems.sf3d import SF3D, SF3DConfig
 
-            if checkpoint_dir:
-                raise NotImplementedError("loading an SF3D checkpoint directory is not ported yet (ROADMAP item 10)")
-            self.model = SF3D(device=device)
+            config = state_dict = None
+            if checkpoint_dir and os.path.isdir(checkpoint_dir):
+                cfg_path = os.path.join(checkpoint_dir, "config.yaml")
+                if os.path.isfile(cfg_path):
+                    config = SF3DConfig.from_yaml(cfg_path)
+                st_path = os.path.join(checkpoint_dir, "model.safetensors")
+                if os.path.isfile(st_path):
+                    state_dict = load_sf3d_state_dict(st_path)
+            self.model = SF3D(config=config, state_dict=state_dict, device=device)
             return 0
         except Exception:
             print("[Model Initialization Error]", traceback.format_exc())

@@ -27,13 +27,20 @@ inverse of its ``convert_u2net_state_dict``), and
 ``try_load_u2net_state_dict`` reads ``u2net.onnx`` from the checkpoint
 directory (``$SCULPTMATE_CHECKPOINTS``, else ``checkpoints/`` in the
 package) through ``runtime/onnx_lite.py``.
+
+``read_safetensors`` reads a ``.safetensors`` file without the
+``safetensors`` package, and ``load_sf3d_state_dict`` turns the reference's
+SF3D ``model.safetensors`` into the port's f32 state dict, accepting what
+the JAX package's ``load_sf3d_checkpoint`` accepts.
 """
 
 from __future__ import annotations
 
+import json
+import math
 import os
 import re
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -152,15 +159,21 @@ def u2net_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def u2net_state_dict_from_onnx(path: str) -> Dict[str, torch.Tensor]:
+    """The u2net parameters among an ONNX file's initializers, under the
+    port's ``U2Net`` names."""
+    from sculptmate_tpu_torch.runtime.onnx_lite import read_initializers
+
+    return {k: _t(v) for k, v in read_initializers(path).items() if _U2NET_KEY.match(k)}
+
+
 def try_load_u2net_state_dict() -> Optional[Dict[str, torch.Tensor]]:
     """The u2net parameters of ``u2net.onnx`` in the checkpoint directory,
     or None when the file is absent."""
-    from sculptmate_tpu_torch.runtime.onnx_lite import read_initializers
-
     path = os.path.join(CHECKPOINT_DIR, "u2net.onnx")
     if not os.path.isfile(path):
         return None
-    return {k: _t(v) for k, v in read_initializers(path).items() if _U2NET_KEY.match(k)}
+    return u2net_state_dict_from_onnx(path)
 
 
 def _dense_stack(sd, prefix: str, layers: Sequence[Mapping]) -> None:
@@ -273,3 +286,205 @@ def sf3d_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             _dense_stack(sd, f"global_estimator.heads.{name}",
                          [stack[f"dense_{i}"] for i in _numbered(stack, "dense")] + [ge[f"{name}_out"]])
     return sd
+
+
+# -- safetensors ------------------------------------------------------------
+
+_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16, "I64": torch.int64,
+              "I32": torch.int32}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> {name: CPU tensor}, parsed here: an 8-byte
+    little-endian header length, a JSON header of ``dtype``, ``shape`` and
+    ``data_offsets`` (relative to the end of the header) per tensor, then
+    the raw little-endian buffers. F32, F16, BF16, I64 and I32 are read;
+    another dtype, an offset outside the file or a buffer whose size is not
+    its shape's raises ``ValueError`` naming the tensor."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: not a safetensors file (no 8-byte header length)")
+        n = int.from_bytes(head, "little")
+        if 8 + n > size:
+            raise ValueError(f"{path}: its {n}-byte header runs past the end of the file ({size} bytes)")
+        header = json.loads(f.read(n))
+        base = 8 + n
+        out = {}
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dt = _ST_DTYPES.get(info.get("dtype"))
+            if dt is None:
+                raise ValueError(f"{path}: tensor {name!r} has dtype {info.get('dtype')!r}; "
+                                 f"read are {sorted(_ST_DTYPES)}")
+            start, end = info["data_offsets"]
+            shape = [int(d) for d in info["shape"]]
+            nbytes = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+            if not (0 <= start <= end and base + end <= size):
+                raise ValueError(f"{path}: tensor {name!r} at bytes [{start}, {end}) lies outside the file's "
+                                 f"{size - base} data bytes")
+            if end - start != nbytes:
+                raise ValueError(f"{path}: tensor {name!r} holds {end - start} bytes, its shape {shape} "
+                                 f"needs {nbytes}")
+            buf = bytearray(nbytes)
+            f.seek(base + start)
+            f.readinto(buf)
+            t = torch.frombuffer(buf, dtype=dt) if nbytes else torch.empty(0, dtype=dt)
+            out[name] = t.reshape(shape)
+    return out
+
+
+# keys the JAX package's convert_sf3d_state_dict reads only when present:
+# the AdaLN projections, the backbone's image-token norm and projection, and
+# the CLIP image encoder (a missing one keeps the module's seeded value: zero
+# modulations, as the JAX package initialises them)
+_SF3D_OPTIONAL = re.compile(
+    r"image_tokenizer\.model\.encoder\.layer\.\d+\.norm[12]_modulation\.linear2\."
+    r"|backbone\.(norm|proj)_image\."
+    r"|image_estimator\.model\.visual\."
+)
+
+
+def is_optional_sf3d_key(key: str) -> bool:
+    """Whether an SF3D state-dict key may be missing from a checkpoint."""
+    return _SF3D_OPTIONAL.match(key) is not None
+
+
+def _indices(sd, pattern: str) -> List[int]:
+    return sorted({int(m.group(1)) for k in sd if (m := re.match(pattern, k))})
+
+
+def _count(sd, pattern: str, what: str) -> int:
+    found = _indices(sd, pattern)
+    if not found:
+        raise KeyError(f"SF3D checkpoint has no {what}")
+    return 1 + max(found)
+
+
+def sf3d_checkpoint_keys(sd: Mapping) -> List[str]:
+    """The keys of a reference SF3D state dict that the JAX package's
+    ``convert_sf3d_state_dict`` reads, in its order: every key it reads
+    unconditionally must be there (``KeyError`` names the first missing
+    one), the keys it reads only when present are taken when they are."""
+    keys: List[str] = []
+
+    def need(k):
+        if k not in sd:
+            raise KeyError(f"SF3D checkpoint lacks {k!r}")
+        keys.append(k)
+
+    def opt(k):
+        if k in sd:
+            keys.append(k)
+
+    def linear(prefix):  # Linear and Conv: the bias is optional
+        need(f"{prefix}.weight")
+        opt(f"{prefix}.bias")
+
+    def norm(prefix):
+        need(f"{prefix}.weight")
+        need(f"{prefix}.bias")
+
+    linear("camera_embedder.linear")
+    emb = "image_tokenizer.model.embeddings"
+    need(f"{emb}.cls_token")
+    need(f"{emb}.position_embeddings")
+    linear(f"{emb}.patch_embeddings.projection")
+    for i in range(_count(sd, r"image_tokenizer\.model\.encoder\.layer\.(\d+)\.", "DINOv2 layers")):
+        tl = f"image_tokenizer.model.encoder.layer.{i}"
+        norm(f"{tl}.norm1")
+        norm(f"{tl}.norm2")
+        for name in ("attention.attention.query", "attention.attention.key", "attention.attention.value",
+                     "attention.output.dense", "mlp.fc1", "mlp.fc2"):
+            linear(f"{tl}.{name}")
+        need(f"{tl}.layer_scale1.lambda1")
+        need(f"{tl}.layer_scale2.lambda1")
+        for mod in ("norm1_modulation", "norm2_modulation"):
+            if f"{tl}.{mod}.linear2.weight" in sd:
+                linear(f"{tl}.{mod}.linear2")
+    norm("image_tokenizer.model.layernorm")
+    need("tokenizer.embeddings")
+
+    norm("backbone.norm_triplane")
+    linear("backbone.proj_triplane")
+    if "backbone.norm_image.weight" in sd:
+        norm("backbone.norm_image")
+        linear("backbone.proj_image")
+    norm("backbone.norm_latent")
+    linear("backbone.proj_latent")
+    need("backbone.latent_init")
+    linear("backbone.proj_out")
+
+    def cross_attn(prefix):
+        for w in ("wq", "wk", "wv", "proj"):
+            linear(f"{prefix}.{w}")
+
+    def ff(prefix):
+        linear(f"{prefix}.net.0.proj")
+        linear(f"{prefix}.net.2")
+
+    for i in range(_count(sd, r"backbone\.main_blocks\.(\d+)\.", "backbone blocks")):
+        tb = f"backbone.main_blocks.{i}"
+        for fuse in ("fuse_block_in", "fuse_block_out"):
+            if f"{tb}.{fuse}.norm_x.weight" in sd:
+                norm(f"{tb}.{fuse}.norm_x")
+            norm(f"{tb}.{fuse}.norm_z1")
+            norm(f"{tb}.{fuse}.norm_z2")
+            cross_attn(f"{tb}.{fuse}.attn")
+            ff(f"{tb}.{fuse}.ff")
+        for j in range(_count(sd, rf"backbone\.main_blocks\.{i}\.transformer_block\.(\d+)\.", f"blocks in {tb}")):
+            tj = f"{tb}.transformer_block.{j}"
+            for n in ("norm1", "norm2", "norm3"):
+                norm(f"{tj}.{n}")
+            cross_attn(f"{tj}.attn1")
+            cross_attn(f"{tj}.attn2")
+            ff(f"{tj}.ff")
+
+    for i in _indices(sd, r"post_processor\.upsample\.(\d+)\.weight"):
+        linear(f"post_processor.upsample.{i}")
+    for name in sorted({m.group(1) for k in sd if (m := re.match(r"decoder\.heads\.([^.]+)\.", k))}):
+        for i in _indices(sd, rf"decoder\.heads\.{re.escape(name)}\.(\d+)\.weight"):
+            linear(f"decoder.heads.{name}.{i}")
+
+    vis = "image_estimator.model.visual"
+    if f"{vis}.conv1.weight" in sd:
+        need(f"{vis}.conv1.weight")
+        need(f"{vis}.class_embedding")
+        need(f"{vis}.positional_embedding")
+        norm(f"{vis}.ln_pre")
+        norm(f"{vis}.ln_post")
+        need(f"{vis}.proj")
+        for i in range(_count(sd, rf"{re.escape(vis)}\.transformer\.resblocks\.(\d+)\.", "CLIP blocks")):
+            rb = f"{vis}.transformer.resblocks.{i}"
+            norm(f"{rb}.ln_1")
+            norm(f"{rb}.ln_2")
+            need(f"{rb}.attn.in_proj_weight")
+            need(f"{rb}.attn.in_proj_bias")
+            linear(f"{rb}.attn.out_proj")
+            linear(f"{rb}.mlp.c_fc")
+            linear(f"{rb}.mlp.c_proj")
+    for name in sorted({m.group(1) for k in sd if (m := re.match(r"image_estimator\.heads\.([^.]+)\.", k))}):
+        for i in _indices(sd, rf"image_estimator\.heads\.{re.escape(name)}\.0\.(\d+)\.weight"):
+            linear(f"image_estimator.heads.{name}.0.{i}")
+        for pi in (1, 2):
+            linear(f"image_estimator.heads.{name}.{pi}.0")
+            linear(f"image_estimator.heads.{name}.{pi}.2")
+
+    for i in _indices(sd, r"global_estimator\.layers\.(\d+)\.weight"):
+        linear(f"global_estimator.layers.{i}")
+    for name in sorted({m.group(1) for k in sd if (m := re.match(r"global_estimator\.heads\.([^.]+)\.", k))}):
+        for i in _indices(sd, rf"global_estimator\.heads\.{re.escape(name)}\.(\d+)\.weight"):
+            linear(f"global_estimator.heads.{name}.{i}")
+    return keys
+
+
+def load_sf3d_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The reference's SF3D ``model.safetensors`` -> the f32 state dict that
+    ``systems/sf3d.py:SF3D(state_dict=...)`` takes: the keys the JAX
+    package's loader reads (``sf3d_checkpoint_keys``), each as f32; keys
+    neither package uses are dropped. The fuse blocks' ``norm_x`` (read by
+    the JAX converter, unused by both packages' modules) is dropped too."""
+    sd = read_safetensors(path)
+    return {k: sd[k].float() for k in sf3d_checkpoint_keys(sd) if ".norm_x." not in k}

@@ -6,7 +6,7 @@ in the reference): camera-modulated DINOv2-large tokenizer -> learned 96^2
 triplane tokens -> two-stream interleave backbone -> pixel-shuffle upsample
 to (3, 40, 384, 384) codes -> the density and vertex-offset heads of
 ``MaterialMLP`` over the 161^3 marching-tets lattice (kernel K5) ->
-wire-format marching tets on the device -> one uint8 transfer -> faces
+wire-format marching tets on the device (kernel K7) -> one uint8 transfer -> faces
 rebuilt and snapped vertices welded on the host by the native wire decoder
 -> quadric decimation to the vertex budget -> the cube-projection UV unwrap
 -> the texture bake.
@@ -21,9 +21,10 @@ the host without PIL. On the card the unwrap and the bake run fused
 faces, one set of asynchronous copies back (the textures as uint8, the
 per-corner UVs as f32), no host sync in the dispatch.
 
-Parameters are f32 and the encoder computes in ``dtype`` (bf16 on the card)
-under autocast; the lattice and texel queries compute in ``extract_dtype``,
-which follows it. The wire has a fixed vertex capacity whose counters are
+The encoder computes in ``dtype`` (bf16 on the card) under autocast, its
+matrix weights stored in ``dtype`` once (``cast_matrix_weights``) and the
+other parameters in f32; the lattice and texel queries compute in
+``extract_dtype``, which follows it, from the f32 decoder. The wire has a fixed vertex capacity whose counters are
 exact: an overflow is detected and re-extracted with a grown capacity, never
 decoded truncated; the capacity that worked is remembered on the instance
 and on disk (``runtime/capacity_cache.py``, key ``torch_sf3d_mt_r<res>``).
@@ -47,6 +48,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from sculptmate_tpu_torch.config import load_yaml_config
 from sculptmate_tpu_torch.geometry import mt_wire, texture_bake
 from sculptmate_tpu_torch.geometry.decimate import decimate, vertex_normals
 from sculptmate_tpu_torch.geometry.marching_tets import N_WIRE_COUNTS, lattice_size, mt_wire_device
@@ -71,8 +73,9 @@ from sculptmate_tpu_torch.ops.density_grid import (
 )
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
 from sculptmate_tpu_torch.runtime import capacity_cache
+from sculptmate_tpu_torch.runtime.checkpoint import is_optional_sf3d_key
 from sculptmate_tpu_torch.runtime.device import resolve_device
-from sculptmate_tpu_torch.systems.tsr import _HostCopy, _to_host_async, upload
+from sculptmate_tpu_torch.systems.tsr import _HostCopy, _to_host_async, cast_matrix_weights, upload
 
 DEFAULT_HEADS = (
     {"name": "density", "out_channels": 1, "out_bias": -1.0, "n_hidden_layers": 2,
@@ -83,6 +86,10 @@ DEFAULT_HEADS = (
      "output_activation": "normalize_channel_last"},
     {"name": "vertex_offset", "out_channels": 3, "n_hidden_layers": 2},
 )
+# the submodules that run under autocast; the decoder stays f32 (its kernels
+# pack their own bf16 copies)
+_ENCODERS = ("camera_embedder", "image_tokenizer", "tokenizer", "backbone", "post_processor", "image_estimator",
+             "global_estimator")
 # the heads the lattice query runs, in output-channel order (kernel K5 takes
 # exactly this pair)
 _LATTICE_HEADS = ("density", "vertex_offset")
@@ -131,6 +138,37 @@ class SF3DConfig:
     clip_width: int = 768
     clip_layers: int = 12
     clip_heads: int = 12
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "SF3DConfig":
+        """Load the reference's config.yaml layout (``stabilityai/
+        stable-fast-3d``), ``${...}`` interpolations resolved; the encoder
+        sizes are not read from it (the defaults are DINOv2-L and CLIP
+        ViT-B/32), as in the JAX package."""
+        y = load_yaml_config(path)
+        heads = tuple(dict(h) for h in y["decoder"]["heads"])
+        return cls(
+            cond_image_size=y.get("cond_image_size", 512),
+            isosurface_resolution=y.get("isosurface_resolution", 160),
+            isosurface_threshold=y.get("isosurface_threshold", 10.0),
+            radius=y.get("radius", 0.87),
+            weld_eps=y.get("weld_eps", 0.2),
+            camera_in_channels=y["camera_embedder"]["in_channels"],
+            camera_out_channels=y["camera_embedder"]["out_channels"],
+            plane_size=y["tokenizer"]["plane_size"],
+            num_channels=y["tokenizer"]["num_channels"],
+            num_attention_heads=y["backbone"]["num_attention_heads"],
+            attention_head_dim=y["backbone"]["attention_head_dim"],
+            num_latents=y["backbone"]["num_latents"],
+            num_blocks=y["backbone"]["num_blocks"],
+            num_basic_blocks=y["backbone"]["num_basic_blocks"],
+            upsample_out_channels=y["post_processor"]["out_channels"],
+            upsample_scale_factor=y["post_processor"]["scale_factor"],
+            upsample_conv_layers=y["post_processor"]["conv_layers"],
+            decoder_heads=heads,
+            decoder_n_neurons=y["decoder"]["n_neurons"],
+            decoder_activation=y["decoder"].get("activation", "silu"),
+        )
 
 
 class SF3DModule(nn.Module):
@@ -219,7 +257,8 @@ class SF3D:
 
     ``device`` defaults to the card; without one it raises rather than run
     on the CPU (pass ``device="cpu"`` for that). ``state_dict`` holds the
-    reference checkpoint's keys; without one the weights are random from
+    reference checkpoint's keys (``runtime/checkpoint.py:
+    load_sf3d_state_dict``); without one the weights are random from
     ``seed``.
     """
 
@@ -240,11 +279,17 @@ class SF3D:
         self.extract_dtype = extract_dtype if extract_dtype is not None else dtype
         with torch.device(self.device):
             self.module = SF3DModule(c)
-        if state_dict is None:
-            self.module.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
-        else:
-            self.module.load_state_dict(state_dict)
+        # seeded weights first: a checkpoint may leave out the optional keys
+        # (see runtime/checkpoint.py), which then keep the JAX package's
+        # initial values (zero AdaLN modulations)
+        self.module.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
+        if state_dict is not None:
+            missing, unexpected = self.module.load_state_dict(state_dict, strict=False)
+            required = [k for k in missing if not is_optional_sf3d_key(k)]
+            if required or unexpected:
+                raise KeyError(f"SF3D state dict: missing {required}, unexpected {unexpected}")
         self.module.eval().requires_grad_(False)
+        cast_matrix_weights(self.module, _ENCODERS, dtype)
         # the fixed condition camera and the background, uploaded once
         _, Kn = intrinsic_from_fov_deg(c.default_fovy_deg, c.cond_image_size, c.cond_image_size)
         self._c2w = upload(default_cond_c2w(c.default_distance), self.device)

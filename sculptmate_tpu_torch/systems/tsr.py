@@ -5,8 +5,9 @@ learned triplane tokens -> 16-block cross-attention backbone ->
 ConvTranspose upsample -> NeRF MLP decoder, in two stages:
 
 - ``scene_codes``: images (B, H, W, 3) in [0, 1] -> triplane codes
-  (B, 3, 40, 64, 64), parameters in f32 and compute in ``dtype`` (bf16 on
-  the card) under autocast;
+  (B, 3, 40, 64, 64), computed in ``dtype`` (bf16 on the card) under
+  autocast; the encoder's matrix weights are stored in ``dtype`` once
+  (``cast_matrix_weights``), the rest of the parameters in f32;
 - ``extract_mesh``: codes -> density lattice (kernel K2) -> wire-format
   marching cubes (K3) with per-vertex colors (K4) on the device -> one
   uint8 transfer -> faces rebuilt on the host by the native wire decoder;
@@ -43,6 +44,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from sculptmate_tpu_torch.config import load_yaml_config
 from sculptmate_tpu_torch.geometry import mc_wire
 from sculptmate_tpu_torch.geometry.marching_cubes import N_WIRE_COUNTS, MCResult, marching_cubes, mc_wire_device
 from sculptmate_tpu_torch.models.heads import NeRFMLP
@@ -63,6 +65,9 @@ from sculptmate_tpu_torch.runtime import capacity_cache
 from sculptmate_tpu_torch.runtime.device import resolve_device
 
 _COLOR_CHUNK = 1 << 18  # points per color-query step: bounds the feature tensor
+# the submodules that run under autocast; the decoder stays f32 (its kernels
+# pack their own bf16 copies)
+_ENCODERS = ("image_tokenizer", "tokenizer", "backbone", "post_processor")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,11 +97,10 @@ class TSRConfig:
 
     @classmethod
     def from_yaml(cls, path: str) -> "TSRConfig":
-        """Load the reference's config.yaml layout (``TripoSR/checkpoints/config.yaml``)."""
-        import yaml
-
-        with open(path) as f:
-            y = yaml.safe_load(f)
+        """Load the reference's config.yaml layout
+        (``TripoSR/checkpoints/config.yaml``), ``${...}`` interpolations
+        resolved."""
+        y = load_yaml_config(path)
         return cls(
             cond_image_size=y.get("cond_image_size", 512),
             plane_size=y["tokenizer"]["plane_size"],
@@ -172,6 +176,36 @@ class TSRModule(nn.Module):
         emb.position_embeddings.normal_(0.0, 0.02, generator=generator)
         tok = self.tokenizer.embeddings
         tok.normal_(0.0, 1.0, generator=generator).div_(tok.shape[1] ** 0.5)
+
+
+def cast_matrix_weights(module: nn.Module, names, dtype: torch.dtype) -> None:
+    """Store the weights and biases of the Linear and convolution layers
+    (and CLIP's packed in-projection) under the submodules ``names`` of
+    ``module`` in ``dtype``, once. Autocast casts exactly these to its
+    compute type on every call (with round-to-nearest-even, as ``to``
+    does), so the results do not change and the per-call casts go. Norms,
+    embeddings, LayerScale and every other parameter stay f32, as autocast
+    runs them. ``state_dict()`` still reads f32 (the rounded values)."""
+    if dtype == torch.float32:
+        return
+    for name in names:
+        for m in module.get_submodule(name).modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                params = (m.weight, m.bias)
+            elif hasattr(m, "in_proj_weight"):
+                params = (m.in_proj_weight, m.in_proj_bias)
+            else:
+                continue
+            for p in params:
+                if p is not None:
+                    p.data = p.data.to(dtype)
+    module.register_state_dict_post_hook(_f32_state_dict)
+
+
+def _f32_state_dict(module, state_dict, prefix, local_metadata):
+    for k, v in state_dict.items():
+        if v.is_floating_point() and v.dtype != torch.float32:
+            state_dict[k] = v.float()
 
 
 def upload(x, device: torch.device) -> torch.Tensor:
@@ -267,6 +301,7 @@ class TSR:
         else:
             self.module.load_state_dict(state_dict)
         self.module.eval().requires_grad_(False)
+        cast_matrix_weights(self.module, _ENCODERS, dtype)
         self._wire_cap_cache = {}
         self._packed_cap_cache = {}
 

@@ -100,6 +100,84 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert SF3D(SF3D_TINY, device="cpu").device.type == "cpu"
 
 
+def test_geometry_helpers_default_to_the_card(monkeypatch):
+    """The device unwrap, the host-array rasterizer and ``Mesh.unwrap_uv``'s
+    device and auto backends run on the card unless asked for the CPU:
+    without a CUDA device they raise."""
+    from sculptmate_tpu_torch.geometry.mesh import Mesh
+    from sculptmate_tpu_torch.geometry.texture_bake import rasterize
+    from sculptmate_tpu_torch.geometry.uv_unwrap_device import unwrap_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
+    faces = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]])
+    uv = verts[:, :2]
+    for call in (lambda: unwrap_device(verts, faces), lambda: rasterize(uv, faces, 16),
+                 lambda: Mesh(verts, faces).unwrap_uv(backend="device"),
+                 lambda: Mesh(verts, faces).unwrap_uv(backend="auto")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    flat, _ = unwrap_device(verts, faces, return_flat=True, device="cpu")
+    assert flat.shape == (4, 3, 2)
+    assert rasterize(uv, faces, 16, device="cpu").shape == (4, 16, 16)
+    assert Mesh(verts, faces).unwrap_uv(backend="auto", device="cpu").v_tex.shape == (12, 2)
+
+
+@pytest.mark.parametrize("model", ["tsr", "sf3d"])
+def test_encoder_weights_cast_once(model):
+    """F1: a bf16 model stores its encoders' Linear and convolution weights
+    (and CLIP's packed in-projection) in bf16 once, so autocast casts none
+    of them per call. Its codes (and SF3D's material estimates) are
+    bit-equal to the same seeded f32 weights run under autocast, as the
+    encode ran before; the casts the profiler counts inside the encode
+    fall; norms and the decoder stay f32; ``state_dict()`` reads f32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sculptmate_tpu_torch.systems.sf3d import SF3D
+    from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
+
+    def casts(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = fn()
+        return out, sum(e.name == "aten::_to_copy" for e in prof.events())
+
+    if model == "tsr":
+        cfg = TSRConfig(cond_image_size=32, plane_size=4, num_channels=32, num_attention_heads=2,
+                        attention_head_dim=16, num_layers=1, cross_attention_dim=32, vit_hidden_size=32,
+                        vit_num_layers=1, vit_num_heads=2, vit_intermediate_size=64)
+        old_m, new_m = TSR(cfg, seed=3, dtype=torch.float32, device="cpu"), TSR(cfg, seed=3, device="cpu")
+        x = torch.from_numpy(np.random.default_rng(0).random((1, 32, 32, 3), np.float32))
+        new, n_new = casts(lambda: new_m.scene_codes(x))
+        with torch.inference_mode(), torch.autocast("cpu", dtype=torch.bfloat16):
+            old, n_old = casts(lambda: old_m.module(x))
+        pairs = [(new, old)]
+        norm = new_m.module.backbone.norm
+    else:
+        old_m, new_m = SF3D(SF3D_TINY, seed=1, dtype=torch.float32, device="cpu"), SF3D(SF3D_TINY, seed=1, device="cpu")
+        g = torch.Generator().manual_seed(5)  # nonzero AdaLN modulations, rounded by the copy as autocast rounds
+        with torch.no_grad():
+            for a, b in zip(old_m.module.image_tokenizer.model.encoder.layer, new_m.module.image_tokenizer.model.encoder.layer):
+                for name in ("norm1_modulation", "norm2_modulation"):
+                    w = 0.3 * torch.randn(getattr(a, name).linear2.weight.shape, generator=g)
+                    getattr(a, name).linear2.weight.copy_(w)
+                    getattr(b, name).linear2.weight.copy_(w)
+        rgb = torch.from_numpy(np.random.default_rng(1).random((1, 56, 56, 3), np.float32))
+        (codes, direct), n_new = casts(lambda: new_m.get_scene_codes(rgb))
+        with torch.inference_mode(), torch.autocast("cpu", dtype=torch.bfloat16):
+            (codes_o, direct_o), n_old = casts(lambda: old_m.module(rgb, old_m._c2w.expand(1, 4, 4), old_m._Kn.expand(1, 3, 3)))
+            mats_o = old_m.module.image_estimator(rgb)
+        mats = new_m.estimate_materials(rgb)
+        pairs = [(codes, codes_o), (direct, direct_o)] + [(mats[k], mats_o[k]) for k in mats_o]
+        norm = new_m.module.backbone.norm_latent
+        assert new_m.module.decoder.heads["density"][0].weight.dtype == torch.float32
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    assert n_new < n_old / 2, (n_new, n_old)
+    assert new_m.module.backbone.proj_out.weight.dtype == torch.bfloat16 and norm.weight.dtype == torch.float32
+    sd, ref = new_m.module.state_dict(), old_m.module.state_dict()
+    assert all(v.dtype == torch.float32 for v in sd.values()) and set(sd) == set(ref)
+    assert all(torch.equal(sd[k], ref[k].to(torch.bfloat16).float()) for k in sd if "proj_out" in k)
+
+
 def test_cli_fast_defaults_to_the_card(tmp_path, monkeypatch):
     """``generate --model fast`` without ``--device`` raises without a CUDA
     device rather than run on the CPU."""
@@ -132,9 +210,9 @@ def test_sf3d_texture_branches_on_cpu():
     faces = np.concatenate([np.stack([a, c, b], -1).reshape(-1, 3), np.stack([b, c, d], -1).reshape(-1, 3)])
     launches = uv_unwrap_device.unwrap_core.launches
     host = Mesh(verts, faces).unwrap_uv(backend="host")
-    auto = Mesh(verts, faces).unwrap_uv(backend="auto")
+    auto = Mesh(verts, faces).unwrap_uv(backend="auto", device="cpu")
     np.testing.assert_array_equal(auto.v_tex, host.v_tex)
-    dev = Mesh(verts, faces).unwrap_uv(backend="device")
+    dev = Mesh(verts, faces).unwrap_uv(backend="device", device="cpu")
     assert dev.v_tex.shape == (3 * len(faces), 2) and np.isfinite(dev.v_tex).all()
     assert uv_unwrap_device.unwrap_core.launches == launches  # the plain version, not the kernel
     with pytest.raises(ValueError, match="backend"):
@@ -212,7 +290,7 @@ def test_planted_faults_apply_to_the_sources():
         sys.path.remove(str(PKG.parent))
     assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {
         "flash_attn", "density_grid", "grid_multihead", "raster_winner", "points_multihead", "uv_unwrap",
-        "triplane_points", "marching_cubes",
+        "triplane_points", "marching_cubes", "marching_tets",
     }
     for name, kernel, text, replacement in chip_smoke.PLANTED_FAULTS:
         src = (PKG / "csrc" / f"{kernel}.cu").read_text()

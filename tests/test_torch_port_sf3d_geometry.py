@@ -126,28 +126,81 @@ def test_grid_multihead_kernel_matches_plain():
         assert (out[k] - ref[k]).abs().max() <= 0.1 * spread
 
 
-@pytest.mark.parametrize("snap_eps", [0.0, 0.2])
-def test_mt_wire_matches_jax(scene, snap_eps):
-    """The same sdf and offsets through both wires: identical occupancy
-    bytes and counts, every position within one u16 step."""
+def _ragged_border_lattice(res: int):
+    """A smooth (res+1)^3 field (res + 1 not a multiple of 8) whose sdf is
+    positive on all six faces of the lattice, so cut edges would reach past
+    the last real point without the domain mask; offsets N(0, 1)."""
+    rng = np.random.default_rng(11)
+    N = res + 1
+    x = np.linspace(-1, 1, N, dtype=np.float32)
+    g = np.stack(np.meshgrid(x, x, x, indexing="ij"))
+    sdf = np.sin(3 * g[0]) * np.cos(2 * g[1]) + 0.5 * g[2] + 0.1 * rng.standard_normal((N, N, N))
+    border = np.zeros((N, N, N), bool)
+    for a in range(3):
+        border[(slice(None),) * a + (0,)] = border[(slice(None),) * a + (-1,)] = True
+    sdf = np.where(border, np.abs(sdf) + 0.1, sdf).astype(np.float32)
+    return sdf, [rng.standard_normal((N, N, N)).astype(np.float32) for _ in range(3)]
+
+
+def _mt_case(scene, case):
+    """(sdf, offsets, res, max_verts, snap_eps) of a wire case: the tiny
+    scene's lattice at snap 0 and 0.2, the ragged 38^3 lattice with a
+    surface on its border, and the scene at a third of its vertex count."""
+    if case == "ragged border, res 37":
+        sdf, offs = _ragged_border_lattice(37)
+        return sdf.reshape(-1), [o.reshape(-1) for o in offs], 37, 1 << 17, 0.2
     code, heads, thr = scene
     grids = jdg.query_grid_multihead(jnp.asarray(code), heads, jdg.lattice_coords_tets(RES),
                                      jdg.DensityGridSpec(resolution=RES + 1, align_corners=True, slab=1))
     sdf = np.exp(np.asarray(grids["density"][0]) - 1.0) - thr
     offs = [np.asarray(o) for o in grids["vertex_offset"]]
-    mv = 16384
+    return sdf, offs, RES, {"undersized capacity": 1000}.get(case, 16384), 0.0 if case == "snap 0" else 0.2
+
+
+@pytest.mark.parametrize("case", ["snap 0", "snap 0.2", "ragged border, res 37", "undersized capacity"])
+def test_mt_wire_matches_jax(scene, case):
+    """The same sdf and offsets through both wires (the port's plain
+    version of K7): identical occupancy bytes and exact counts, every
+    position slot within one u16 step (the JAX program contracts
+    multiply-adds; tanh may differ by an ulp). Undersized, both keep the
+    first ``max_verts`` ids and report the full count."""
+    sdf, offs, res, mv, snap_eps = _mt_case(scene, case)
     ref = np.asarray(jax.jit(j_mt_wire_device, static_argnums=(4, 5))(
-        jnp.asarray(sdf), *map(jnp.asarray, offs), RES, mv, snap_eps=snap_eps))
-    got = mt_wire_device(torch.from_numpy(sdf), *map(torch.from_numpy, offs), RES, mv, snap_eps=snap_eps).numpy()
+        jnp.asarray(sdf), *map(jnp.asarray, offs), res, mv, snap_eps=snap_eps))
+    got = mt_wire_device(torch.from_numpy(sdf), *map(torch.from_numpy, offs), res, mv, snap_eps=snap_eps).numpy()
     assert got.shape == ref.shape and got.dtype == np.uint8
-    lay = j_mt_wire.wire_layout(RES, mv, j_mt_wire.N_WIRE_COUNTS)
+    lay = j_mt_wire.wire_layout(res, mv, j_mt_wire.N_WIRE_COUNTS)
     assert np.array_equal(got[: lay[1]], ref[: lay[1]])
     counts = j_mt_wire.wire_counts(ref, 2)
-    assert np.array_equal(mt_wire.wire_counts(got, 2), counts) and 0 < counts[0] <= mv
+    assert np.array_equal(mt_wire.wire_counts(got, 2), counts) and counts[0] > 0
+    assert (counts[0] > mv) == (case == "undersized capacity")
     for s in range(3):
         lo, hi = lay[1 + 2 * s], lay[2 + 2 * s]
         q = lambda w: w[lo:hi].astype(np.int32) | (w[hi : hi + mv].astype(np.int32) << 8)  # noqa: E731
         assert np.abs(q(got) - q(ref)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["snap 0.2", "ragged border, res 37", "undersized capacity"])
+def test_mt_wire_kernel_matches_plain(case):
+    """K7 on the card against its plain version on the same inputs: the
+    wire byte for byte (bits, positions, counters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sculptmate_tpu_torch.geometry.marching_tets import mt_wire_device_plain
+
+    rng = np.random.default_rng(2)
+    res = 37 if case.startswith("ragged") else 40
+    if case.startswith("ragged"):
+        sdf, offs = _ragged_border_lattice(res)
+    else:
+        sdf = rng.standard_normal((res + 1,) * 3).astype(np.float32)
+        offs = [rng.standard_normal((res + 1,) * 3).astype(np.float32) for _ in range(3)]
+    mv = 1000 if case == "undersized capacity" else 1 << 18
+    args = [torch.from_numpy(a).cuda() for a in (sdf, *offs)]
+    got = mt_wire_device(*args, res, mv, 0.2)
+    ref = mt_wire_device_plain(*args, res, mv, 0.2)
+    assert torch.equal(got, ref)
 
 
 @pytest.fixture(scope="module")
@@ -215,9 +268,9 @@ def test_host_unwrap_matches_jax(decoded):
     np.testing.assert_allclose(m.v_nrm, jm.v_nrm, atol=1e-5)
     assert m.v_tex.min() >= 0 and m.v_tex.max() <= 1
     np.testing.assert_allclose(m.v_tng, jm.v_tng, atol=1e-4)
-    auto = Mesh(verts, faces).unwrap_uv(backend="auto")
+    auto = Mesh(verts, faces).unwrap_uv(backend="auto", device="cpu")
     np.testing.assert_array_equal(auto.v_tex, m.v_tex)
-    dev = Mesh(verts, faces).unwrap_uv(backend="device")
+    dev = Mesh(verts, faces).unwrap_uv(backend="device", device="cpu")
     assert np.array_equal(dev.t_pos_idx, m.t_pos_idx) and np.isfinite(dev.v_tex).all()
     assert dev.v_tex.min() >= 0 and dev.v_tex.max() <= 1
 

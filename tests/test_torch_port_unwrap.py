@@ -100,10 +100,10 @@ def test_unwrap_device_matches_jax(mesh):
     deduplicated form indexing back to the flat one."""
     verts, faces = mesh
     ref, _ = jud.unwrap_device(verts, faces, return_flat=True)
-    flat, none = ud.unwrap_device(verts, faces, return_flat=True)
+    flat, none = ud.unwrap_device(verts, faces, return_flat=True, device="cpu")
     assert none is None and flat.shape == (len(faces), 3, 2) and flat.dtype == np.float32
     assert (np.abs(flat - ref).max(-1) <= 1e-4).mean() >= 0.999
-    uniq, idx = ud.unwrap_device(verts, faces)
+    uniq, idx = ud.unwrap_device(verts, faces, device="cpu")
     np.testing.assert_array_equal(uniq[idx], flat)
 
 
