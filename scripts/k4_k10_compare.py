@@ -1,0 +1,268 @@
+"""K4 and K10 of one version of the port on the main path's Lean asset, and
+K4's design steps, on one card.
+
+    python3 scripts/k4_k10_compare.py [--root DIR] [--variants]
+
+Imports ``sculptmate_tpu_torch`` from ``--root`` (default: this checkout;
+point it at an unpacked older commit to compare two versions in one call)
+and the checks of this checkout's ``chip_smoke.py``. Builds the default
+``TSR`` (seed 0) and the Lean asset as ``chip_smoke.lean_scene`` makes it,
+then prints, besides the card line:
+
+- the K4 check lines (``chip_smoke.check_triplane_points``): its time per
+  Lean asset (wire vertices) and per render view (8.39 M samples);
+- the K10 check lines (``chip_smoke.check_marching_cubes``) and the
+  ``K10_split`` line: one call at 256^3 under torch.profiler, device time by
+  kernel name;
+- with ``--variants``, kernels rebuilt (``kernels.sources_from``) from
+  copies of this checkout's sources with edits (``edit_copy``; a CPU test
+  checks that every edit still applies), each held to its plain version:
+  one ``k4_step`` line per design step of K4 on the render view
+  (``K4_STEPS``: the later steps taken out again; ``wgmma``: f32 taps, SiLU
+  as an exp and a divide, a ring of two slots handed back only after a
+  pair's last layer, so a warpgroup's next pair is gathered only once its
+  own products are done; ``+ overlapped gather``: four slots handed back
+  after the first layer; ``+ tanh SiLU``; ``+ bf16 taps``, the kernel as it
+  is), one ``k4_variant`` line per variant of K4 on the render view
+  (``K4_VARIANTS``: one side of the hand-over idle, other numbers of
+  warpgroups or loads at once) and one ``k10_variant`` line per variant of
+  K10 at 256^3 (``K10_VARIANTS``: more blocks per SM, and the face pass
+  recomputing each cell's case from the level in place of reading the
+  classify pass's case byte).
+
+Needs a CUDA card.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+def setting(name, value):
+    """An edit to triplane_points.cu that sets one of its constants."""
+    def edit(src):
+        out, n = re.subn(rf"constexpr (int|bool) {name} = [^;]+;", rf"constexpr \1 {name} = {value};", src)
+        if n != 1:
+            raise RuntimeError(f"constant {name} is not once in triplane_points.cu")
+        return out
+    return ("triplane_points.cu", edit)
+
+
+def text(name, old, new):
+    """An edit that replaces text found once in csrc/<name>."""
+    def edit(src):
+        if src.count(old) != 1:
+            raise RuntimeError(f"edit text is not once in {name}")
+        return src.replace(old, new)
+    return (name, edit)
+
+
+# (step, edits, f32 taps): each step's edits to take the later steps out of
+# the sources again
+EXACT_SILU = text(
+    "hopper.cuh",
+    """    uint32_t t, r;
+    asm("tanh.approx.bf16x2 %0, %1;\\n" : "=r"(t) : "r"(h));
+    asm("fma.rn.bf16x2 %0, %1, %2, %1;\\n" : "=r"(r) : "r"(h), "r"(t));
+    return r;""",
+    """    const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162 *>(&h);
+    const float x0 = 2.f * __low2float(hv), x1 = 2.f * __high2float(hv);
+    return pack_bf16(__fdiv_rn(x0, 1.f + __expf(-x0)), __fdiv_rn(x1, 1.f + __expf(-x1)));""",
+)
+LATE_RELEASE = [
+    setting("NSTAGE", 2),
+    text("triplane_points.cu", "            if (l == 0) mbar_arrive(empty + 8 * s);\n", ""),
+    text("triplane_points.cu",
+         "        store_tile(out, q * PAIR + TP, o1, bs + OUT_BIAS, density_bias, N, warp, g, c);\n",
+         "        store_tile(out, q * PAIR + TP, o1, bs + OUT_BIAS, density_bias, N, warp, g, c);\n"
+         "        mbar_arrive(empty + 8 * s);\n"),
+]
+K10_VARIANTS = [
+    ("as it is", []),
+    ("classify and face passes at 4 blocks of 512 per SM (32 registers)", [
+        text("marching_cubes.cu", "__global__ void __launch_bounds__(CELLS) mc_classify(",
+             "__global__ void __launch_bounds__(CELLS, 4) mc_classify("),
+        text("marching_cubes.cu", "__global__ void __launch_bounds__(CELLS) mc_faces(",
+             "__global__ void __launch_bounds__(CELLS, 4) mc_faces("),
+    ]),
+    ("classify and face passes at 3 blocks of 512 per SM (40 registers)", [
+        text("marching_cubes.cu", "__global__ void __launch_bounds__(CELLS) mc_classify(",
+             "__global__ void __launch_bounds__(CELLS, 3) mc_classify("),
+        text("marching_cubes.cu", "__global__ void __launch_bounds__(CELLS) mc_faces(",
+             "__global__ void __launch_bounds__(CELLS, 3) mc_faces("),
+    ]),
+    ("face pass recomputes the case from the level (no case bytes)", [
+        text("marching_cubes.cu", "        cases[(size_t)blk * CELLS + t] = (uint8_t)cs;\n", ""),
+        text("marching_cubes.cu", "mc_faces<<<fgrid, CELLS, smem, st>>>(static_cast<const uint8_t *>(cases),",
+             "mc_faces<<<fgrid, CELLS, smem, st>>>(reinterpret_cast<const uint8_t *>(lv),"),
+        text("marching_cubes.cu", "        const int cs = cases[(size_t)blk * CELLS + t], ntri = tab[cs];\n",
+             "        const float *lvr = reinterpret_cast<const float *>(cases);\n"
+             "        const size_t p = ((size_t)i * RY + j) * RZ + k;\n"
+             "        int cs = 0;\n"
+             "        if (i + 1 < RX && j + 1 < RY && k + 1 < RZ)\n"
+             "            for (int c = 0; c < 8; ++c)\n"
+             "                cs |= (lvr[p + ((c & 1) ? (size_t)RY * RZ : 0) + (((c >> 1) & 1) ? RZ : 0) + ((c >> 2) & 1)]"
+             " > 0.f) << c;\n"
+             "        const int ntri = tab[cs];\n"),
+    ]),
+]
+K4_STEPS = [
+    ("wgmma", [EXACT_SILU] + LATE_RELEASE, True),
+    ("+ overlapped gather", [EXACT_SILU], True),
+    ("+ tanh SiLU", [], True),
+    ("+ bf16 taps", [], False),
+]
+# what holds K4 back: the kernel as it is, with one side of the hand-over
+# idle (its output is wrong, only its time counts), and with other numbers
+# of producer and consumer warpgroups
+PRODUCERS_ALONE = text("triplane_points.cu", "        mbar_wait(full + 8 * s, (uint32_t)((n / NSTAGE) & 1));\n",
+                       "        mbar_wait(full + 8 * s, (uint32_t)((n / NSTAGE) & 1));\n"
+                       "        if (N > 0) {\n            mbar_arrive(empty + 8 * s);\n            continue;\n"
+                       "        }\n")
+CONSUMERS_ALONE = text("triplane_points.cu", "        if (p < N) {\n", "        if (p < 0) {\n")
+K4_VARIANTS = [
+    ("as it is", []),
+    ("producers alone", [PRODUCERS_ALONE]),
+    ("consumers alone", [CONSUMERS_ALONE]),
+    ("bf16 taps one chunk at a time", [setting("GATHER_CHUNKS", 1)]),
+    ("bf16 taps three chunks at a time", [setting("GATHER_CHUNKS", 3)]),
+    ("1 producer, 2 consumer warpgroups", [setting("PRODUCERS", 1), setting("PRODUCER_REGS", 56)]),
+    ("1 producer, 3 consumer warpgroups", [setting("PRODUCERS", 1), setting("CONSUMERS", 3), setting("NSTAGE", 3),
+                                            setting("PRODUCER_REGS", 56)]),
+    ("1 producer, 3 consumer warpgroups: consumers alone",
+     [setting("PRODUCERS", 1), setting("CONSUMERS", 3), setting("NSTAGE", 3), setting("PRODUCER_REGS", 56),
+      CONSUMERS_ALONE]),
+]
+
+
+def edit_copy(csrc, edits, dst):
+    """A copy of the kernel sources in ``csrc`` at ``dst``, with each
+    (file, edit) of ``edits`` applied in order."""
+    shutil.copytree(csrc, dst, ignore=shutil.ignore_patterns("_build"))
+    for name, edit in edits:
+        path = os.path.join(dst, name)
+        with open(path) as f:
+            src = f.read()
+        with open(path, "w") as f:
+            f.write(edit(src))
+
+
+def k4_steps(smoke, tsr, lean, steps, key):
+    import torch
+
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.runtime import kernels
+
+    g = torch.Generator(device="cuda").manual_seed(4)  # check_triplane_points' inputs
+    weights = [(smoke.K4_WEIGHT_GAIN * w, smoke.K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g))
+               for w, b in tsr.decoder_weights()]
+    spec = tsr.grid_spec(2, torch.bfloat16)
+    codes = torch.randn(3, tsr.config.upsample_out_channels, 64, 64, device="cuda", generator=g).to(torch.bfloat16)
+    pts = lean["render_pts"]
+    ref = dg.triplane_points_plain(codes, weights, *pts, spec)
+    ref = torch.cat([ref[:1], ref[1:2].log(), ref[2:]])
+    limits = [smoke.K4_SPREAD_SHARE * (ref[k] - ref[k].mean()).abs().max().item() for k in range(5)]
+    _, W, bias = dg.pack_triplane_inputs(codes, weights)
+    root = os.path.join(kernels.BUILD_DIR, key)
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (step, edits, f32_taps) in enumerate(steps):
+        csrc = os.path.join(root, str(i))
+        edit_copy(kernels.CSRC, edits, csrc)
+        planes = codes.float() if f32_taps else codes
+        packed = (dg.pack_triplane_planes(planes), W, bias)
+        with kernels.sources_from(csrc):
+            out = dg.triplane_points(codes, weights, *pts, spec, packed=packed)
+            got = torch.cat([out[:1], out[1:2].log(), out[2:]])
+            errs = [(got[k] - ref[k]).abs().max().item() for k in range(5)]
+            ok = all(e <= lim for e, lim in zip(errs, limits)) and bool(torch.isfinite(out).all())
+            ms = smoke.cuda_ms(lambda: dg.triplane_points(codes, weights, *pts, spec, packed=packed), iters=5)
+            spills = [line.strip() for line in kernels.ptxas_report("triplane_points").splitlines()
+                      if re.search(r"[1-9]\d* bytes spill", line)]
+        print(json.dumps({key: step, "points": pts[0].numel(), "taps": "f32" if f32_taps else "bf16",
+                          "ms": ms, "max_abs_err_per_output": errs, "limit_per_output": limits,
+                          "check_passed": ok, "ptxas_spills": spills}), flush=True)
+
+
+def k10_variants(smoke, lean):
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.runtime import kernels
+
+    level = lean["level"]
+    ref = mc.marching_cubes_plain(level, 1 << 20, 1 << 21)
+    root = os.path.join(kernels.BUILD_DIR, "k10_variants")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (variant, edits) in enumerate(K10_VARIANTS):
+        csrc = os.path.join(root, str(i))
+        edit_copy(kernels.CSRC, edits, csrc)
+        with kernels.sources_from(csrc):
+            got = mc.marching_cubes(level, 1 << 20, 1 << 21)
+            differ = sum(int((getattr(got, k) != getattr(ref, k)).sum()) for k in mc.MCResult._fields)
+            ms = smoke.cuda_ms(lambda: mc.marching_cubes(level, 1 << 20, 1 << 21), iters=10)
+            split = smoke.k10_split(lean)
+            spills = [line.strip() for line in kernels.ptxas_report("marching_cubes").splitlines()
+                      if re.search(r"[1-9]\d* bytes spill", line)]
+        print(json.dumps({"k10_variant": variant, "ms": ms, "entries_differing": differ,
+                          "split_ms": split["kernels_ms"], "ptxas_spills": spills}), flush=True)
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", default=HERE)
+    p.add_argument("--variants", action="store_true")
+    args = p.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k4_k10_compare: no CUDA device available", file=sys.stderr)
+        return 1
+    from sculptmate_tpu_torch.pipelines.generate import TripoGenerator
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"# card: {card}; root {os.path.abspath(args.root)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = TripoGenerator()
+    if gen.initiate_model(device="cuda") != 0:
+        raise RuntimeError("TripoGenerator.initiate_model failed")
+    from sculptmate_tpu_torch.runtime import kernels
+
+    for name in ("triplane_points", "marching_cubes"):
+        try:
+            kernels.build(name)
+        except RuntimeError as e:
+            print(f"# build failed: {e}", flush=True)
+            return 1
+        for line in kernels.ptxas_report(name).splitlines():
+            if any(w in line for w in ("registers", "spill", "wgmma", "Compiling entry")):
+                print(f"#   {name}: {line.strip()}", flush=True)
+    lean = smoke.lean_scene(gen.model)
+    failed = []
+    for phase, fn in (("K4", lambda: smoke.check_triplane_points(gen.model, lean)),
+                      ("K10", lambda: smoke.check_marching_cubes(lean)), ("K10 split", lambda: smoke.k10_split(lean)),
+                      ("K4 steps", lambda: args.variants and k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
+                      ("K4 variants", lambda: args.variants and k4_steps(
+                          smoke, gen.model, lean, [(v, e, False) for v, e in K4_VARIANTS], "k4_variant")),
+                      ("K10 variants", lambda: args.variants and k10_variants(smoke, lean))):
+        try:
+            fn()
+        except (AssertionError, RuntimeError) as e:
+            print(f"# {phase} failed: {e}", flush=True)
+            failed.append(phase)
+    print(card)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

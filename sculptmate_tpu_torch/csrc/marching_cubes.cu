@@ -28,18 +28,24 @@
 //   ballot, per-axis block counts from __syncthreads_count), an exclusive
 //   scan of the 3 NB counts in one block (which also writes the counters),
 //   then emit (the same flags again, in-block ranks from ballots);
-// - K10: per (x, y) row, the cut flags of each axis as 32-bit words (one
-//   warp ballot per word) and their counts; per 8^3 block the cells' cases
-//   and triangle counts, the active cells and the axes with cut edges;
-//   exclusive scans of the row counts (vertex ids) and of the block face
-//   counts (face ids); then one warp per row emits the positions and one
-//   block per 8^3 block emits the faces, each corner's id the row base plus
-//   the popcount of the row's cut words before it.
+// - K10, four launches: (1) classify, one block per column of 8 x 8 rows
+//   walking its 8^3 blocks along z: every cell's case byte, each (axis, x, y) row's cut flags as
+//   32-bit words (one warp ballot per 8 z points), and per 8^3 block its
+//   faces, active cells and axes with a cut edge; (2) one multi-block scan
+//   (scan.cuh's scan_segments, decoupled look-back) of the popcounts of the
+//   cut words (vertex ids), of the block face counts (face ids), of the
+//   active cells and of the axis flags, whose last tiles write the four
+//   counters; (3) one thread per cut word emits its positions; (4) persistent
+//   blocks, each with the tables in shared memory once, walk the 8^3
+//   blocks with faces and emit them from the case bytes, each corner's id
+//   its cut word's base plus a popcount within the word.
 // Rounding follows the plain versions: every operation rounded on its own,
 // t's u16 to nearest even.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "scan.cuh"
 
@@ -47,7 +53,7 @@ namespace {
 
 constexpr int BS = 8;                     // block side
 constexpr int CELLS = BS * BS * BS;       // threads of a per-block kernel
-constexpr int ROW_WARPS = 8;              // rows per block of the per-row kernels
+constexpr int VERT_THREADS = 256;         // cut words per block of K10's vertex pass
 
 // bit a set when the edge from lattice point p = (i, j, k) to its +a
 // neighbour is cut (the two sides of level > 0 differ)
@@ -143,136 +149,161 @@ __global__ void __launch_bounds__(CELLS) wire_emit(const float *__restrict__ lv,
 
 // -- K10: the packed mesh --
 
-// per (x, y) row: each axis's cut flags along z as 32-bit words, and their
-// counts (row a * RX * RY + x * RY + y)
-__global__ void __launch_bounds__(ROW_WARPS * 32) mc_rows(const float *__restrict__ lv, unsigned *__restrict__ cutbits,
-                                                          int *__restrict__ row_cnt, int RX, int RY, int RZ,
-                                                          int nwords) {
-    const int lane = threadIdx.x & 31, row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5), nrows = RX * RY;
-    if (row >= nrows) return;  // whole warps
-    const int i = row / RY, j = row % RY;
-    int cnt[3] = {0, 0, 0};
-    for (int w = 0; w < nwords; ++w) {
-        const int k = 32 * w + lane;
-        const unsigned f = k < RZ ? cut_flags(lv, ((size_t)i * RY + j) * RZ + k, i, j, k, RX, RY, RZ) : 0u;
+// one block per column of 8 x 8 (x, y) rows, walking its 8^3 blocks along
+// z: each cell's case byte (0 on the +boundary, where cells emit nothing),
+// in block-major order; each (axis, x, y) row's cut flags along z as 32-bit
+// words (word w = z 32w .. 32w + 31, written once its four 8^3 blocks are
+// seen, the last word's high bits zero); per 8^3 block its faces, its
+// active cells and which axes have a cut edge starting in it (blocks:
+// [faces NB][active cells NB][axis flags 3 NB])
+__global__ void __launch_bounds__(CELLS) mc_classify(const float *__restrict__ lv, const int *__restrict__ tri_count,
+                                                      unsigned *__restrict__ cutbits, uint8_t *__restrict__ cases,
+                                                      int *__restrict__ blocks, int RX, int RY, int RZ, int nwords) {
+    __shared__ int tcount[256];
+    __shared__ int warp_sums[2][CELLS / 32][3];  // faces, active cells, axis flags; by the parity of bz
+    for (int e = threadIdx.x; e < 256; e += CELLS) tcount[e] = tri_count[e];
+    __syncthreads();
+    const int nby = RY / BS, nbz = RZ / BS, NB = (RX / BS) * nby * nbz;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int i = (blockIdx.x / nby) * BS + (t >> 6), j = (blockIdx.x % nby) * BS + ((t >> 3) & 7);
+    const size_t sx = (size_t)RY * RZ, sy = RZ;
+    const bool xi = i + 1 < RX, yj = j + 1 < RY;
+    const size_t nrows = (size_t)RX * RY;
+    unsigned word[3] = {0u, 0u, 0u};  // this lane's row's word so far (lanes with oz = 0 store it)
+    // the level at the 8 corners of this thread's cell in 8^3 block bz,
+    // corner c at +x (c & 1), +y (c & 2), +z (c & 4); a corner past the
+    // lattice reads as 0 (outside). Loaded one 8^3 block ahead.
+    auto corners = [&](int bz, float (&v)[8]) {
+        const int k = bz * BS + (t & 7);
+        const size_t p = ((size_t)i * RY + j) * RZ + k;
+        const bool zk = k + 1 < RZ, cell = xi && yj && zk;
+        v[0] = lv[p];
+        v[1] = xi ? lv[p + sx] : 0.f;
+        v[2] = yj ? lv[p + sy] : 0.f;
+        v[3] = cell ? lv[p + sx + sy] : 0.f;
+        v[4] = zk ? lv[p + 1] : 0.f;
+        v[5] = cell ? lv[p + sx + 1] : 0.f;
+        v[6] = cell ? lv[p + sy + 1] : 0.f;
+        v[7] = cell ? lv[p + sx + sy + 1] : 0.f;
+    };
+    float next[8];
+    corners(0, next);
+    for (int bz = 0; bz < nbz; ++bz) {
+        const int k = bz * BS + (t & 7), blk = blockIdx.x * nbz + bz;
+        const bool zk = k + 1 < RZ, cell = xi && yj && zk;
+        unsigned in = 0u;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) in |= (unsigned)(next[c] > 0.f) << c;
+        if (bz + 1 < nbz) corners(bz + 1, next);
+        const unsigned in0 = in & 1u;
+        const unsigned f = (xi && ((in >> 1) & 1u) != in0 ? 1u : 0u) | (yj && ((in >> 2) & 1u) != in0 ? 2u : 0u) |
+                           (zk && ((in >> 4) & 1u) != in0 ? 4u : 0u);
+        const int cs = cell ? (int)in : 0;
+        cases[(size_t)blk * CELLS + t] = (uint8_t)cs;
+        const int ntri = tcount[cs];  // tri_count[0] = 0
+        // the 8 points (i, j, k0 .. k0 + 7) are lanes 8m .. 8m + 7 of one warp
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
             const unsigned b = __ballot_sync(FULL, (f >> a) & 1u);
-            if (lane == 0) cutbits[((size_t)a * nrows + row) * nwords + w] = b;
-            cnt[a] += __popc(b);
+            word[a] |= ((b >> (lane & 24)) & 0xFFu) << (8 * (bz & 3));
         }
-    }
-    if (lane == 0)
-        for (int a = 0; a < 3; ++a) row_cnt[a * nrows + row] = cnt[a];
-}
-
-// per 8^3 block: faces and active cells of its cells, and which axes have a
-// cut edge starting in it (blocks: [faces NB][active cells NB][axis flags 3 NB])
-__global__ void __launch_bounds__(CELLS) mc_cells(const float *__restrict__ lv, const int *__restrict__ tables,
-                                                   int *__restrict__ blocks, int RX, int RY, int RZ) {
-    const BlockPoint q = block_point(RY, RZ);
-    const int NB = gridDim.x;
-    const unsigned f = cut_flags(lv, q.p, q.i, q.j, q.k, RX, RY, RZ);
-    int ntri = 0;
-    if (q.i + 1 < RX && q.j + 1 < RY && q.k + 1 < RZ) {  // cells on the +boundary emit nothing
-        int cs = 0;
+        if ((bz & 3) == 3 || bz == nbz - 1) {
+            if ((lane & 7) == 0)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const size_t pc = q.p + ((c & 1) ? (size_t)RY * RZ : 0) + (((c >> 1) & 1) ? RZ : 0) + ((c >> 2) & 1);
-            cs |= (lv[pc] > 0.f) << c;
+                for (int a = 0; a < 3; ++a) cutbits[((size_t)a * nrows + (size_t)i * RY + j) * nwords + bz / 4] = word[a];
+            word[0] = word[1] = word[2] = 0u;
         }
-        ntri = tables[cs];
-    }
-    int faces;
-    block_exclusive_scan(ntri, &faces);
-    const int active = __syncthreads_count(ntri > 0);
-    const int fx = __syncthreads_or(f & 1u), fy = __syncthreads_or(f & 2u), fz = __syncthreads_or(f & 4u);
-    if (threadIdx.x == 0) {
-        blocks[q.blk] = faces;
-        blocks[NB + q.blk] = active;
-        blocks[2 * NB + q.blk] = fx != 0;
-        blocks[3 * NB + q.blk] = fy != 0;
-        blocks[4 * NB + q.blk] = fz != 0;
+        const int wf = __reduce_add_sync(FULL, ntri), wa = __popc(__ballot_sync(FULL, ntri > 0));
+        const unsigned wo = __reduce_or_sync(FULL, f);
+        if (lane == 0) {
+            warp_sums[bz & 1][warp][0] = wf;
+            warp_sums[bz & 1][warp][1] = wa;
+            warp_sums[bz & 1][warp][2] = (int)wo;
+        }
+        // one barrier per 8^3 block: the next block writes the other half
+        __syncthreads();
+        if (t == 0) {
+            int faces = 0, active = 0, axes = 0;
+            for (int w = 0; w < CELLS / 32; ++w) {
+                faces += warp_sums[bz & 1][w][0];
+                active += warp_sums[bz & 1][w][1];
+                axes |= warp_sums[bz & 1][w][2];
+            }
+            blocks[blk] = faces;
+            blocks[NB + blk] = active;
+            blocks[2 * NB + blk] = axes & 1;
+            blocks[3 * NB + blk] = (axes >> 1) & 1;
+            blocks[4 * NB + blk] = (axes >> 2) & 1;
+        }
     }
 }
 
-// one warp per (axis, x, y) row: the positions of its cut edges with ids
-// under the capacity
-__global__ void __launch_bounds__(ROW_WARPS * 32) mc_verts(const float *__restrict__ lv,
-                                                           const unsigned *__restrict__ cutbits,
-                                                           const int *__restrict__ row_base, float *__restrict__ pos,
-                                                           int RX, int RY, int RZ, int nwords, int mv) {
-    const int lane = threadIdx.x & 31, row3 = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5), nrows = RX * RY;
-    if (row3 >= 3 * nrows) return;  // whole warps
+// one thread per cut word (the words of a row consecutive, rows in (axis,
+// x, y) order): the positions of its cut edges with ids under the capacity,
+// the first its word's scanned base
+__global__ void __launch_bounds__(VERT_THREADS) mc_verts(const float *__restrict__ lv,
+                                                         const unsigned *__restrict__ cutbits,
+                                                         const int *__restrict__ word_base, float *__restrict__ pos,
+                                                         int RX, int RY, int RZ, int nwords, int mv) {
+    const int nrows = RX * RY;
+    const long long wi = (long long)blockIdx.x * VERT_THREADS + threadIdx.x;
+    if (wi >= 3ll * nrows * nwords) return;
+    unsigned b = cutbits[wi];
+    int id = word_base[wi];
+    if (b == 0u || id >= mv) return;
+    const int row3 = (int)(wi / nwords), w = (int)(wi % nwords);
     const int a = row3 / nrows, row = row3 % nrows, i = row / RY, j = row % RY;
-    const size_t step = axis_step(a, RY, RZ);
-    int base = row_base[row3];
-    for (int w = 0; w < nwords && base < mv; ++w) {
-        const unsigned b = cutbits[(size_t)row3 * nwords + w];
-        const int k = 32 * w + lane, id = base + __popc(b & lanemask_lt());
-        if (((b >> lane) & 1u) && id < mv) {
-            const float t = edge_t(lv, ((size_t)i * RY + j) * RZ + k, step);
-            pos[id] = __fadd_rn((float)i, a == 0 ? t : 0.f);
-            pos[(size_t)mv + id] = __fadd_rn((float)j, a == 1 ? t : 0.f);
-            pos[2 * (size_t)mv + id] = __fadd_rn((float)k, a == 2 ? t : 0.f);
-        }
-        base += __popc(b);
+    const size_t step = axis_step(a, RY, RZ), p0 = ((size_t)i * RY + j) * RZ;
+    for (; b != 0u && id < mv; b &= b - 1u, ++id) {
+        const int k = 32 * w + __ffs(b) - 1;
+        const float t = edge_t(lv, p0 + k, step);
+        pos[id] = __fadd_rn((float)i, a == 0 ? t : 0.f);
+        pos[(size_t)mv + id] = __fadd_rn((float)j, a == 1 ? t : 0.f);
+        pos[2 * (size_t)mv + id] = __fadd_rn((float)k, a == 2 ? t : 0.f);
     }
 }
 
-// the vertex id of the cut edge (a, i, j, k): its row's base plus the cut
-// edges before it in the row
-__device__ __forceinline__ int vertex_id(const unsigned *__restrict__ cutbits, const int *__restrict__ row_base,
+// the vertex id of the cut edge (a, i, j, k): its word's base plus the cut
+// edges before it in the word
+__device__ __forceinline__ int vertex_id(const unsigned *__restrict__ cutbits, const int *__restrict__ word_base,
                                          int a, int i, int j, int k, int RX, int RY, int nwords) {
-    const size_t row3 = ((size_t)a * RX + i) * RY + j;
-    const unsigned *words = cutbits + row3 * nwords;
-    int id = row_base[row3];
-    for (int w = 0; w < (k >> 5); ++w) id += __popc(words[w]);
-    return id + __popc(words[k >> 5] & ((1u << (k & 31)) - 1u));
+    const size_t w3 = (((size_t)a * RX + i) * RY + j) * nwords + (k >> 5);
+    int id = word_base[w3];
+    return id + __popc(cutbits[w3] & ((1u << (k & 31)) - 1u));
 }
 
-// one block per 8^3 block: the faces of its cells with ids under the capacity
-__global__ void __launch_bounds__(CELLS) mc_faces(const float *__restrict__ lv, const int *__restrict__ tables,
+// persistent blocks walking the 8^3 blocks, the tables loaded once: the
+// faces of each block's cells with ids under the capacity, from the case
+// bytes and the scanned face bases
+__global__ void __launch_bounds__(CELLS) mc_faces(const uint8_t *__restrict__ cases, const int *__restrict__ tables,
                                                    const unsigned *__restrict__ cutbits,
-                                                   const int *__restrict__ row_base, const int *__restrict__ fbase,
-                                                   int *__restrict__ corners, int RX, int RY, int RZ, int nwords,
-                                                   int mf, int maxtri) {
+                                                   const int *__restrict__ word_base, const int *__restrict__ fcount,
+                                                   const int *__restrict__ fbase, int *__restrict__ corners, int RX,
+                                                   int RY, int RZ, int nwords, int mf, int maxtri) {
     extern __shared__ int tab[];  // tri_count (256), tri_table (256 * maxtri * 3), edge axis (12), edge offset (36)
     const int ntab = 256 + 256 * maxtri * 3 + 12 + 36;
     for (int e = threadIdx.x; e < ntab; e += CELLS) tab[e] = tables[e];
     __syncthreads();
     const int *tri = tab + 256, *eaxis = tri + 256 * maxtri * 3, *eoff = eaxis + 12;
-
-    const BlockPoint q = block_point(RY, RZ);
-    int cs = 0, ntri = 0;
-    if (q.i + 1 < RX && q.j + 1 < RY && q.k + 1 < RZ) {
+    const int nby = RY / BS, nbz = RZ / BS, NB = (RX / BS) * nby * nbz, t = threadIdx.x;
+    for (int blk = blockIdx.x; blk < NB; blk += gridDim.x) {
+        const int fb = fbase[blk];
+        if (fcount[blk] == 0 || fb >= mf) continue;  // the same for the whole block
+        const int i = (blk / (nby * nbz)) * BS + (t >> 6), j = ((blk / nbz) % nby) * BS + ((t >> 3) & 7),
+                  k = (blk % nbz) * BS + (t & 7);
+        const int cs = cases[(size_t)blk * CELLS + t], ntri = tab[cs];
+        int total;
+        const int f0 = fb + block_exclusive_scan(ntri, &total);
+        for (int s = 0; s < ntri && f0 + s < mf; ++s) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-            const size_t pc = q.p + ((c & 1) ? (size_t)RY * RZ : 0) + (((c >> 1) & 1) ? RZ : 0) + ((c >> 2) & 1);
-            cs |= (lv[pc] > 0.f) << c;
-        }
-        ntri = tab[cs];
-    }
-    int total;
-    const int f0 = fbase[q.blk] + block_exclusive_scan(ntri, &total);
-    for (int s = 0; s < ntri && f0 + s < mf; ++s) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            const int le = tri[(cs * maxtri + s) * 3 + c];
-            corners[(size_t)c * mf + f0 + s] = vertex_id(cutbits, row_base, eaxis[le], q.i + eoff[3 * le],
-                                                         q.j + eoff[3 * le + 1], q.k + eoff[3 * le + 2], RX, RY,
-                                                         nwords);
+            for (int c = 0; c < 3; ++c) {
+                const int le = tri[(cs * maxtri + s) * 3 + c];
+                corners[(size_t)c * mf + f0 + s] = vertex_id(cutbits, word_base, eaxis[le], i + eoff[3 * le],
+                                                             j + eoff[3 * le + 1], k + eoff[3 * le + 2], RX, RY,
+                                                             nwords);
+            }
         }
     }
-}
-
-// counts = [num_verts, num_faces, max(active vertex blocks, face blocks),
-// active cells] from the scans' sums
-__global__ void mc_counters(const int *__restrict__ sums, int *__restrict__ counts) {
-    counts[0] = sums[0];
-    counts[1] = sums[2];
-    counts[2] = max(sums[6], sums[3]);
-    counts[3] = sums[4];
 }
 
 bool bad_shape(int RX, int RY, int RZ) {
@@ -302,31 +333,57 @@ extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *vcnt,
 }
 
 // K10: level (RX, RY, RZ) f32 -> (3, mv) f32 positions and (3, mf) int32
-// face corners (both zeroed by the caller) and 4 int32 counters. Scratch:
-// cutbits 3 RX RY ceil(RZ / 32) words, row_base 3 RX RY ints, blocks 5 NB
-// ints, sums 8 ints.
-extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *pos, void *corners, void *counts,
-                                  void *cutbits, void *row_base, void *blocks, void *sums, int RX, int RY, int RZ,
-                                  int mv, int mf, int maxtri, void *stream) {
+// face corners (both zeroed by the caller). zeroed (zeroed by the caller):
+// the 4 int32 counters, the scan's tile counter, 3 pad ints, then
+// status_tiles u64 status words. Scratch: cutbits and word_base 3 RX RY
+// ceil(RZ / 32) ints each, cases RX RY RZ bytes, blocks 5 NB ints, fbase
+// NB ints. Four launches: classify, one scan of every count array (which
+// writes the counters), the vertices, the faces.
+extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *pos, void *corners, void *zeroed,
+                                  void *cutbits, void *word_base, void *cases, void *blocks, void *fbase, int RX,
+                                  int RY, int RZ, int mv, int mf, int maxtri, int status_tiles, int num_sms,
+                                  void *stream) {
     if (bad_shape(RX, RY, RZ) || mv < 1 || mf < 1 || maxtri < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int NB = (RX / BS) * (RY / BS) * (RZ / BS), nrows = RX * RY, nwords = (RZ + 31) / 32;
     const float *lv = static_cast<const float *>(level);
     const int *tab = static_cast<const int *>(tables);
     unsigned *bits = static_cast<unsigned *>(cutbits);
-    int *rb = static_cast<int *>(row_base), *bl = static_cast<int *>(blocks), *sm = static_cast<int *>(sums);
-    mc_rows<<<(nrows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(lv, bits, rb, RX, RY, RZ, nwords);
-    mc_cells<<<NB, CELLS, 0, st>>>(lv, tab, bl, RX, RY, RZ);
-    scan_counts<<<1, SCAN_THREADS, 0, st>>>(rb, 3 * nrows, rb, sm, nullptr);          // vertex ids
-    scan_counts<<<1, SCAN_THREADS, 0, st>>>(bl, NB, bl, sm + 2, nullptr);             // face ids
-    scan_counts<<<1, SCAN_THREADS, 0, st>>>(bl + NB, NB, nullptr, sm + 4, nullptr);   // active cells
-    scan_counts<<<1, SCAN_THREADS, 0, st>>>(bl + 2 * NB, 3 * NB, nullptr, sm + 6, nullptr);  // vertex blocks
-    mc_counters<<<1, 1, 0, st>>>(sm, static_cast<int *>(counts));
-    mc_verts<<<(3 * nrows + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, st>>>(lv, bits, rb,
-                                                                                static_cast<float *>(pos), RX, RY,
-                                                                                RZ, nwords, mv);
+    int *wb = static_cast<int *>(word_base), *bl = static_cast<int *>(blocks), *fb = static_cast<int *>(fbase);
+    int *counts = static_cast<int *>(zeroed);
+
+    ScanSegs sg = {};
+    auto seg = [&](int s, const int *in, int *base, int n, int popc, int *total, int *nonzero) {
+        sg.in[s] = in;
+        sg.base[s] = base;
+        sg.n[s] = n;
+        sg.popc[s] = popc;
+        sg.total[s] = total;
+        sg.nonzero[s] = nonzero;
+        sg.first_tile[s + 1] = sg.first_tile[s] + scan_tiles(n);
+    };
+    // counts = [num_verts, num_faces, max(active vertex blocks, face blocks), active cells]
+    seg(0, reinterpret_cast<const int *>(bits), wb, 3 * nrows * nwords, 1, counts, nullptr);  // vertex ids
+    seg(1, bl, fb, NB, 0, counts + 1, counts + 2);                                            // face ids
+    seg(2, bl + NB, nullptr, NB, 0, counts + 3, nullptr);                                     // active cells
+    seg(3, bl + 2 * NB, nullptr, 3 * NB, 0, counts + 2, nullptr);                             // vertex blocks
+    sg.nsegs = 4;
+    const int tiles = sg.first_tile[4];
+    if (tiles > status_tiles) return (int)cudaErrorInvalidValue;
+
+    int fgrid = 0;
     const size_t smem = (size_t)(256 + 256 * maxtri * 3 + 12 + 36) * sizeof(int);
-    mc_faces<<<NB, CELLS, smem, st>>>(lv, tab, bits, rb, bl, static_cast<int *>(corners), RX, RY, RZ, nwords, mf,
-                                      maxtri);
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fgrid, mc_faces, CELLS, smem);
+    if (e != cudaSuccess) return (int)e;
+    fgrid = std::max(1, std::min(NB, fgrid * num_sms));
+
+    mc_classify<<<(RX / BS) * (RY / BS), CELLS, 0, st>>>(lv, tab, bits, static_cast<uint8_t *>(cases), bl, RX, RY,
+                                                         RZ, nwords);
+    scan_segments<<<tiles, MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counts + 8),
+                                                 counts + 4);
+    mc_verts<<<(3 * nrows * nwords + VERT_THREADS - 1) / VERT_THREADS, VERT_THREADS, 0, st>>>(
+        lv, bits, wb, static_cast<float *>(pos), RX, RY, RZ, nwords, mv);
+    mc_faces<<<fgrid, CELLS, smem, st>>>(static_cast<const uint8_t *>(cases), tab, bits, wb, bl, fb,
+                                         static_cast<int *>(corners), RX, RY, RZ, nwords, mf, maxtri);
     return (int)cudaGetLastError();
 }

@@ -314,6 +314,26 @@ def _tables_packed(device) -> tuple:
     return _TABLES[key]
 
 
+_SCAN_TILE = 2048  # counts per tile of K10's multi-block scan (csrc/scan.cuh: MS_TILE)
+
+
+def k10_scratch(RX: int, RY: int, RZ: int) -> dict:
+    """Element counts of kernel K10's scratch for an (RX, RY, RZ) lattice:
+    int32 ``cutbits`` and ``word_base`` (3 RX RY ceil(RZ / 32) words: each
+    (axis, x, y) row's cut flags along z, and their scanned bases), uint8
+    ``cases`` (a case byte per cell), int32 ``blocks`` (5 NB: faces, active
+    cells, three axis flags per 8^3 block) and ``fbase`` (NB), and the int32
+    ``zeroed`` words (the 4 counters, the scan's tile counter, 3 pad words,
+    then a u64 status word per tile of the scan's four segments: the cut
+    words, the face counts, the active cells and the axis flags)."""
+    nwords = -(-RZ // 32)
+    NB = RX * RY * RZ // BS**3
+    words = 3 * RX * RY * nwords
+    tiles = sum(-(-n // _SCAN_TILE) for n in (words, NB, NB, 3 * NB))
+    return {"cutbits": words, "word_base": words, "cases": RX * RY * RZ, "blocks": 5 * NB, "fbase": NB,
+            "status_tiles": tiles, "zeroed": 8 + 2 * tiles}
+
+
 def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int) -> MCResult:
     """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of
     8 -> ``MCResult`` (see the module docstring). Kernel K10 on a CUDA
@@ -326,24 +346,24 @@ def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int) -> MCRes
         raise ValueError(f"capacities must be positive, got {max_verts} and {max_faces}")
     RX, RY, RZ = level.shape
     dev = level.device
-    NB = RX * RY * RZ // BS**3
     tables, maxtri = _tables_packed(dev)
     pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev)
     corners = torch.zeros((3, max_faces), dtype=torch.int32, device=dev)
-    counts = torch.empty(4, dtype=torch.int32, device=dev)
-    nwords = -(-RZ // 32)
-    cutbits = torch.empty(3 * RX * RY * nwords, dtype=torch.int32, device=dev)
-    row_base = torch.empty(3 * RX * RY, dtype=torch.int32, device=dev)
-    blocks = torch.empty(5 * NB, dtype=torch.int32, device=dev)  # face counts (then bases), active cells, axis flags
-    scratch = torch.empty(8, dtype=torch.int32, device=dev)
-    err = _mc_lib("marching_cubes_fwd", 9, 6)(
-        level.data_ptr(), tables.data_ptr(), pos.data_ptr(), corners.data_ptr(), counts.data_ptr(),
-        cutbits.data_ptr(), row_base.data_ptr(), blocks.data_ptr(), scratch.data_ptr(),
-        RX, RY, RZ, max_verts, max_faces, maxtri, torch.cuda.current_stream(dev).cuda_stream,
+    size = k10_scratch(RX, RY, RZ)
+    # the counters, the scan's tile counter and status words, zeroed on the stream
+    zeroed = torch.zeros(size["zeroed"], dtype=torch.int32, device=dev)
+    scratch = {name: torch.empty(size[name], dtype=torch.uint8 if name == "cases" else torch.int32, device=dev)
+               for name in ("cutbits", "word_base", "cases", "blocks", "fbase")}
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = _mc_lib("marching_cubes_fwd", 10, 8)(
+        level.data_ptr(), tables.data_ptr(), pos.data_ptr(), corners.data_ptr(), zeroed.data_ptr(),
+        *(scratch[name].data_ptr() for name in ("cutbits", "word_base", "cases", "blocks", "fbase")),
+        RX, RY, RZ, max_verts, max_faces, maxtri, size["status_tiles"], num_sms,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "marching_cubes_fwd")
     marching_cubes.launches += 1
-    return MCResult(pos[0], pos[1], pos[2], corners[0], corners[1], corners[2], *counts.unbind())
+    return MCResult(pos[0], pos[1], pos[2], corners[0], corners[1], corners[2], *zeroed[:4].unbind())
 
 
 marching_cubes.launches = 0

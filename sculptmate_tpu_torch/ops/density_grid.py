@@ -227,49 +227,59 @@ def triplane_points_plain(
 def _triplane_lib():
     fn = kernels.load("triplane_points").triplane_points_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p
-        ]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_float
+        ] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-# padded rows (bf16 values) of the point-query kernels' weights, copied to
-# shared memory as they lie: 128-deep rows (the 120 features) and 64-deep rows
+# padded rows (bf16 values) of kernel K6's weights, copied to shared memory
+# as they lie: 128-deep rows (the 120 features) and 64-deep rows
 _ROW = 128 + 8
 _HROW = _HIDDEN + 8
+_K4_FEATURES = 128  # K4's first-layer depth: the 120 features and 8 zero columns
 
 
 def pack_triplane_weights(weights: Weights, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decoder in kernel K4's layout, bf16 rows (out, in) padded so the
-    kernel copies them to shared memory as they lie: the first layer (64
-    rows of 120 features), the hidden 64 x 64 layers, then an 8-row output
-    tile (its 4 channels, then zeros). Biases f32 of the bf16 values: the
-    first layer's, each hidden layer's, then the output's zero-padded to 8."""
-    bf = lambda t: t.detach().to(device, torch.bfloat16)  # noqa: E731
-    w1 = torch.zeros(_HIDDEN, _ROW, dtype=torch.bfloat16, device=device)
-    w1[:, : weights[0][0].shape[0]] = bf(weights[0][0]).t()
-    hidden = torch.zeros(_LAYERS, _HIDDEN, _HROW, dtype=torch.bfloat16, device=device)
-    for layer, (w, _) in enumerate(weights[1:-1]):
-        hidden[layer, :, :_HIDDEN] = bf(w).t()
-    w_out, b_out = weights[-1]
-    wout = torch.zeros(8, _HROW, dtype=torch.bfloat16, device=device)
-    wout[: w_out.shape[1], :_HIDDEN] = bf(w_out).t()
-    bias_out = torch.zeros(8, dtype=torch.bfloat16, device=device)
-    bias_out[: w_out.shape[1]] = bf(b_out)
-    W = torch.cat([w1.flatten(), hidden.flatten(), wout.flatten()])
-    bias = torch.cat([bf(b) for _, b in weights[:-1]] + [bias_out]).float()
-    return W.contiguous(), bias.contiguous()
+    """The decoder in kernel K4's layout.
+
+    Returns bf16 rows (2*64 + L*64 + 8, 64), 128-byte swizzled: the first
+    layer's (out, in) matrix, its 120 inputs zero-padded to 128, as two
+    64-deep halves of 64 rows; each hidden layer's (out, in) matrix; all of
+    these halved; then the output layer's 4 channels (not halved) and 4 zero
+    rows. And f32 (64 + L*64 + 8,): the first and each hidden layer's bias
+    halved, then the output bias zero-padded to 8. The halving is exact in
+    bf16 and lets each product give h = x / 2 for silu(x) = h (1 + tanh h);
+    the values are the plain version's bf16 weights and biases."""
+    bf = lambda t: t.detach().to(torch.bfloat16).float()  # noqa: E731
+    (w1, b1), hidden, (w_out, b_out) = weights[0], weights[1:-1], weights[-1]
+    first = torch.zeros(_HIDDEN, _K4_FEATURES, dtype=torch.float32, device=w1.device)
+    first[:, : w1.shape[0]] = 0.5 * bf(w1).t()
+    out_rows = torch.zeros(8, _HIDDEN, dtype=torch.float32, device=w_out.device)
+    out_rows[: w_out.shape[1]] = bf(w_out).t()
+    rows = torch.cat([first[:, :_HIDDEN], first[:, _HIDDEN:]] + [0.5 * bf(w).t() for w, _ in hidden] + [out_rows])
+    W = swizzle_128b(rows.to(device, torch.bfloat16)).contiguous()
+    bias_out = torch.zeros(8, dtype=torch.float32, device=b_out.device)
+    bias_out[: b_out.shape[0]] = bf(b_out)
+    bias = torch.cat([0.5 * bf(b1)] + [0.5 * bf(b) for _, b in hidden] + [bias_out])
+    return W, bias.to(device).contiguous()
+
+
+def pack_triplane_planes(triplane: torch.Tensor) -> torch.Tensor:
+    """The planes channels last, (3, H, W, C), so that a bilinear tap is one
+    contiguous row: bf16 codes stay bf16 (an 80-byte tap), any other dtype
+    becomes f32 (160 bytes). Either holds the codes' own values exactly, so
+    the taps are summed from them as the plain version sums them."""
+    dtype = torch.bfloat16 if triplane.dtype == torch.bfloat16 else torch.float32
+    return triplane.to(dtype).permute(0, 2, 3, 1).contiguous()
 
 
 def pack_triplane_inputs(triplane: torch.Tensor, weights: Weights):
     """Kernel K4's inputs besides the points, laid out once per scene code:
-    the planes as f32 (3, H, W, C) channels last, so that a bilinear tap is
-    one contiguous 160-byte row (f32 holds bf16 codes exactly, so the taps
-    are summed from the planes' own values), and the decoder as
+    the planes as ``pack_triplane_planes`` lays them out and the decoder as
     ``pack_triplane_weights`` packs it -> (planes, weights, biases)."""
-    planes = triplane.float().permute(0, 2, 3, 1).contiguous()
-    return (planes, *pack_triplane_weights(weights, triplane.device))
+    return (pack_triplane_planes(triplane), *pack_triplane_weights(weights, triplane.device))
 
 
 def triplane_points(
@@ -307,10 +317,14 @@ def triplane_points(
         raise ValueError("triplane point kernel takes three flat (N,) coordinate arrays on the card")
     dev = triplane.device
     planes, Wp, bias = packed if packed is not None else pack_triplane_inputs(triplane, weights)
+    if planes.dtype not in (torch.bfloat16, torch.float32) or planes.shape != (P, H, W, C):
+        raise ValueError(f"triplane point kernel takes bf16 or f32 (3, H, W, 40) planes, got {planes.dtype} "
+                         f"{tuple(planes.shape)}")
     out = torch.empty((5, N), dtype=torch.float32, device=dev)
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = _triplane_lib()(
-        planes.data_ptr(), *(t.data_ptr() for t in coords), Wp.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        planes.data_ptr(), int(planes.dtype == torch.bfloat16), *(t.data_ptr() for t in coords), Wp.data_ptr(),
+        bias.data_ptr(), out.data_ptr(),
         N, H, W, float(spec.radius), float(spec.density_bias), int(spec.align_corners), num_sms,
         torch.cuda.current_stream(dev).cuda_stream,
     )

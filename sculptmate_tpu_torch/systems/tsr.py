@@ -55,7 +55,8 @@ from sculptmate_tpu_torch.models.vit import DINOSingleImageTokenizer
 from sculptmate_tpu_torch.ops.density_grid import (
     DensityGridSpec,
     mlp_weights_from_params,
-    pack_triplane_inputs,
+    pack_triplane_planes,
+    pack_triplane_weights,
     query_density_grid,
     query_triplane_points,
 )
@@ -304,6 +305,7 @@ class TSR:
         cast_matrix_weights(self.module, _ENCODERS, dtype)
         self._wire_cap_cache = {}
         self._packed_cap_cache = {}
+        self._k4_weights = None  # (key, K4's packed decoder), see _k4_inputs
 
     # -- stage 1: image -> scene codes --------------------------------
     @torch.inference_mode()
@@ -335,6 +337,19 @@ class TSR:
     def decoder_weights(self):
         return mlp_weights_from_params(self.module.decoder.layers)
 
+    def _k4_inputs(self, scene_code):
+        """Kernel K4's packed inputs for one code: its planes, laid out per
+        code, and the decoder, packed once and kept while its parameters
+        (their storage and version counters) stay the same. Parameters made
+        under inference mode keep no version counter: they are packed anew."""
+        params = list(self.module.decoder.parameters())
+        key = None
+        if not any(p.is_inference() for p in params):
+            key = (scene_code.device, tuple((p.data_ptr(), p._version) for p in params))
+        if key is None or self._k4_weights is None or self._k4_weights[0] != key:
+            self._k4_weights = (key, pack_triplane_weights(self.decoder_weights(), scene_code.device))
+        return (pack_triplane_planes(scene_code), *self._k4_weights[1])
+
     @staticmethod
     def _query_points(scene_code, weights, spec, wx, wy, wz, packed=None):
         """``query_triplane_points`` at flat world positions: one K4 launch
@@ -351,7 +366,8 @@ class TSR:
 
     def _color_query(self, scene_code, weights, spec, wx, wy, wz) -> torch.Tensor:
         """Colors at world positions -> (3, N)."""
-        return self._query_points(scene_code, weights, spec, wx, wy, wz)["color"]
+        packed = self._k4_inputs(scene_code) if scene_code.is_cuda else None
+        return self._query_points(scene_code, weights, spec, wx, wy, wz, packed)["color"]
 
     @torch.inference_mode()
     def _extract_wire(self, scene_code, resolution, threshold, max_verts, want_colors):
@@ -628,9 +644,7 @@ class TSR:
                 n_views, elevation_deg, camera_distance, fovy_deg, height, width, device=self.device
             )
             for code in scene_codes:
-                packed = None
-                if code.is_cuda:  # K4's planes and weights, laid out once per code
-                    packed = pack_triplane_inputs(code, self.decoder_weights())
+                packed = self._k4_inputs(code) if code.is_cuda else None  # laid out once per code
                 views = [self._render_rays(code, rays_o[v], rays_d[v], num_samples, packed)[0] for v in range(n_views)]
                 out.append(torch.stack(views).cpu().numpy())
         return out

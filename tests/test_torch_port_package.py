@@ -288,10 +288,37 @@ def test_planted_faults_apply_to_the_sources():
         import chip_smoke
     finally:
         sys.path.remove(str(PKG.parent))
-    assert {k for _, k, _, _ in chip_smoke.PLANTED_FAULTS} == {
+    assert {fault[1] for fault in chip_smoke.PLANTED_FAULTS} == {
         "flash_attn", "density_grid", "grid_multihead", "raster_winner", "points_multihead", "uv_unwrap",
         "triplane_points", "marching_cubes", "marching_tets",
     }
-    for name, kernel, text, replacement in chip_smoke.PLANTED_FAULTS:
-        src = (PKG / "csrc" / f"{kernel}.cu").read_text()
+    for name, kernel, text, replacement, *file in chip_smoke.PLANTED_FAULTS:
+        src = (PKG / "csrc" / (file[0] if file else f"{kernel}.cu")).read_text()
         assert src.count(text) == 1 and text != replacement, name
+    assert len(chip_smoke.PLANTED_FAULTS) >= 29
+
+
+def _compare_script():
+    import importlib.util
+
+    path = PKG.parent / "scripts" / "k4_k10_compare.py"
+    spec = importlib.util.spec_from_file_location("k4_k10_compare", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("table", ["K4_STEPS", "K4_VARIANTS", "K10_VARIANTS"])
+def test_compare_edits_apply_to_the_sources(table, tmp_path):
+    """Every edit of ``scripts/k4_k10_compare.py``'s design steps and
+    variants still finds its text once in the kernel sources, in the order
+    the script applies them, so each rebuild measures what its name says."""
+    script = _compare_script()
+    rows = getattr(script, table)
+    assert rows and any(edits for _, edits, *_ in rows)
+    for i, (name, edits, *_) in enumerate(rows):
+        dst = tmp_path / str(i)
+        script.edit_copy(str(PKG / "csrc"), edits, str(dst))
+        changed = {f for f, _ in edits}
+        for f in changed:
+            assert (dst / f).read_text() != (PKG / "csrc" / f).read_text(), name

@@ -271,6 +271,27 @@ def test_fast3d_generator_bakes_at_its_texture_resolution():
     assert [c["bake_resolution"] for c in _RecordingSF3D.calls] == [512, 128]
 
 
+@pytest.mark.parametrize("shape", [(256, 256, 256), (64, 72, 80), (8, 8, 8)])
+def test_k10_scratch_sizes(shape):
+    """K10's scratch, sized on the host: a cut word per 32 z points of each
+    (axis, x, y) row (the last word partly padding where RZ is not a
+    multiple of 32), a case byte per cell, five counts and a face base per
+    8^3 block, and one scan status word per 2048 counts of each of the
+    scan's four arrays (cut words, face counts, active cells, axis flags),
+    after the 4 counters, the tile counter and 3 pad words."""
+    RX, RY, RZ = shape
+    nwords = {256: 8, 80: 3, 8: 1}[RZ]
+    NB = RX * RY * RZ // 512
+    size = mc.k10_scratch(RX, RY, RZ)
+    words = 3 * RX * RY * nwords
+    assert size["cutbits"] == size["word_base"] == words and size["cases"] == RX * RY * RZ
+    assert size["blocks"] == 5 * NB and size["fbase"] == NB
+    tiles = [-(-n // 2048) for n in (words, NB, NB, 3 * NB)]
+    assert size["status_tiles"] == sum(tiles) and size["zeroed"] == 8 + 2 * sum(tiles)
+    if shape == (256, 256, 256):
+        assert tiles == [768, 16, 16, 48]  # the Lean asset's level: 848 tiles in one launch
+
+
 # -- the kernels on the card against their plain versions --
 
 
