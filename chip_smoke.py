@@ -20,10 +20,12 @@ Phases (any failure raises and exits non-zero):
    its ~0.6 M wire vertices, at render view 0's 8.39 M samples and at a
    ragged N partly outside the box; K3 and K10 (``csrc/marching_cubes.cu``)
    byte- and entry-equal at its level, at a ragged 64 x 72 x 80 lattice and
-   at undersized capacities. K7 (``csrc/marching_tets.cu``) byte-equal on
-   the full-width SF3D asset's 161^3 lattice (snap_eps 0.2 and 0), on a
-   ragged res = 37 lattice with a surface on its faces and at an undersized
-   capacity.
+   at undersized capacities, K3 also at a 72 x 80 x 96 lattice whose block
+   counts end in a partial scan tile; the ``K3_split`` and ``K10_split``
+   lines (one call each under torch.profiler, ``device_split``). K7
+   (``csrc/marching_tets.cu``) byte-equal on the full-width SF3D asset's
+   161^3 lattice (snap_eps 0.2 and 0), on a ragged res = 37 lattice with a
+   surface on its faces and at an undersized capacity.
    Then each check is run on kernels rebuilt with a planted fault
    (``PLANTED_FAULTS``), and must fail every one of them. Then F1: one Lean
    and one SF3D encode with the encoders' weights stored in bf16 once,
@@ -58,12 +60,17 @@ Phases (any failure raises and exits non-zero):
    ``torch.cuda.set_sync_debug_mode("error")``, so any host sync fails the
    run (K3 and K4 dispatch there); then their waits.
 7. Profiles: one asset (``tsr.*`` spans) and one farm chunk (``farm.*``
-   and ``tsr.*`` spans), each with the device's idle share.
+   and ``tsr.*`` spans), each with the device's idle share and each span's
+   device launches.
 8. SF3D checks: K5 (``csrc/grid_multihead.cu``) against its plain version
-   at R = 161 with the full-width SF3D decoder and at a ragged R = 33, K1
-   at SF3D's six attention shapes (in phase 2's check), and a narrow SF3D
-   (64-wide heads, nonzero AdaLN modulations) on the card against the same
-   weights on the CPU: scene codes and the raw lattice query. The texture
+   at R = 161 with the full-width SF3D decoder and at a ragged R = 33 and
+   65, its weights packed once (``ms`` the kernel alone, beside
+   ``weights_pack_ms``), and the ``K5_split`` line (one
+   ``SF3D.query_lattice``, the ``sf3d.grid`` span, by kernel name, with its
+   launches), K1 at SF3D's six attention shapes (in phase 2's check), and a
+   narrow SF3D (64-wide heads, nonzero AdaLN modulations) on the card
+   against the same weights on the CPU: scene codes and the raw lattice
+   query. The texture
    kernels, checked before phase 2's planted faults and under their own:
    K8 (``csrc/raster_winner.cu``) bit-equal to its plain version at the
    full-width asset's bake (512^2, face ids) and first unwrap raster
@@ -206,11 +213,17 @@ PLANTED_FAULTS = (
     ("K5 gives head 1 head 0's hidden weights", "grid_multihead",
      "dw1 = desc_sw128(sw + W_LAYER_BYTES)", "dw1 = desc_sw128(sw)"),
     ("K5 takes head 0's output tile for head 1", "grid_multihead",
-     "issue_k64(o1, a1, dout1);", "issue_k64(o1, a1, dout0);"),
+     "issue_k64(o, f, h ? dout1 : dout0, true);", "issue_k64(o, f, dout0, true);"),
     ("K5 gives head 1 head 0's hidden bias", "grid_multihead",
-     "hidden_epilogue(a1, d1, bs + HW, c);", "hidden_epilogue(a1, d1, bs, c);"),
+     "bias_rows(d, bs + h * HW, c);", "bias_rows(d, bs, c);"),
     ("K5 drops the output bias", "grid_multihead",
-     "o0[2 * rr + e] + o1[2 * rr + e] + bout[ch]", "o0[2 * rr + e] + o1[2 * rr + e]"),
+     "        bias_rows(oa, bout, c);\n        bias_rows(ob, bout, c);\n",
+     "        for (int n = 0; n < 4; ++n) oa[n] = ob[n] = 0.f;\n"),
+    ("K5's consumers read the next ring slot's rows", "grid_multihead",
+     "const uint32_t slot = smem_u32(ring + s * SLOT_BYTES);",
+     "const uint32_t slot = smem_u32(ring + ((s + 1) % NSTAGE) * SLOT_BYTES);"),
+    ("K5's second consumer reads the first one's B rows", "grid_multihead",
+     "slot + (wg * HEADS + h) * BOX_BYTES", "slot + h * BOX_BYTES"),
     ("K8 keeps the highest key (atomicMax)", "raster_winner",
      "atomicMin(winner + texel, key);", "atomicMax(winner + texel, key);"),
     ("K8's bbox loop drops its last row", "raster_winner",
@@ -232,14 +245,18 @@ PLANTED_FAULTS = (
     ("K4 drops the output bias", "triplane_points",
      "const float v = bf16_round(add(o[2 * rr + e], bout[ch]));", "const float v = bf16_round(o[2 * rr + e]);"),
     ("K3 takes the next block's base", "marching_cubes",
-     "int id = vbase[a * NB + q.blk] + rank[a];", "int id = vbase[min(a * NB + q.blk + 1, 3 * NB - 1)] + rank[a];"),
+     "int id = vbase[ab] + incl - cnt;", "int id = vbase[min(ab + 1, 3 * NB - 1)] + incl - cnt;"),
+    ("K3 takes its block's scanned base one scan tile early", "marching_cubes",
+     "int id = vbase[ab] + incl - cnt;", "int id = vbase[max(ab - MS_TILE, 0)] + incl - cnt;"),
+    ("K3's emit leaves out the block's earlier mask words", "marching_cubes",
+     "int id = vbase[ab] + incl - cnt;", "int id = vbase[ab];"),
     ("K3 truncates t instead of rounding it", "marching_cubes",
      "const int u = __float2int_rn(__fmul_rn(t, 65535.f));", "const int u = (int)__fmul_rn(t, 65535.f);"),
     ("K10 swaps a face's winding", "marching_cubes",
      "const int le = tri[(cs * maxtri + s) * 3 + c];", "const int le = tri[(cs * maxtri + s) * 3 + (3 - c) % 3];"),
     ("K10's face corners leave out their word's base", "marching_cubes",
      "int id = word_base[w3];", "int id = 0;"),
-    # in scan.cuh: K10's scan (K3 and K7 do not launch it)
+    # in scan.cuh: the multi-block scan, which K3 and K10 launch (K7 does not)
     ("K10's scan looks back past its predecessor", "marching_cubes",
      "for (int pred = gt - 1;;) {", "for (int pred = max(gt - 2, first);;) {", "scan.cuh"),
     ("K7's class 6 takes (1, 1, 0) for its step", "marching_tets",
@@ -253,8 +270,10 @@ PLANTED_FAULTS = (
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
-# the outputs least
-PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",)}
+# the outputs least; the multi-block scan's fault must fail both of its
+# kernels (a lattice of two scan tiles or fewer does not show it)
+PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
+                     "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3")}
 
 
 def log(msg):
@@ -464,25 +483,29 @@ def check_density(g, tsr, timed=True):
 
 
 def check_grid_multihead(g, sf3d, timed=True):
-    """K5 at R = 161 (SF3D's tet lattice) and 33 (a ragged k tail: 161 is
-    itself 2 x 64 + 33) with the full-width SF3D decoder's density and
-    vertex-offset heads (fan-in normal weights, as
+    """K5 at R = 161 (SF3D's tet lattice), 33 (a ragged k tail: 161 is
+    itself 2 x 64 + 33) and 65 (one row past a whole tile, so the last
+    tile of every (i, j) row holds a single point) with the full-width SF3D
+    decoder's density and vertex-offset heads (fan-in normal weights, as
     ``SF3DModule.reset_parameters`` makes them, and random biases, see
     K5_BIAS_STD) on random unit-scale codes, against its plain version on
     the same bf16 partials: each raw output channel within K5_SPREAD_SHARE
-    of its spread. Every case is checked and printed before a failure
-    raises; with ``timed``, R = 161 also gets its time, the plain
-    version's, its bound and its SFU floor."""
+    of its spread. The weights are packed once, as ``SF3D`` keeps them.
+    Every case is checked and printed before a failure raises; with
+    ``timed``, R = 161 also gets its time (the kernel alone), the weights'
+    packing apart (``weights_pack_ms``, once per model), the plain
+    version's time, its bound and its SFU floor."""
     from sculptmate_tpu_torch.ops import density_grid as dg
 
     heads = [[(w, K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g)) for w, b in layers]
              for layers in sf3d.lattice_head_weights().values()]
+    packed = dg.pack_multihead_weights(heads, "cuda")
     result, failures = None, []
-    for R in (161, 33):
+    for R in (161, 33, 65):
         spec = dataclasses.replace(sf3d.grid_spec(torch.bfloat16), resolution=R, slab=7)
         codes = torch.randn(3, sf3d.config.upsample_out_channels, 384, 384, device="cuda", generator=g)
         A, B, C = dg.multihead_partials(codes.to(torch.bfloat16), heads, dg.lattice_coords_tets(R - 1, "cuda"), spec)
-        out = dg.grid_multihead(A, B, C, heads, spec)
+        out = dg.grid_multihead(A, B, C, heads, spec, packed=packed)
         torch.cuda.synchronize()
         ref = dg.grid_multihead_plain(A, B, C, heads, spec)
         errs = [(out[k] - ref[k]).abs().max().item() for k in range(len(ref))]
@@ -508,7 +531,8 @@ def check_grid_multihead(g, sf3d, timed=True):
         sfu_floor = 1e3 * R**3 * 64 * 2 * 2 / 2 / (16 * torch.cuda.get_device_properties(0).multi_processor_count
                                                    * sm_clock_hz())
         row = {
-            "ms": cuda_ms(lambda: dg.grid_multihead(A, B, C, heads, spec), iters=10),
+            "ms": cuda_ms(lambda: dg.grid_multihead(A, B, C, heads, spec, packed=packed), iters=10),
+            "weights_pack_ms": cuda_ms(lambda: dg.pack_multihead_weights(heads, "cuda"), iters=10),
             "plain_ms": cuda_ms(lambda: dg.grid_multihead_plain(A, B, C, heads, spec), iters=3, graph=False),
             "bound_ms": bound,
             "library_ms": None,
@@ -835,26 +859,29 @@ def check_triplane_points(tsr, scene, timed=True):
     return rows
 
 
-def _ragged_level():
-    """A 64 x 72 x 80 lattice (its z side, 80, not a multiple of K10's
-    32-edge words) of a smooth field with a cut surface through most
-    blocks."""
+def _ragged_level(shape=(64, 72, 80)):
+    """A lattice of a smooth field with a cut surface through most blocks:
+    by default 64 x 72 x 80 (its z side, 80, not a multiple of K10's
+    32-edge words)."""
     rng = np.random.default_rng(7)
     coarse = torch.from_numpy(rng.standard_normal((1, 1, 9, 10, 11)).astype(np.float32))
-    return torch.nn.functional.interpolate(coarse, size=(64, 72, 80), mode="trilinear")[0, 0].cuda().contiguous()
+    return torch.nn.functional.interpolate(coarse, size=shape, mode="trilinear")[0, 0].cuda().contiguous()
 
 
 def check_mc_wire(scene, timed=True):
     """K3 against its plain version, which it must equal byte for byte
     (and in the vertex positions it hands the color query): on the Lean
-    asset's 256^3 level, on a ragged 64 x 72 x 80 lattice, and at half the
-    asset's vertex count (overflow: exact counters, the leading ids kept).
+    asset's 256^3 level, on a ragged 64 x 72 x 80 lattice, on a 72 x 80 x
+    96 lattice whose 3 NB = 3 240 block counts fill one of the scan's
+    2 048-count tiles and end in a partial one, and at half the asset's
+    vertex count (overflow: exact counters, the leading ids kept).
     With ``timed``, the asset's case also gets its time (the wire alone),
     the plain version's and its bound."""
     from sculptmate_tpu_torch.geometry import marching_cubes as mc
 
     level, nv = scene["level"], scene["nv"]
     cases = [("Lean asset 256^3", level, 1 << 20), ("ragged 64x72x80", _ragged_level(), 1 << 18),
+             ("scan-ragged 72x80x96", _ragged_level((72, 80, 96)), 1 << 18),
              ("Lean asset 256^3, half the vertex capacity", level, nv // 2)]
     result, failures = None, []
     for name, lev, mv in cases:
@@ -935,33 +962,60 @@ def check_marching_cubes(scene, timed=True):
     return result
 
 
-def k10_split(scene):
-    """One K10 call at the Lean asset's 256^3 level (the timed case's
-    capacities) under torch.profiler, after a warm-up: device time and
-    launches by kernel name, their sum and the range from the first
-    kernel's start to the last one's end."""
+def device_split(key, what, fn):
+    """``fn`` once under torch.profiler, after a warm-up call: device time
+    and launches by kernel name, the launches in all, their summed time and
+    the range from the first kernel's start to the last one's end, printed
+    as one ``{key: what, ...}`` line."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sculptmate_tpu_torch.geometry import marching_cubes as mc
-
-    level = scene["level"]
-    mc.marching_cubes(level, 1 << 20, 1 << 21)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mc.marching_cubes(level, 1 << 20, 1 << 21)
+        fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     split = {}
     for e in events:
         ms, n = split.get(e.name[:60], (0.0, 0))
         split[e.name[:60]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    line = {"K10_split": "one marching_cubes call, Lean asset 256^3",
+    line = {key: what,
             "kernels_ms": {k: [ms, n] for k, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0])},
+            "launches": len(events),
             "sum_ms": sum(ms for ms, _ in split.values()) if events else "not measured",
             "range_ms": ((max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
                          if events else "not measured")}
     log(json.dumps(line))
     return line
+
+
+def k10_split(scene):
+    """One K10 call at the Lean asset's 256^3 level (the timed case's
+    capacities), split by kernel name (``device_split``)."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+
+    level = scene["level"]
+    return device_split("K10_split", "one marching_cubes call, Lean asset 256^3",
+                        lambda: mc.marching_cubes(level, 1 << 20, 1 << 21))
+
+
+def k3_split(scene):
+    """One K3 call at the Lean asset's 256^3 level (the timed case's
+    capacity, no colors), split by kernel name (``device_split``)."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+
+    level = scene["level"]
+    return device_split("K3_split", "one mc_wire_device call, Lean asset 256^3",
+                        lambda: mc.mc_wire_device(level, 1 << 20))
+
+
+def k5_split(sf3d, codes):
+    """One ``SF3D.query_lattice`` (the ``sf3d.grid`` span: the resample,
+    the factorized first layer and K5, with K5's weights as the model keeps
+    them) at the 161^3 lattice on the given codes, split by kernel name
+    (``device_split``): its launches per asset."""
+    return device_split("K5_split", "one SF3D.query_lattice (sf3d.grid), 161^3",
+                        lambda: sf3d.query_lattice(codes))
 
 
 def _ragged_border_mt():
@@ -1306,6 +1360,19 @@ def sf3d_farm_path(sf3d, scene):
     return {"K7": k7}
 
 
+def all_of(*checks):
+    """Run every check, then raise one AssertionError naming each that
+    failed."""
+    failures = []
+    for check in checks:
+        try:
+            check()
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
 def planted_faults(g, tsr, sf3d, scene, lean):
     """Rebuild each kernel from a copy of the sources with one planted fault
     (PLANTED_FAULTS) and run its check, which must fail, at the cases in
@@ -1332,8 +1399,8 @@ def planted_faults(g, tsr, sf3d, scene, lean):
                   "points_multihead": lambda: check_points(g, sf3d, timed=False),
                   "uv_unwrap": lambda: check_unwrap(scene, timed=False),
                   "triplane_points": lambda: check_triplane_points(tsr, lean, timed=False),
-                  "marching_cubes": lambda: (check_mc_wire(lean, timed=False),
-                                             check_marching_cubes(lean, timed=False)),
+                  "marching_cubes": lambda: all_of(lambda: check_mc_wire(lean, timed=False),
+                                                   lambda: check_marching_cubes(lean, timed=False)),
                   "marching_tets": lambda: check_mt_wire(scene, timed=False)}
         with kernels.sources_from(csrc):
             try:
@@ -1824,14 +1891,21 @@ def where_time_goes(label, fn, prefixes=("tsr.",)):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # a span is a host range and, where it launched kernels, a device range
-    # from its first kernel's start to its last kernel's end
+    # from its first kernel's start to its last kernel's end; its device
+    # launches are the device events (kernels, copies, fills) inside that
     spans = {}
+    device = [e.time_range for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(prefixes)]
     for e in prof.events():
         if e.name.startswith(prefixes):
             side = "host_ms" if e.device_type == torch.autograd.DeviceType.CPU else "device_span_ms"
-            span = spans.setdefault(e.name, {"host_ms": 0.0, "device_span_ms": 0.0, "count": 0})
+            span = spans.setdefault(e.name, {"host_ms": 0.0, "device_span_ms": 0.0, "count": 0,
+                                             "device_launches": 0})
             span[side] += e.time_range.elapsed_us() / 1e3
             span["count"] += side == "host_ms"
+            if side == "device_span_ms":
+                r = e.time_range
+                span["device_launches"] += sum(1 for k in device if r.start <= k.start and k.end <= r.end)
     dev = sorted(((e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count) for e in prof.key_averages()
                   if getattr(e, "device_time_total", 0.0) > 0 and e.device_type == torch.autograd.DeviceType.CUDA
                   and e.key not in spans),
@@ -1994,11 +2068,13 @@ def main():
     k1_err, k1, k1_by = check_attention(g)
     k2_err, k2_limit, k2, k2_by = check_density(g, gen.model)
     k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
+    k5_split(fast.model, scene["codes"][0])
     k8 = check_raster(scene)
     k6_err, k6, k6_by = check_points(g, fast.model)
     k9_err, k9, k9_by = check_unwrap(scene)
     k4 = check_triplane_points(gen.model, lean)
     k3 = check_mc_wire(lean)
+    k3_split(lean)
     k10 = check_marching_cubes(lean)
     k10_split(lean)
     k7 = check_mt_wire(scene)
@@ -2044,8 +2120,8 @@ def main():
         {"name": "grid_multihead_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/grid_multihead.cu",
          "replaces": "sculptmate_tpu/ops/density_grid.py:231", "launches": sf3d_launches["K5"],
          "max_abs_err": k5_err, "limit": f"{K5_SPREAD_SHARE} of each channel's spread", "check": "pass",
-         "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5_by,
-         "library_ms": None},
+         "ms": k5["ms"], "weights_pack_ms": k5["weights_pack_ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5_by, "library_ms": None},
         {"name": "points_multihead_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/points_multihead.cu",
          "replaces": "sculptmate_tpu/ops/density_grid.py:323", "launches": tex_launches["K6"],
          "max_abs_err": k6_err, "limit": f"{K6_SPREAD_SHARE} of each channel's spread", "check": "pass",
@@ -2097,7 +2173,8 @@ def main():
         " 16 attn2 + 12 ViT) and its launches are those of one 8-asset serving batch, as before the SF3D path;"
         " the sf3d_* keys sum its 68 SF3D launches (24 DINOv2-L + 4 fuse-in + 4 fuse-out + 12 latent self + 12"
         " latent cross + 12 CLIP) and count those of one Fast3DGenerator asset; K2 is the 256^3 grid (launches of"
-        " the serving batch), K5 the 161^3 tet lattice (launches of the Fast3DGenerator asset); K2's max_abs_err"
+        " the serving batch), K5 the 161^3 tet lattice (launches of the Fast3DGenerator asset; ms the kernel alone,"
+        " weights_pack_ms its heads' packing, once per model in SF3D._k5_weights_packed); K2's max_abs_err"
         " is on d before the exp; K6, K8 and K9 count the textured Fast3DGenerator asset's launches; K6's ms is the"
         " kernel alone, its relayout_ms the planes' bf16 channels-last copy and the weights' packing it takes once"
         " per asset; K8's times sum its bake raster (512^2) and its two unwrap rasters (1024^2), each measured; K9's"

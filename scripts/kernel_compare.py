@@ -1,19 +1,28 @@
-"""K4 and K10 of one version of the port on the main path's Lean asset, and
-K4's design steps, on one card.
+"""Kernels of one version of the port at the main paths' shapes, on one
+card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, and
+K4's and K10's design variants.
 
-    python3 scripts/k4_k10_compare.py [--root DIR] [--variants]
+    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K10]
+                                      [--csrc DIR] [--variants]
 
 Imports ``sculptmate_tpu_torch`` from ``--root`` (default: this checkout;
 point it at an unpacked older commit to compare two versions in one call)
-and the checks of this checkout's ``chip_smoke.py``. Builds the default
-``TSR`` (seed 0) and the Lean asset as ``chip_smoke.lean_scene`` makes it,
-then prints, besides the card line:
+and the checks of this checkout's ``chip_smoke.py``. ``--csrc`` builds the
+kernels from another directory of sources (a copy of ``csrc/`` with one
+design step taken out, say). For each kernel asked for it prints the
+``chip_smoke.py`` check lines (times, the plain version's, bounds) and its
+split by kernel name under torch.profiler (``chip_smoke.device_split``):
 
-- the K4 check lines (``chip_smoke.check_triplane_points``): its time per
-  Lean asset (wire vertices) and per render view (8.39 M samples);
-- the K10 check lines (``chip_smoke.check_marching_cubes``) and the
-  ``K10_split`` line: one call at 256^3 under torch.profiler, device time by
-  kernel name;
+- K3 (``check_mc_wire``, ``K3_split``) and K10 (``check_marching_cubes``,
+  ``K10_split``) on the default ``TSR``'s (seed 0) Lean asset, as
+  ``chip_smoke.lean_scene`` makes it; K4 (``check_triplane_points``) there
+  too, per Lean asset (wire vertices) and per render view (8.39 M samples);
+- K5 (``check_grid_multihead``, ``K5_split``: one ``SF3D.query_lattice``,
+  the ``sf3d.grid`` span, with its launches) with the default ``SF3D``'s
+  (seed 0) heads, on random codes. A tree whose ``grid_multihead`` packs
+  the weights inside each call is timed on the same launch with the
+  weights packed before (``kernel_alone_shim``), so ``ms`` is the kernel
+  alone on both trees;
 - with ``--variants``, kernels rebuilt (``kernels.sources_from``) from
   copies of this checkout's sources with edits (``edit_copy``; a CPU test
   checks that every edit still applies), each held to its plain version:
@@ -30,7 +39,13 @@ then prints, besides the card line:
   recomputing each cell's case from the level in place of reading the
   classify pass's case byte).
 
-Needs a CUDA card.
+``--time-only`` times K5 alone whatever its output (``k5_time``), for a
+``--csrc`` copy that is wrong by design: one side of the ring idle, the
+SiLU or the stores left out, which split the kernel's time.
+
+Needs a CUDA card. Parent and change in turns, in one process each on
+the same card: ``for r in _archive/parent . . _archive/parent; do python3
+scripts/kernel_compare.py --root $r --kernels K3,K5; done``.
 """
 
 import argparse
@@ -211,55 +226,154 @@ def k10_variants(smoke, lean):
                           "split_ms": split["kernels_ms"], "ptxas_spills": spills}), flush=True)
 
 
+def k5_time(smoke, sf3d):
+    """K5 alone at 161^3 on ``check_grid_multihead``'s inputs, timed whatever
+    its output, beside its error per channel and the check's limit: for
+    kernels built from a copy of the sources that is wrong by design (one
+    side of the ring idle, the SiLU left out), whose time splits the
+    kernel's."""
+    import dataclasses
+
+    import torch
+
+    from sculptmate_tpu_torch.ops import density_grid as dg
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    heads = [[(w, smoke.K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g)) for w, b in layers]
+             for layers in sf3d.lattice_head_weights().values()]
+    spec = dataclasses.replace(sf3d.grid_spec(torch.bfloat16), resolution=161, slab=7)
+    codes = torch.randn(3, sf3d.config.upsample_out_channels, 384, 384, device="cuda", generator=g)
+    A, B, C = dg.multihead_partials(codes.to(torch.bfloat16), heads, dg.lattice_coords_tets(160, "cuda"), spec)
+    packed = dg.pack_multihead_weights(heads, "cuda")
+    out = dg.grid_multihead(A, B, C, heads, spec, packed=packed)
+    ref = dg.grid_multihead_plain(A, B, C, heads, spec)
+    errs = [(out[k] - ref[k]).abs().max().item() for k in range(len(ref))]
+    limits = [smoke.K5_SPREAD_SHARE * (ref[k] - ref[k].mean()).abs().max().item() for k in range(len(ref))]
+    ms = smoke.cuda_ms(lambda: dg.grid_multihead(A, B, C, heads, spec, packed=packed), iters=10)
+    print(json.dumps({"k5_time": "K5 alone at 161^3", "ms": ms, "max_abs_err_per_channel": errs,
+                      "limit_per_channel": limits, "check_passed": all(e <= lim for e, lim in zip(errs, limits))}),
+          flush=True)
+
+
+def kernel_alone_shim():
+    """On a tree whose ``grid_multihead`` packs K5's weights inside every
+    call (no ``packed`` argument), give it one that takes them packed, so
+    that the check times the same launch alone on both trees."""
+    import inspect
+
+    import torch
+
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.runtime import kernels
+
+    orig = dg.grid_multihead
+    if "packed" in inspect.signature(orig).parameters:
+        return
+
+    def grid_multihead(A, B, C, heads, spec, packed=None):
+        if packed is None:
+            return orig(A, B, C, heads, spec)
+        R, k_total = A.shape[0], sum(w[-1][0].shape[1] for w in heads)
+        out = torch.empty((k_total, R, R, R), dtype=torch.float32, device=A.device)
+        err = dg._multihead_lib()(
+            A.data_ptr(), B.data_ptr(), C.data_ptr(), packed[0].data_ptr(), packed[1].data_ptr(), out.data_ptr(),
+            R, k_total, torch.cuda.get_device_properties(A.device).multi_processor_count,
+            torch.cuda.current_stream(A.device).cuda_stream)
+        kernels.check(err, "grid_multihead_fwd")
+        orig.launches += 1
+        return out
+
+    grid_multihead.launches = 0
+    dg.grid_multihead = grid_multihead
+
+
+KERNELS = {"K3": "marching_cubes", "K4": "triplane_points", "K5": "grid_multihead", "K10": "marching_cubes"}
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
+    p.add_argument("--kernels", default="K3,K4,K5,K10")
+    p.add_argument("--csrc", default=None, help="build the kernels from these sources")
     p.add_argument("--variants", action="store_true")
+    p.add_argument("--time-only", action="store_true",
+                   help="K5: time the kernel whatever its output (a copy of the sources wrong by design)")
     args = p.parse_args()
+    wanted = [k.strip() for k in args.kernels.split(",") if k.strip()]
+    if not wanted or any(k not in KERNELS for k in wanted):
+        p.error(f"--kernels takes some of {sorted(KERNELS)}")
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
 
+    import contextlib
+
     import torch
 
     if not torch.cuda.is_available():
-        print("k4_k10_compare: no CUDA device available", file=sys.stderr)
+        print("kernel_compare: no CUDA device available", file=sys.stderr)
         return 1
-    from sculptmate_tpu_torch.pipelines.generate import TripoGenerator
-
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(f"# card: {card}; root {os.path.abspath(args.root)}", flush=True)
+    print(f"# card: {card}; root {os.path.abspath(args.root)}; kernels {','.join(wanted)}"
+          + (f"; sources {os.path.abspath(args.csrc)}" if args.csrc else ""), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gen = TripoGenerator()
-    if gen.initiate_model(device="cuda") != 0:
-        raise RuntimeError("TripoGenerator.initiate_model failed")
     from sculptmate_tpu_torch.runtime import kernels
 
-    for name in ("triplane_points", "marching_cubes"):
-        try:
-            kernels.build(name)
-        except RuntimeError as e:
-            print(f"# build failed: {e}", flush=True)
-            return 1
-        for line in kernels.ptxas_report(name).splitlines():
-            if any(w in line for w in ("registers", "spill", "wgmma", "Compiling entry")):
-                print(f"#   {name}: {line.strip()}", flush=True)
-    lean = smoke.lean_scene(gen.model)
     failed = []
-    for phase, fn in (("K4", lambda: smoke.check_triplane_points(gen.model, lean)),
-                      ("K10", lambda: smoke.check_marching_cubes(lean)), ("K10 split", lambda: smoke.k10_split(lean)),
-                      ("K4 steps", lambda: args.variants and k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
-                      ("K4 variants", lambda: args.variants and k4_steps(
-                          smoke, gen.model, lean, [(v, e, False) for v, e in K4_VARIANTS], "k4_variant")),
-                      ("K10 variants", lambda: args.variants and k10_variants(smoke, lean))):
-        try:
-            fn()
-        except (AssertionError, RuntimeError) as e:
-            print(f"# {phase} failed: {e}", flush=True)
-            failed.append(phase)
+    with kernels.sources_from(os.path.abspath(args.csrc)) if args.csrc else contextlib.nullcontext():
+        for name in sorted({KERNELS[k] for k in wanted}):
+            try:
+                kernels.build(name)
+            except RuntimeError as e:
+                print(f"# build failed: {e}", flush=True)
+                return 1
+            for line in kernels.ptxas_report(name).splitlines():
+                if any(w in line for w in ("registers", "spill", "wgmma", "Compiling entry")):
+                    print(f"#   {name}: {line.strip()}", flush=True)
+        phases = []
+        if {"K3", "K4", "K10"} & set(wanted):
+            from sculptmate_tpu_torch.pipelines.generate import TripoGenerator
+
+            gen = TripoGenerator()
+            if gen.initiate_model(device="cuda") != 0:
+                raise RuntimeError("TripoGenerator.initiate_model failed")
+            lean = smoke.lean_scene(gen.model)
+            lean_phases = {"K3": [("K3", lambda: smoke.check_mc_wire(lean)),
+                                  ("K3 split", lambda: smoke.k3_split(lean))],
+                           "K4": [("K4", lambda: smoke.check_triplane_points(gen.model, lean))],
+                           "K10": [("K10", lambda: smoke.check_marching_cubes(lean)),
+                                   ("K10 split", lambda: smoke.k10_split(lean))]}
+            phases = [ph for k in ("K3", "K4", "K10") if k in wanted for ph in lean_phases[k]]
+        if "K5" in wanted:
+            from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
+
+            fast = Fast3DGenerator()
+            if fast.initiate_model(device="cuda") != 0:
+                raise RuntimeError("Fast3DGenerator.initiate_model failed")
+            kernel_alone_shim()
+            g = torch.Generator(device="cuda").manual_seed(0)
+            codes = torch.randn(3, fast.model.config.upsample_out_channels, 384, 384, device="cuda",
+                                generator=g).to(torch.bfloat16)
+            if args.time_only:
+                phases.append(("K5 time", lambda: k5_time(smoke, fast.model)))
+            else:
+                phases += [("K5", lambda: smoke.check_grid_multihead(g, fast.model)),
+                           ("K5 split", lambda: smoke.k5_split(fast.model, codes))]
+        if args.variants and "K4" in wanted:
+            phases += [("K4 steps", lambda: k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
+                       ("K4 variants", lambda: k4_steps(
+                           smoke, gen.model, lean, [(v, e, False) for v, e in K4_VARIANTS], "k4_variant"))]
+        if args.variants and "K10" in wanted:
+            phases.append(("K10 variants", lambda: k10_variants(smoke, lean)))
+        for phase, fn in phases:
+            try:
+                fn()
+            except (AssertionError, RuntimeError) as e:
+                print(f"# {phase} failed: {e}", flush=True)
+                failed.append(phase)
     print(card)
     return 1 if failed else 0
 

@@ -88,6 +88,15 @@ __device__ __forceinline__ void named_bar_arrive(int id, int n) {
     asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// four 8x8 b16 matrices from shared memory in the mma fragment layout: lane
+// l gives the address of row l % 8 of matrix l / 8 (16 contiguous bytes);
+// r[i] gets row lane / 4, columns 2 (lane % 4) .. +1 of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
 // ---- TMA -------------------------------------------------------------------
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap *map, uint32_t bar,
                                             int c0, int c1, int c2) {
@@ -104,6 +113,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap *map
         "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
         ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
           "r"(c3)
+        : "memory");
+}
+
+// a contiguous copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory to shared memory, completing on the mbarrier's tx count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void *src, uint32_t bytes, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
         : "memory");
 }
 
@@ -176,7 +194,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-// ---- bf16 pairs and the 64-wide MLP layers of K2 and K5 ----------------------
+// ---- bf16 pairs and the 64-wide MLP layers of K2, K4 and K5 -----------------
 __device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
     uint32_t r;
     asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(b));
@@ -214,12 +232,13 @@ __device__ __forceinline__ void hidden_epilogue(uint32_t (&a)[4][4], const float
 // d = a . W for a 64-deep product: a the register A fragments of 64 rows x
 // 64 channels, W a swizzled K-major tile of N rows (N = 64 for a hidden
 // layer, 8 for an output tile) at descriptor dw; issued and committed as
-// one group
+// one group; with `accumulate` the product adds to d as it stands
 template <int NACC>
-__device__ __forceinline__ void issue_k64(float (&d)[NACC], const uint32_t (&a)[4][4], uint64_t dw) {
+__device__ __forceinline__ void issue_k64(float (&d)[NACC], const uint32_t (&a)[4][4], uint64_t dw,
+                                          bool accumulate = false) {
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_rs<0>(d, a[kc], dw + 2 * kc, kc);
+    for (int kc = 0; kc < 4; ++kc) wgmma_rs<0>(d, a[kc], dw + 2 * kc, accumulate || kc > 0);
     wgmma_commit();
 }
 

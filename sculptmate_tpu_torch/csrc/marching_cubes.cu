@@ -23,11 +23,18 @@
 // written.
 //
 // Design:
-// - K3: count (one block of 512 threads per 8^3 block: a point's three cut
-//   flags, the occupancy byte of 8 consecutive z points from one warp
-//   ballot, per-axis block counts from __syncthreads_count), an exclusive
-//   scan of the 3 NB counts in one block (which also writes the counters),
-//   then emit (the same flags again, in-block ranks from ballots);
+// - K3, three launches: (1) count, one block per column of 8 x 8 (x, y)
+//   rows walking its 8^3 blocks along z, the next block's level loaded
+//   ahead (K10's classify pattern): a point's three cut flags, the
+//   occupancy byte of 8 consecutive z points from one warp ballot, the
+//   block's three 512-bit cut masks (each warp's ballot a 32-bit word, in
+//   in-block order ox * 64 + oy * 8 + oz) and its per-axis counts; (2) the
+//   multi-block scan (scan.cuh's scan_segments, decoupled look-back) of
+//   the 3 NB counts, which also gives the two wire counters; (3) emit, one
+//   thread per mask word: its ids are the block's scanned base, the cut
+//   edges of the block's earlier words (a scan over the 16 lanes holding
+//   the block's words) and a rank within the word, and it reads the level
+//   at its cut edges only;
 // - K10, four launches: (1) classify, one block per column of 8 x 8 rows
 //   walking its 8^3 blocks along z: every cell's case byte, each (axis, x, y) row's cut flags as
 //   32-bit words (one warp ballot per 8 z points), and per 8^3 block its
@@ -55,18 +62,6 @@ constexpr int BS = 8;                     // block side
 constexpr int CELLS = BS * BS * BS;       // threads of a per-block kernel
 constexpr int VERT_THREADS = 256;         // cut words per block of K10's vertex pass
 
-// bit a set when the edge from lattice point p = (i, j, k) to its +a
-// neighbour is cut (the two sides of level > 0 differ)
-__device__ __forceinline__ unsigned cut_flags(const float *__restrict__ lv, size_t p, int i, int j, int k, int RX,
-                                              int RY, int RZ) {
-    const bool in = lv[p] > 0.f;
-    unsigned f = 0;
-    if (i + 1 < RX && (lv[p + (size_t)RY * RZ] > 0.f) != in) f |= 1u;
-    if (j + 1 < RY && (lv[p + RZ] > 0.f) != in) f |= 2u;
-    if (k + 1 < RZ && (lv[p + 1] > 0.f) != in) f |= 4u;
-    return f;
-}
-
 // clamp(l0 / (l0 - l1, or 1 where that is 0), 0, 1) of the edge p -> p + step
 __device__ __forceinline__ float edge_t(const float *__restrict__ lv, size_t p, size_t step) {
     const float l0 = lv[p], d = __fsub_rn(l0, lv[p + step]);
@@ -79,70 +74,107 @@ __device__ __forceinline__ size_t axis_step(int a, int RY, int RZ) {
 
 // -- K3: the wire --
 
-struct BlockPoint {
-    int blk, i, j, k;
-    size_t p;
-};
+constexpr int MASK_WORDS = CELLS / 32;   // 32-bit words of one 8^3 block's cut mask
+constexpr int EMIT_THREADS = 256;        // mask words per block of the emit pass
 
-// the lattice point of this thread: block blockIdx.x in (bx, by, bz) order,
-// thread t = ox * 64 + oy * 8 + oz within it
-__device__ __forceinline__ BlockPoint block_point(int RY, int RZ) {
-    const int nby = RY / BS, nbz = RZ / BS, blk = blockIdx.x, t = threadIdx.x;
-    BlockPoint q;
-    q.blk = blk;
-    q.i = (blk / (nby * nbz)) * BS + (t >> 6);
-    q.j = ((blk / nbz) % nby) * BS + ((t >> 3) & 7);
-    q.k = (blk % nbz) * BS + (t & 7);
-    q.p = ((size_t)q.i * RY + q.j) * RZ + q.k;
-    return q;
-}
-
+// one block per column of 8 x 8 (x, y) rows, walking its 8^3 blocks along
+// z: each point's occupancy bit, each block's three cut masks (masks[(a NB +
+// blk) 16 + w] bit l: the edge from in-block point 32 w + l to its +a
+// neighbour is cut) and its per-axis counts (vcnt[a NB + blk])
 __global__ void __launch_bounds__(CELLS) wire_count(const float *__restrict__ lv, uint8_t *__restrict__ occ,
-                                                     int *__restrict__ vcnt, int RX, int RY, int RZ) {
-    const BlockPoint q = block_point(RY, RZ);
-    const int NB = gridDim.x, lane = threadIdx.x & 31;
-    const unsigned f = cut_flags(lv, q.p, q.i, q.j, q.k, RX, RY, RZ);
-    // the 8 points (i, j, k0 .. k0 + 7) are lanes 8m .. 8m + 7 of one warp:
-    // their byte, bit b = point k0 + b
-    const unsigned in = __ballot_sync(FULL, lv[q.p] > 0.f);
-    if ((threadIdx.x & 7) == 0) occ[q.p >> 3] = (uint8_t)((in >> (lane & 24)) & 0xFF);
-    const int cx = __syncthreads_count(f & 1u), cy = __syncthreads_count(f & 2u), cz = __syncthreads_count(f & 4u);
-    if (threadIdx.x == 0) {
-        vcnt[q.blk] = cx;
-        vcnt[NB + q.blk] = cy;
-        vcnt[2 * NB + q.blk] = cz;
+                                                     unsigned *__restrict__ masks, int *__restrict__ vcnt, int RX,
+                                                     int RY, int RZ) {
+    __shared__ int warp_cnt[2][3][MASK_WORDS];  // by the parity of bz
+    const int nby = RY / BS, nbz = RZ / BS, NB = (RX / BS) * nby * nbz;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int i = (blockIdx.x / nby) * BS + (t >> 6), j = (blockIdx.x % nby) * BS + ((t >> 3) & 7);
+    const size_t sx = (size_t)RY * RZ, sy = RZ;
+    const bool xi = i + 1 < RX, yj = j + 1 < RY;
+    // the level at this thread's point of 8^3 block bz and at its +x, +y
+    // and +z neighbours (0 past the lattice, where no edge is cut); loaded
+    // one 8^3 block ahead
+    auto load = [&](int bz, float (&v)[4]) {
+        const int k = bz * BS + (t & 7);
+        const size_t p = ((size_t)i * RY + j) * RZ + k;
+        v[0] = lv[p];
+        v[1] = xi ? lv[p + sx] : 0.f;
+        v[2] = yj ? lv[p + sy] : 0.f;
+        v[3] = k + 1 < RZ ? lv[p + 1] : 0.f;
+    };
+    float next[4];
+    load(0, next);
+    for (int bz = 0; bz < nbz; ++bz) {
+        const int k = bz * BS + (t & 7), blk = blockIdx.x * nbz + bz;
+        const size_t p = ((size_t)i * RY + j) * RZ + k;
+        const bool in = next[0] > 0.f;
+        const bool fx = xi && (next[1] > 0.f) != in, fy = yj && (next[2] > 0.f) != in,
+                   fz = k + 1 < RZ && (next[3] > 0.f) != in;
+        if (bz + 1 < nbz) load(bz + 1, next);
+        // the 8 points (i, j, k0 .. k0 + 7) are lanes 8m .. 8m + 7 of one
+        // warp: their byte, bit b = point k0 + b
+        const unsigned inb = __ballot_sync(FULL, in);
+        if ((t & 7) == 0) occ[p >> 3] = (uint8_t)((inb >> (lane & 24)) & 0xFF);
+        const unsigned bx = __ballot_sync(FULL, fx), by = __ballot_sync(FULL, fy), bzm = __ballot_sync(FULL, fz);
+        if (lane < 3)
+            masks[((size_t)lane * NB + blk) * MASK_WORDS + warp] = lane == 0 ? bx : (lane == 1 ? by : bzm);
+        if (lane == 0) {
+            warp_cnt[bz & 1][0][warp] = __popc(bx);
+            warp_cnt[bz & 1][1][warp] = __popc(by);
+            warp_cnt[bz & 1][2][warp] = __popc(bzm);
+        }
+        // one barrier per 8^3 block: the next block writes the other half
+        __syncthreads();
+        if (t < 3) {
+            int n = 0;
+#pragma unroll
+            for (int w = 0; w < MASK_WORDS; ++w) n += warp_cnt[bz & 1][t][w];
+            vcnt[t * NB + blk] = n;
+        }
     }
 }
 
-__global__ void __launch_bounds__(CELLS) wire_emit(const float *__restrict__ lv, const int *__restrict__ vbase,
-                                                    uint8_t *__restrict__ t_lo, uint8_t *__restrict__ t_hi,
-                                                    float *__restrict__ pos, int RX, int RY, int RZ, int mv) {
-    __shared__ int warp_cnt[3][CELLS / 32];
-    const BlockPoint q = block_point(RY, RZ);
-    const int NB = gridDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const unsigned f = cut_flags(lv, q.p, q.i, q.j, q.k, RX, RY, RZ);
-    int rank[3];
+// one thread per mask word (the 16 words of an (axis, block) on 16
+// consecutive lanes): the t, and the positions, of its cut edges with ids
+// under the capacity; thread 0 writes the two counters the scan gave
+__global__ void __launch_bounds__(EMIT_THREADS) wire_emit(const float *__restrict__ lv,
+                                                           const unsigned *__restrict__ masks,
+                                                           const int *__restrict__ vbase,
+                                                           const int *__restrict__ counters, uint8_t *__restrict__ t_lo,
+                                                           uint8_t *__restrict__ t_hi, uint8_t *__restrict__ le,
+                                                           float *__restrict__ pos, int RX, int RY, int RZ, int mv) {
+    const int nby = RY / BS, nbz = RZ / BS, NB = (RX / BS) * nby * nbz;
+    const long long gw = (long long)blockIdx.x * EMIT_THREADS + threadIdx.x;
+    const unsigned word = gw < 3ll * NB * MASK_WORDS ? masks[gw] : 0u;
+    // the cut edges of the block's words up to this one
+    const int cnt = __popc(word);
+    int incl = cnt;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        const unsigned b = __ballot_sync(FULL, (f >> a) & 1u);
-        rank[a] = __popc(b & lanemask_lt());
-        if (lane == 0) warp_cnt[a][warp] = __popc(b);
+    for (int o = 1; o < MASK_WORDS; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o, MASK_WORDS);
+        if ((int)(threadIdx.x % MASK_WORDS) >= o) incl += y;
     }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-        if (!((f >> a) & 1u)) continue;
-        int id = vbase[a * NB + q.blk] + rank[a];
-        for (int w = 0; w < warp; ++w) id += warp_cnt[a][w];
-        if (id >= mv) continue;  // past the capacity: dropped, the counters stay exact
-        const float t = edge_t(lv, q.p, axis_step(a, RY, RZ));
+    if (gw == 0) {
+        for (int b = 0; b < 4; ++b) {
+            le[b] = (uint8_t)(((unsigned)counters[0] >> (8 * b)) & 0xFF);
+            le[4 + b] = (uint8_t)(((unsigned)counters[1] >> (8 * b)) & 0xFF);
+        }
+    }
+    if (word == 0u) return;
+    const int ab = (int)(gw / MASK_WORDS), wi = (int)(gw % MASK_WORDS), a = ab / NB, blk = ab % NB;
+    const int bi = (blk / (nby * nbz)) * BS, bj = ((blk / nbz) % nby) * BS, bk = (blk % nbz) * BS;
+    const size_t step = axis_step(a, RY, RZ);
+    int id = vbase[ab] + incl - cnt;
+    for (unsigned b = word; b != 0u && id < mv; b &= b - 1u, ++id) {  // past the capacity: dropped
+        const int q = wi * 32 + __ffs(b) - 1;  // in-block ox * 64 + oy * 8 + oz
+        const int i = bi + (q >> 6), j = bj + ((q >> 3) & 7), k = bk + (q & 7);
+        const float t = edge_t(lv, ((size_t)i * RY + j) * RZ + k, step);
         const int u = __float2int_rn(__fmul_rn(t, 65535.f));
         t_lo[id] = (uint8_t)(u & 0xFF);
         t_hi[id] = (uint8_t)(u >> 8);
         if (pos != nullptr) {
-            pos[id] = __fadd_rn((float)q.i, a == 0 ? t : 0.f);
-            pos[(size_t)mv + id] = __fadd_rn((float)q.j, a == 1 ? t : 0.f);
-            pos[2 * (size_t)mv + id] = __fadd_rn((float)q.k, a == 2 ? t : 0.f);
+            pos[id] = __fadd_rn((float)i, a == 0 ? t : 0.f);
+            pos[(size_t)mv + id] = __fadd_rn((float)j, a == 1 ? t : 0.f);
+            pos[2 * (size_t)mv + id] = __fadd_rn((float)k, a == 2 ? t : 0.f);
         }
     }
 }
@@ -315,20 +347,36 @@ bool bad_shape(int RX, int RY, int RZ) {
 
 // K3: level (RX, RY, RZ) f32 -> the wire (zeroed by the caller: n3/8 + 2 mv
 // + 8 bytes) and, when pos is not null, the (3, mv) f32 lattice positions
-// (zeroed by the caller). vcnt and vbase: 3 NB ints of scratch.
-extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *vcnt, void *vbase, int RX, int RY, int RZ,
-                           int mv, void *stream) {
+// (zeroed by the caller). Scratch: masks 48 NB u32, vcnt and vbase 3 NB
+// ints; zeroed (zeroed by the caller): the 2 counters, the scan's tile
+// counter, 1 pad int, then status_tiles u64 status words. Three launches:
+// count, the scan of the 3 NB counts (which gives the counters), emit.
+extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *masks, void *vcnt, void *vbase,
+                           void *zeroed, int RX, int RY, int RZ, int mv, int status_tiles, void *stream) {
     if (bad_shape(RX, RY, RZ) || mv < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int NB = (RX / BS) * (RY / BS) * (RZ / BS);
     const size_t n3 = (size_t)RX * RY * RZ;
     const float *lv = static_cast<const float *>(level);
     uint8_t *w = static_cast<uint8_t *>(wire);
-    int *cnt = static_cast<int *>(vcnt), *base = static_cast<int *>(vbase);
-    wire_count<<<NB, CELLS, 0, st>>>(lv, w, cnt, RX, RY, RZ);
-    scan_counts<<<1, SCAN_THREADS, 0, st>>>(cnt, 3 * NB, base, nullptr, w + n3 / 8 + 2 * (size_t)mv);
-    wire_emit<<<NB, CELLS, 0, st>>>(lv, base, w + n3 / 8, w + n3 / 8 + mv, static_cast<float *>(pos), RX, RY, RZ,
-                                    mv);
+    unsigned *mk = static_cast<unsigned *>(masks);
+    int *cnt = static_cast<int *>(vcnt), *base = static_cast<int *>(vbase), *counters = static_cast<int *>(zeroed);
+    ScanSegs sg = {};
+    sg.in[0] = cnt;
+    sg.base[0] = base;
+    sg.n[0] = 3 * NB;
+    sg.total[0] = counters;        // num_verts
+    sg.nonzero[0] = counters + 1;  // n_vblocks
+    sg.first_tile[1] = scan_tiles(3 * NB);
+    sg.nsegs = 1;
+    if (sg.first_tile[1] > status_tiles) return (int)cudaErrorInvalidValue;
+    const long long nwords = 3ll * NB * MASK_WORDS;
+    wire_count<<<(RX / BS) * (RY / BS), CELLS, 0, st>>>(lv, w, mk, cnt, RX, RY, RZ);
+    scan_segments<<<sg.first_tile[1], MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counters + 4),
+                                                            counters + 2);
+    wire_emit<<<(int)((nwords + EMIT_THREADS - 1) / EMIT_THREADS), EMIT_THREADS, 0, st>>>(
+        lv, mk, base, counters, w + n3 / 8, w + n3 / 8 + mv, w + n3 / 8 + 2 * (size_t)mv, static_cast<float *>(pos),
+        RX, RY, RZ, mv);
     return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,10 @@
 // Exclusive scans shared by the marching kernels (K3, K10 in
 // marching_cubes.cu, K7 in marching_tets.cu): the in-block prefix of one
 // int per thread; a single-block scan of a count array that also writes its
-// sums (as ints, or as little-endian u32 wire counters), which K3 and K7
-// launch; and K10's multi-block scan of several count arrays in one launch
-// (scan_segments: decoupled look-back over tiles of 2048 counts).
+// sums (as ints, or as little-endian u32 wire counters), which K7 launches;
+// and the multi-block scan of one or several count arrays in one launch
+// (scan_segments: decoupled look-back over tiles of 2048 counts), which K3
+// and K10 launch.
 #pragma once
 
 #include <cuda_runtime.h>

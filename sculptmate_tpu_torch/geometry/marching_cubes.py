@@ -193,6 +193,21 @@ def _check_level(level: torch.Tensor, what: str) -> torch.Tensor:
     return kernels.aligned(level)
 
 
+_SCAN_TILE = 2048  # counts per tile of the multi-block scan (csrc/scan.cuh: MS_TILE)
+
+
+def k3_scratch(RX: int, RY: int, RZ: int) -> dict:
+    """Element counts of kernel K3's scratch for an (RX, RY, RZ) lattice:
+    ``masks`` (each 8^3 block's three 512-bit cut masks, 48 NB 32-bit
+    words), ``vcnt`` and ``vbase`` (3 NB per-axis block counts and their
+    scanned bases), and the int32 ``zeroed`` words (the 2 counters, the
+    scan's tile counter, 1 pad word, then a u64 status word per tile of the
+    scan of the 3 NB counts)."""
+    NB = RX * RY * RZ // BS**3
+    tiles = -(-3 * NB // _SCAN_TILE)
+    return {"masks": 48 * NB, "vcnt": 3 * NB, "vbase": 3 * NB, "status_tiles": tiles, "zeroed": 4 + 2 * tiles}
+
+
 def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None):
     """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of 8
     -> the (W,) uint8 wire, or ``(wire, colors (3 * max_verts,) uint8)``
@@ -211,14 +226,15 @@ def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Calla
     RX, RY, RZ = level.shape
     dev = level.device
     n3 = RX * RY * RZ
-    NB = n3 // BS**3
     wire = torch.zeros(n3 // 8 + 2 * max_verts + 4 * N_WIRE_COUNTS, dtype=torch.uint8, device=dev)
     pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev) if color_fn is not None else None
-    vcnt = torch.empty(3 * NB, dtype=torch.int32, device=dev)
-    vbase = torch.empty(3 * NB, dtype=torch.int32, device=dev)
-    err = _mc_lib("mc_wire_fwd", 5, 4)(
-        level.data_ptr(), wire.data_ptr(), None if pos is None else pos.data_ptr(), vcnt.data_ptr(), vbase.data_ptr(),
-        RX, RY, RZ, max_verts, torch.cuda.current_stream(dev).cuda_stream,
+    size = k3_scratch(RX, RY, RZ)
+    # the counters, the scan's tile counter and status words, zeroed on the stream
+    zeroed = torch.zeros(size["zeroed"], dtype=torch.int32, device=dev)
+    scratch = [torch.empty(size[name], dtype=torch.int32, device=dev) for name in ("masks", "vcnt", "vbase")]
+    err = _mc_lib("mc_wire_fwd", 7, 5)(
+        level.data_ptr(), wire.data_ptr(), None if pos is None else pos.data_ptr(), *(t.data_ptr() for t in scratch),
+        zeroed.data_ptr(), RX, RY, RZ, max_verts, size["status_tiles"], torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "mc_wire_fwd")
     mc_wire_device.launches += 1
@@ -312,9 +328,6 @@ def _tables_packed(device) -> tuple:
         buf = np.concatenate([cnt.ravel(), tri.ravel(), EDGE_AXIS.ravel(), EDGE_OFFSET.ravel()]).astype(np.int32)
         _TABLES[key] = (torch.from_numpy(buf).to(device), maxtri)
     return _TABLES[key]
-
-
-_SCAN_TILE = 2048  # counts per tile of K10's multi-block scan (csrc/scan.cuh: MS_TILE)
 
 
 def k10_scratch(RX: int, RY: int, RZ: int) -> dict:

@@ -436,9 +436,12 @@ def pack_multihead_weights(heads: Sequence[Weights], device) -> Tuple[torch.Tens
 
 
 def grid_multihead(
-    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, heads: Sequence[Weights], spec: DensityGridSpec
+    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, heads: Sequence[Weights], spec: DensityGridSpec,
+    packed=None,
 ) -> torch.Tensor:
-    """Kernel K5 on CUDA tensors, its plain version on CPU tensors."""
+    """Kernel K5 on CUDA tensors, its plain version on CPU tensors.
+    ``packed``: ``pack_multihead_weights(heads, A.device)``, when the caller
+    keeps it (``SF3D`` packs its heads once per model)."""
     if not A.is_cuda:
         return grid_multihead_plain(A, B, C, heads, spec)
     R = A.shape[0]
@@ -457,7 +460,13 @@ def grid_multihead(
     ):
         raise ValueError("multi-head grid kernel takes two heads of one hidden 64x64 layer, at most 8 outputs in all")
     dev = A.device
-    W, bias = pack_multihead_weights(heads, dev)
+    W, bias = packed if packed is not None else pack_multihead_weights(heads, dev)
+    if (
+        W.shape != (_K5_HEADS * (_HIDDEN + 8), _HIDDEN) or W.dtype != torch.bfloat16 or not W.is_cuda
+        or bias.shape != (_K5_HEADS * _HIDDEN + 8,) or bias.dtype != torch.float32 or not bias.is_cuda
+    ):
+        raise ValueError(f"multi-head grid kernel takes weights as pack_multihead_weights gives them on the card, "
+                         f"got {W.dtype} {tuple(W.shape)} on {W.device} and {bias.dtype} {tuple(bias.shape)}")
     A, B, C = (kernels.aligned(t) for t in (A, B, C))
     out = torch.empty((k_total, R, R, R), dtype=torch.float32, device=dev)
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -474,17 +483,19 @@ grid_multihead.launches = 0
 
 
 def query_grid_multihead(
-    triplane: torch.Tensor, head_weights: Dict[str, Weights], coords: torch.Tensor, spec: DensityGridSpec
+    triplane: torch.Tensor, head_weights: Dict[str, Weights], coords: torch.Tensor, spec: DensityGridSpec,
+    packed=None,
 ) -> Dict[str, torch.Tensor]:
     """Multi-head lattice query (SF3D's ``MaterialMLP`` over the tet
     lattice, ``sf3d/system.py:141-168``): the separable resample and the
     factorized first layer shared by the heads, then kernel K5 (or its plain
     version on the CPU). triplane (3, C, H, W), coords (R,) normalized ->
     {head: (K, R, R, R) f32 raw outputs in [x, y, z] order}; callers apply
-    the heads' output biases and activations."""
+    the heads' output biases and activations. ``packed``: K5's weights as
+    ``pack_multihead_weights`` gives them, when the caller keeps them."""
     heads = list(head_weights.values())
     A, B, C = multihead_partials(triplane, heads, coords, spec)
-    out = grid_multihead(A, B, C, heads, spec)
+    out = grid_multihead(A, B, C, heads, spec, packed)
     split, col = {}, 0
     for name, w in head_weights.items():
         k = w[-1][0].shape[1]

@@ -68,6 +68,7 @@ from sculptmate_tpu_torch.ops.density_grid import (
     DensityGridSpec,
     lattice_coords_tets,
     mlp_weights_from_params,
+    pack_multihead_weights,
     query_grid_multihead,
     query_points_multihead,
 )
@@ -296,6 +297,7 @@ class SF3D:
         self._Kn = upload(Kn, self.device)
         self._bg = upload(np.asarray(c.background_color), self.device)
         self._mt_cap: Optional[int] = None
+        self._k5_weights = None  # (key, K5's packed heads), see _k5_weights_packed
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=self.dtype, enabled=self.dtype != torch.float32)
@@ -346,14 +348,30 @@ class SF3D:
         """The density and vertex-offset heads' weights, in that order."""
         return {n: mlp_weights_from_params(self.module.decoder.heads[n]) for n in _LATTICE_HEADS}
 
+    def _k5_weights_packed(self, device):
+        """Kernel K5's packed heads on ``device``, packed once and kept
+        while the heads' parameters (their storage and version counters)
+        stay the same, as ``TSR._k4_inputs`` keeps K4's decoder (the plain
+        version on the CPU does not read them). Parameters made under
+        inference mode keep no version counter: they are packed anew."""
+        params = [p for n in _LATTICE_HEADS for p in self.module.decoder.heads[n].parameters()]
+        key = None
+        if not any(p.is_inference() for p in params):
+            key = (torch.device(device), tuple((p.data_ptr(), p._version) for p in params))
+        if key is None or self._k5_weights is None or self._k5_weights[0] != key:
+            heads = list(self.lattice_head_weights().values())
+            self._k5_weights = (key, pack_multihead_weights(heads, device))
+        return self._k5_weights[1]
+
     @torch.inference_mode()
     def query_lattice(self, scene_code: torch.Tensor):
         """The density and vertex-offset heads' raw outputs on the
-        (res+1)^3 lattice (kernel K5 on the card) -> {head: (K, N, N, N)
-        f32}."""
+        (res+1)^3 lattice (kernel K5 on the card, its weights packed once
+        per model) -> {head: (K, N, N, N) f32}."""
         res = self.config.isosurface_resolution
         coords = lattice_coords_tets(res, scene_code.device)
-        return query_grid_multihead(scene_code, self.lattice_head_weights(), coords, self.grid_spec(self.extract_dtype))
+        return query_grid_multihead(scene_code, self.lattice_head_weights(), coords, self.grid_spec(self.extract_dtype),
+                                    self._k5_weights_packed(scene_code.device))
 
     @torch.inference_mode()
     def _extract_wire(self, scene_code, threshold: float, max_verts: int, snap_eps: float) -> torch.Tensor:

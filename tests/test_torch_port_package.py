@@ -295,14 +295,14 @@ def test_planted_faults_apply_to_the_sources():
     for name, kernel, text, replacement, *file in chip_smoke.PLANTED_FAULTS:
         src = (PKG / "csrc" / (file[0] if file else f"{kernel}.cu")).read_text()
         assert src.count(text) == 1 and text != replacement, name
-    assert len(chip_smoke.PLANTED_FAULTS) >= 29
+    assert len(chip_smoke.PLANTED_FAULTS) >= 32
 
 
 def _compare_script():
     import importlib.util
 
-    path = PKG.parent / "scripts" / "k4_k10_compare.py"
-    spec = importlib.util.spec_from_file_location("k4_k10_compare", path)
+    path = PKG.parent / "scripts" / "kernel_compare.py"
+    spec = importlib.util.spec_from_file_location("kernel_compare", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -310,7 +310,7 @@ def _compare_script():
 
 @pytest.mark.parametrize("table", ["K4_STEPS", "K4_VARIANTS", "K10_VARIANTS"])
 def test_compare_edits_apply_to_the_sources(table, tmp_path):
-    """Every edit of ``scripts/k4_k10_compare.py``'s design steps and
+    """Every edit of ``scripts/kernel_compare.py``'s design steps and
     variants still finds its text once in the kernel sources, in the order
     the script applies them, so each rebuild measures what its name says."""
     script = _compare_script()

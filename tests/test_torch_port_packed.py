@@ -271,6 +271,23 @@ def test_fast3d_generator_bakes_at_its_texture_resolution():
     assert [c["bake_resolution"] for c in _RecordingSF3D.calls] == [512, 128]
 
 
+@pytest.mark.parametrize("shape", [(256, 256, 256), (72, 80, 96), (64, 72, 80), (8, 8, 8)])
+def test_k3_scratch_sizes(shape):
+    """K3's scratch, sized on the host: three 512-bit cut masks (16 words
+    each) and three counts and bases per 8^3 block, and one scan status
+    word per 2048 of the 3 NB counts, after the 2 counters, the tile counter
+    and a pad word (so the status words are 8-byte aligned)."""
+    RX, RY, RZ = shape
+    NB = RX * RY * RZ // 512
+    size = mc.k3_scratch(RX, RY, RZ)
+    assert size["masks"] == 48 * NB and size["vcnt"] == size["vbase"] == 3 * NB
+    assert size["status_tiles"] == -(-3 * NB // 2048) and size["zeroed"] == 4 + 2 * size["status_tiles"]
+    if shape == (256, 256, 256):
+        assert size["status_tiles"] == 48  # the Lean asset's level: 98 304 counts
+    if shape == (72, 80, 96):
+        assert size["status_tiles"] == 2 and 3 * NB % 2048  # a whole tile and a partial one
+
+
 @pytest.mark.parametrize("shape", [(256, 256, 256), (64, 72, 80), (8, 8, 8)])
 def test_k10_scratch_sizes(shape):
     """K10's scratch, sized on the host: a cut word per 32 z points of each
@@ -299,6 +316,9 @@ def _card_levels():
     rng = np.random.default_rng(5)
     yield torch.from_numpy(rng.standard_normal((16, 24, 40)).astype(np.float32)).cuda()
     yield torch.from_numpy(_torus(rng, 32)).cuda()
+    # 3 NB = 3 240 block counts: one whole tile of the multi-block scan and a partial one
+    coarse = torch.from_numpy(rng.standard_normal((1, 1, 9, 10, 11)).astype(np.float32))
+    yield torch.nn.functional.interpolate(coarse, size=(72, 80, 96), mode="trilinear")[0, 0].contiguous().cuda()
 
 
 @pytest.mark.cuda

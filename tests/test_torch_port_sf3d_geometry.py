@@ -102,11 +102,39 @@ def test_multihead_weights_pack_for_the_kernel():
     assert torch.equal(b[128:132], bf(torch.cat([heads[0][2][1], heads[1][2][1]]))) and not b[132:].any()
 
 
+def test_sf3d_packs_k5_weights_once():
+    """``SF3D._k5_weights_packed``: the density and vertex-offset heads
+    packed as ``pack_multihead_weights`` packs them, once; a second
+    ``query_lattice`` on the same model hands out the same tensors, and an
+    in-place update of a head parameter packs them anew."""
+    from sculptmate_tpu_torch.systems.sf3d import SF3D, SF3DConfig
+
+    sf = SF3D(SF3DConfig(**TINY), dtype=torch.float32, device="cpu")
+    want_W, want_b = dg.pack_multihead_weights(list(sf.lattice_head_weights().values()), "cpu")
+    W, b = sf._k5_weights_packed(torch.device("cpu"))
+    assert torch.equal(W, want_W) and torch.equal(b, want_b)
+    code = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 40, 8, 8)).astype(np.float32))
+    first = sf.query_lattice(code)
+    W2, b2 = sf._k5_weights_packed(torch.device("cpu"))
+    assert W2 is W and b2 is b
+    again = sf.query_lattice(code)
+    assert sf._k5_weights[1][0] is W and all(torch.equal(first[n], again[n]) for n in first)
+    with torch.no_grad():
+        sf.module.decoder.heads["vertex_offset"][-1].bias.add_(1.0)
+    sf.query_lattice(code)
+    W3, b3 = sf._k5_weights[1]
+    want_W, want_b = dg.pack_multihead_weights(list(sf.lattice_head_weights().values()), "cpu")
+    assert torch.equal(W3, want_W) and torch.equal(b3, want_b) and not torch.equal(b3, b)
+
+
 @pytest.mark.cuda
-def test_grid_multihead_kernel_matches_plain():
+@pytest.mark.parametrize("R", [33, 65])
+def test_grid_multihead_kernel_matches_plain(R):
     """K5 on the card against its plain version on the same bf16 partials,
-    at a ragged lattice (R = 33), with nonzero biases in every layer: each
-    channel within 0.1 of its spread."""
+    at ragged lattices (R = 33; R = 65, whose last tile of each (i, j) row
+    holds one point), with nonzero biases in every layer, the weights
+    packed by the caller and inside the call: each channel within 0.1 of
+    its spread."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -116,14 +144,16 @@ def test_grid_multihead_kernel_matches_plain():
                 0.5 * torch.randn(o, device="cuda", generator=g))
 
     heads = [[lin(120, 64), lin(64, 64), lin(64, 1)], [lin(120, 64), lin(64, 64), lin(64, 3)]]
-    spec = dg.DensityGridSpec(resolution=33, align_corners=True, slab=3, compute_dtype=torch.bfloat16)
+    spec = dg.DensityGridSpec(resolution=R, align_corners=True, slab=3, compute_dtype=torch.bfloat16)
     codes = torch.randn(3, 40, 64, 64, device="cuda", generator=g).to(torch.bfloat16)
-    A, B, C = dg.multihead_partials(codes, heads, dg.lattice_coords_tets(32, "cuda"), spec)
+    A, B, C = dg.multihead_partials(codes, heads, dg.lattice_coords_tets(R - 1, "cuda"), spec)
     out = dg.grid_multihead(A, B, C, heads, spec)
     ref = dg.grid_multihead_plain(A, B, C, heads, spec)
     for k in range(4):
         spread = (ref[k] - ref[k].mean()).abs().max()
         assert (out[k] - ref[k]).abs().max() <= 0.1 * spread
+    packed = dg.pack_multihead_weights(heads, "cuda")
+    assert torch.equal(dg.grid_multihead(A, B, C, heads, spec, packed=packed), out)
 
 
 def _ragged_border_lattice(res: int):
