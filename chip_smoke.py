@@ -25,7 +25,9 @@ Phases (any failure raises and exits non-zero):
    lines (one call each under torch.profiler, ``device_split``). K7
    (``csrc/marching_tets.cu``) byte-equal on the full-width SF3D asset's
    161^3 lattice (snap_eps 0.2 and 0), on a ragged res = 37 lattice with a
-   surface on its faces and at an undersized capacity.
+   surface on its faces, on a res = 100 lattice whose 15 379 block counts
+   span eight scan tiles and at an undersized capacity, and the
+   ``K7_split`` line.
    Then each check is run on kernels rebuilt with a planted fault
    (``PLANTED_FAULTS``), and must fail every one of them. Then F1: one Lean
    and one SF3D encode with the encoders' weights stored in bf16 once,
@@ -75,8 +77,11 @@ Phases (any failure raises and exits non-zero):
    K8 (``csrc/raster_winner.cu``) bit-equal to its plain version at the
    full-width asset's bake (512^2, face ids) and first unwrap raster
    (1024^2, depth keys, margin 0.05), and at a ragged 100^2 with oversized
-   faces; K6 (``csrc/points_multihead.cu``) at 512^2 texel points with the
-   full-width decoder's features and perturb-normal heads; K9
+   faces; K6 (``csrc/points_multihead.cu``) at 512^2 scattered points with
+   the full-width decoder's features and perturb-normal heads and at the
+   asset's own 512^2 bake texels with the model's heads, its planes'
+   one-pass relayout equal to its plain version, and the ``K6_split`` line
+   (one ``SF3D._surface_query``); K9
    (``csrc/uv_unwrap.cu``) on the full-width asset's mesh.
 9. The SF3D path at full width (default ``SF3DConfig``: DINOv2-L, 96^2
    triplane tokens, 1 792 latents, 4 x 3 blocks, 40 x 384^2 codes, R = 160)
@@ -229,9 +234,20 @@ PLANTED_FAULTS = (
     ("K8's bbox loop drops its last row", "raster_winner",
      "const int h = yhi - ylo + 1;", "const int h = yhi - ylo;"),
     ("K6 drops the last bilinear tap", "points_multihead",
-     "for (int t = 0; t < 4; ++t) {", "for (int t = 0; t < 3; ++t) {"),
+     "for (int t = 0; t < 4; ++t) {\n#pragma unroll\n            for (int mm = 0; mm < G; ++mm) {",
+     "for (int t = 0; t < 3; ++t) {\n#pragma unroll\n            for (int mm = 0; mm < G; ++mm) {"),
     ("K6's perturb head takes the features head's hidden weights", "points_multihead",
-     "const int nbase = HW * H;", "const int nbase = 0;"),
+     "desc_sw128(sw + HID_OFF + (h * LAYERS + l) * W_LAYER_BYTES)", "desc_sw128(sw + HID_OFF + l * W_LAYER_BYTES)"),
+    ("K6's consumers read the next ring slot", "points_multihead",
+     "const uint32_t t0 = sring + s * SLOT_BYTES;", "const uint32_t t0 = sring + ((s + 1) % NSTAGE) * SLOT_BYTES;"),
+    ("K6's perturb head takes the features head's output tile", "points_multihead",
+     "dout1 = desc_sw128(sw + OUT_OFF + 8 * ROW_BYTES)", "dout1 = desc_sw128(sw + OUT_OFF)"),
+    ("K6 drops the halved hidden biases", "points_multihead",
+     "for (int i = threadIdx.x; i < NBIAS; i += THREADS) bs[i] = bias[i];",
+     "for (int i = threadIdx.x; i < NBIAS; i += THREADS) bs[i] = i >= HEADS * HW && i < OUT_BIAS ? 0.f : bias[i];"),
+    ("K6's planes relayout swaps two points' channels", "points_multihead",
+     "for (int i = 0; i < VEC; ++i) tile[(xv + i) * C + ch] = to_bf16(v[i]);",
+     "for (int i = 0; i < VEC; ++i) tile[((xv + i) ^ 1) * C + ch] = to_bf16(v[i]);"),
     ("K9's depth key is not inverted (the nearest face wins)", "uv_unwrap",
      "key[f] = part ? ~sortable(depth[f]) : SINK - 1;", "key[f] = part ? sortable(depth[f]) : SINK - 1;"),
     ("K9 skips the slice rotation", "uv_unwrap",
@@ -256,24 +272,33 @@ PLANTED_FAULTS = (
      "const int le = tri[(cs * maxtri + s) * 3 + c];", "const int le = tri[(cs * maxtri + s) * 3 + (3 - c) % 3];"),
     ("K10's face corners leave out their word's base", "marching_cubes",
      "int id = word_base[w3];", "int id = 0;"),
-    # in scan.cuh: the multi-block scan, which K3 and K10 launch (K7 does not)
+    # in scan.cuh: the multi-block scan, which K3, K7 and K10 launch (held
+    # to K3's and K10's checks)
     ("K10's scan looks back past its predecessor", "marching_cubes",
      "for (int pred = gt - 1;;) {", "for (int pred = max(gt - 2, first);;) {", "scan.cuh"),
     ("K7's class 6 takes (1, 1, 0) for its step", "marching_tets",
      "STEP_Z = 0b1110100u", "STEP_Z = 0b0110100u"),
     ("K7's domain mask drops its z test", "marching_tets",
-     "k + dz < N && occupied(", "occupied("),
+     "hi < N && hj < N && hk < N ? (next[r] > 0.f ? INSIDE : OUTSIDE) : PAST",
+     "hi < N && hj < N ? (next[r] > 0.f ? INSIDE : OUTSIDE) : PAST"),
     ("K7 ignores snap_eps", "marching_tets",
      "t = t < w.eps_lo ? 0.f : (t > w.eps_hi ? 1.f : t);", "t = t;"),
     ("K7's emit takes the next block's base", "marching_tets",
-     "int id = vbase[c * NB + q.blk] + rank[c];", "int id = vbase[min(c * NB + q.blk + 1, NCLS * NB - 1)] + rank[c];"),
+     "int id = vbase[cb] + incl - cnt;", "int id = vbase[min(cb + 1, NCLS * NB - 1)] + incl - cnt;"),
+    ("K7's emit leaves out the block's earlier mask words", "marching_tets",
+     "int id = vbase[cb] + incl - cnt;", "int id = vbase[cb];"),
+    ("K7's class base misses the earlier classes' totals", "marching_tets",
+     "int id = vbase[cb] + incl - cnt;", "int id = vbase[cb] - vbase[c * NB] + incl - cnt;"),
+    ("K7's count reads its own block's halo again, not the next one's", "marching_tets",
+     "if (bz + 1 < nb) load(bz + 1, next);", "if (bz + 1 < nb) load(bz, next);"),
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
 # the outputs least; the multi-block scan's fault must fail both of its
 # kernels (a lattice of two scan tiles or fewer does not show it)
 PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
-                     "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3")}
+                     "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3"),
+                     "K7's class base misses the earlier classes' totals": ("multi-tile res 100",)}
 
 
 def log(msg):
@@ -546,13 +571,15 @@ def check_grid_multihead(g, sf3d, timed=True):
 
 
 def sf3d_scene(fast):
-    """The full-width SF3D asset the texture checks run on: the matted disc
-    image, its threshold (the 99th percentile of exp(d - 1) on a 41^3
-    lattice: random weights never reach the config's 10), its codes and
-    material estimates, its decimated mesh, and that mesh's atlas from the
-    plain version of K9 (which rasterizes on the plain K8) with the inputs
-    of its two visibility rasters (recorded), so that the K8 and K9 checks
-    do not rest on the kernels they check."""
+    """The full-width SF3D asset the texture and K7 checks run on: the
+    matted disc image, its threshold (the 99th percentile of exp(d - 1) on
+    a 41^3 lattice: random weights never reach the config's 10), its codes
+    and material estimates, K7's inputs (the 161^3 sdf and raw offsets, as
+    ``SF3D._extract_wire`` forms them), its decimated mesh, that mesh's atlas from the plain version of K9
+    (which rasterizes on the plain K8) with the inputs of its two
+    visibility rasters (recorded), so that the K8 and K9 checks do not rest
+    on the kernels they check, and the texel points of its fused 512^2 bake
+    as K6 gets them."""
     from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
     from sculptmate_tpu_torch.geometry.uv_unwrap import _main_axis_rotation
     from sculptmate_tpu_torch.ops import density_grid as dg
@@ -583,12 +610,21 @@ def sf3d_scene(fast):
         uv6, _, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
     finally:
         ud.binned_winner_plain = winner_fn
+    texels, query = [], sf3d._surface_query
+    sf3d._surface_query = lambda code, *pts: texels.append(pts) or query(code, *pts)
+    try:
+        sf3d.unwrap_bake_wait(sf3d.unwrap_bake_async(verts, faces, codes[0], materials, 512))
+    finally:
+        del sf3d._surface_query
+    covered = int((texels[0][0].abs() + texels[0][1].abs() + texels[0][2].abs() > 0).sum())
     log(json.dumps({"sf3d_scene": "full-width asset for the texture and K7 checks", "verts": len(verts),
                     "faces": len(faces), "mt_raw_verts": nv, "threshold": threshold,
-                    "round2_faces": int((recorded[1][6] < ud.WINNER_SINK - 1).sum())}))
+                    "round2_faces": int((recorded[1][6] < ud.WINNER_SINK - 1).sum()),
+                    "texels": texels[0][0].numel(), "texels_off_the_origin": covered,
+                    "codes_dtype": str(codes.dtype)}))
     return {"image": image, "threshold": threshold, "codes": codes, "materials": materials, "verts": verts,
             "faces": faces, "pos": pos, "f": f, "uv6": uv6, "round1": recorded[0], "round2": recorded[1],
-            "mt": mt_inputs, "mt_res": sf3d.config.isosurface_resolution, "mt_nv": nv}
+            "mt": mt_inputs, "mt_res": sf3d.config.isosurface_resolution, "mt_nv": nv, "texels": [t.contiguous() for t in texels[0]]}
 
 
 def check_raster(scene, timed=True):
@@ -653,12 +689,23 @@ def check_raster(scene, timed=True):
     return totals
 
 
-def check_points(g, sf3d, timed=True):
-    """K6 at 512^2 = 262 144 texel points (uniform in the radius cube) of
-    random unit-scale (3, 40, 384, 384) codes, with the full-width decoder's
-    features and perturb-normal heads and N(0, K5_BIAS_STD) biases, against
-    its plain version on the same bf16 inputs: each raw channel within
-    K6_SPREAD_SHARE of its spread."""
+def check_points(g, sf3d, scene, timed=True):
+    """K6 against its plain version, with every case checked and printed
+    before a failure raises:
+    - at 512^2 = 262 144 points uniform in the radius cube of random
+      unit-scale (3, 40, 384, 384) bf16 codes, with the full-width
+      decoder's features and perturb-normal heads and N(0, K5_BIAS_STD)
+      biases: each raw channel within K6_SPREAD_SHARE of its spread; and
+      its planes' relayout, equal to its plain version;
+    - at the asset's 512^2 bake texels (``sf3d_scene``: mostly the origin,
+      where uncovered texels sit, the rest on the surface) with its codes
+      and the model's own heads (fan-in weights, zero biases): each channel
+      within K4_NOISE_FACTOR times the plain bf16 version's own error
+      against the same function in f32 on the same bf16 weights and codes.
+    With ``timed``, the kernel's time alone on both (planes and weights
+    packed before), the relayout's (once per scene code) and the weights'
+    packing (once per model) apart, the plain version's time and the
+    bounds."""
     from sculptmate_tpu_torch.ops import density_grid as dg
 
     heads = [[(w, K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g)) for w, b in layers]
@@ -667,33 +714,73 @@ def check_points(g, sf3d, timed=True):
     codes = torch.randn(3, sf3d.config.upsample_out_channels, 384, 384, device="cuda", generator=g).to(torch.bfloat16)
     N = 512 * 512
     pts = [(torch.rand(N, device="cuda", generator=g) * 2 - 1) * spec.radius for _ in range(3)]
+    failures = []
     out = dg.points_multihead(codes, heads, *pts, spec)
+    planes_equal = bool(torch.equal(dg.points_planes(codes), dg.points_planes_plain(codes)))
     torch.cuda.synchronize()
     ref = dg.points_multihead_plain(codes, heads, *pts, spec)
     errs = [(out[k] - ref[k]).abs().max().item() for k in range(len(ref))]
     limits = [K6_SPREAD_SHARE * (ref[k] - ref[k].mean()).abs().max().item() for k in range(len(ref))]
     bad = [k for k in range(len(ref)) if not errs[k] <= limits[k]]
     line = {"check": "K6", "case": "texel query, 512^2 points", "dtype": "bfloat16", "max_abs_err": max(errs),
-            "max_abs_err_per_channel": errs, "limit_per_channel": limits}
-    if bad or not torch.isfinite(out).all():
-        log(json.dumps({**line, "check_passed": False}))
-        raise AssertionError(f"K6 channels {bad} past {K6_SPREAD_SHARE} of their spread")
-    if not timed:
-        log(json.dumps({**line, "check_passed": True}))
+            "max_abs_err_per_channel": errs, "limit_per_channel": limits, "planes_relayout_equal": planes_equal,
+            "check_passed": not bad and planes_equal and bool(torch.isfinite(out).all())}
+    if not line["check_passed"]:
+        failures.append(f"channels {bad} past {K6_SPREAD_SHARE} of their spread; planes relayout equal to its plain "
+                        f"version: {planes_equal}")
+    # the asset's texels with its codes and the model's heads: the plain
+    # version in bf16 against the same function in f32 on the same bf16
+    # values gives its own error
+    texels, main_codes = scene["texels"], scene["codes"][0]
+    main_heads = list(sf3d.texel_head_weights().values())
+    got = dg.points_multihead(main_codes, main_heads, *texels, spec)
+    ref_t = dg.points_multihead_plain(main_codes, main_heads, *texels, spec)
+    exact = dg.points_multihead_plain(
+        main_codes.to(torch.bfloat16).float(),
+        [[(w.to(torch.bfloat16).float(), b.to(torch.bfloat16).float()) for w, b in layers] for layers in main_heads],
+        *texels, sf3d.grid_spec(torch.float32))
+    t_errs = [(got[k] - ref_t[k]).abs().max().item() for k in range(len(ref_t))]
+    noise = [(ref_t[k] - exact[k]).abs().max().item() for k in range(len(ref_t))]
+    t_bad = [k for k in range(len(ref_t)) if not t_errs[k] <= K4_NOISE_FACTOR * noise[k]]
+    t_line = {"check": "K6", "case": "the asset's 512^2 bake texels, the model's heads", "dtype": str(main_codes.dtype),
+              "points": texels[0].numel(), "max_abs_err": max(t_errs), "max_abs_err_per_channel": t_errs,
+              "plain_bf16_err_per_channel": noise, "limit_per_channel": [K4_NOISE_FACTOR * n for n in noise],
+              "check_passed": not t_bad and bool(torch.isfinite(got).all())}
+    del ref_t, exact
+    if not t_line["check_passed"]:
+        failures.append(f"the asset's texels: channels {t_bad} past {K4_NOISE_FACTOR} x the plain bf16 version's error")
+    if failures or not timed:
+        log(json.dumps(line))
+        log(json.dumps(t_line))
+        if failures:
+            raise AssertionError("K6 " + "; ".join(failures))
         return None
     # per point: 120 -> 2 x 64, two hidden 64 x 64 layers per head, 2 x 64 -> 3
     # (the block-diagonal zeros are no work); bytes: the bf16 codes read once,
     # three f32 coordinates in, six f32 outputs out
     flops = N * 2 * (120 * 128 + 2 * 2 * 64 * 64 + 2 * 64 * 3)
     bound, by = bound_ms(flops, codes.numel() * 2 + N * (12 + 24), PEAK_BF16_FLOPS)
+    # the relayout moves bytes only: the codes read once, the bf16 planes written
+    relayout_bound, _ = bound_ms(0, codes.numel() * (codes.element_size() + 2), PEAK_F32_FLOPS)
     packed = dg.pack_points_inputs(codes, heads)
+    packed_main = dg.pack_points_inputs(main_codes, main_heads)
     row = {"ms": cuda_ms(lambda: dg.points_multihead(codes, heads, *pts, spec, packed=packed), iters=10),
-           "relayout_ms": cuda_ms(lambda: dg.pack_points_inputs(codes, heads), iters=10),
+           "relayout_ms": cuda_ms(lambda: dg.points_planes(codes), iters=10), "relayout_bound_ms": relayout_bound,
+           "weights_pack_ms": cuda_ms(lambda: dg.pack_points_weights(heads, "cuda"), iters=10),
            "plain_ms": cuda_ms(lambda: dg.points_multihead_plain(codes, heads, *pts, spec), iters=3, graph=False),
            "bound_ms": bound}
-    log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "bound_share": bound / row["ms"],
+    # SiLUs: three 64-wide layers per head and point; one tanh.approx.bf16x2
+    # per two, at 16 SFU results per clock per SM
+    sfu_floor = 1e3 * N * 64 * 3 * 2 / 2 / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+                                           * sm_clock_hz())
+    log(json.dumps({**line, **row, "bound_by": by, "bound_share": bound / row["ms"], "sfu_floor_ms": sfu_floor,
                     "launches_per_asset": 1}))
-    return max(errs), row, by
+    t_row = {"ms": cuda_ms(lambda: dg.points_multihead(main_codes, main_heads, *texels, spec, packed=packed_main),
+                           iters=10),
+             "plain_ms": cuda_ms(lambda: dg.points_multihead_plain(main_codes, main_heads, *texels, spec), iters=3,
+                                 graph=False)}
+    log(json.dumps({**t_line, **t_row, "bound_ms": bound, "bound_by": by}))
+    return max(errs), {**row, "asset_texels_ms": t_row["ms"]}, by
 
 
 def check_unwrap(scene, timed=True):
@@ -971,7 +1058,9 @@ def device_split(key, what, fn):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # with the CPU activity on as well: CUDA alone has dropped the region's
+    # first kernel, launched at once
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1018,13 +1107,35 @@ def k5_split(sf3d, codes):
                         lambda: sf3d.query_lattice(codes))
 
 
-def _ragged_border_mt():
-    """A ragged res = 37 tet lattice (N = 38 points, not a multiple of 8) of
-    a smooth field whose sdf is positive on all six faces, so the classes
-    that step along two or three axes reach past the last real point unless
-    the domain mask holds; offsets N(0, 1)."""
+def k6_split(sf3d, codes, n=512 * 512):
+    """One ``SF3D._surface_query`` (the ``sf3d.texel_query`` span: the
+    planes' relayout, K6 with the heads as the model keeps them, the
+    sigmoid and the normalisation) at ``n`` texel points uniform in the
+    radius cube of the given codes, split by kernel name
+    (``device_split``): its launches per textured asset."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    r = sf3d.config.radius
+    pts = [(torch.rand(n, device="cuda", generator=g) * 2 - 1) * r for _ in range(3)]
+    return device_split("K6_split", f"one SF3D._surface_query (sf3d.texel_query), {n} points",
+                        lambda: sf3d._surface_query(codes, *pts))
+
+
+def k7_split(scene):
+    """One K7 call on the full-width SF3D asset's 161^3 lattice (snap_eps
+    0.2, the timed case's capacity), split by kernel name
+    (``device_split``)."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+
+    return device_split("K7_split", "one mt_wire_device call, SF3D asset 161^3, snap 0.2",
+                        lambda: mt.mt_wire_device(*scene["mt"], scene["mt_res"], 1 << 21, 0.2))
+
+
+def _ragged_border_mt(N=38):
+    """A ragged tet lattice (by default res = 37: N = 38 points, not a
+    multiple of 8) of a smooth field whose sdf is positive on all six faces,
+    so the classes that step along two or three axes reach past the last
+    real point unless the domain mask holds; offsets N(0, 1)."""
     rng = np.random.default_rng(11)
-    N = 38
     x = np.linspace(-1, 1, N, dtype=np.float32)
     g = np.stack(np.meshgrid(x, x, x, indexing="ij"))
     sdf = np.sin(3 * g[0]) * np.cos(2 * g[1]) + 0.5 * g[2] + 0.1 * rng.standard_normal((N, N, N))
@@ -1041,7 +1152,9 @@ def check_mt_wire(scene, timed=True):
     (occupancy bits, the u16 positions and the counters): on the full-width
     SF3D asset's 161^3 lattice (its sdf and raw offsets) at snap_eps 0.2
     (the default weld_eps) and 0, on the ragged res = 37 lattice with a
-    surface on its faces, and at a third of the asset's vertex count
+    surface on its faces, on a res = 100 lattice of the same kind whose
+    7 NB = 15 379 block counts fill 7 of the scan's 2 048-count tiles and
+    end in a partial eighth, and at a third of the asset's vertex count
     (overflow: exact counters, the leading ids kept). With ``timed``, the
     asset's case at 0.2 also gets its time, the plain version's and its
     bound."""
@@ -1053,6 +1166,7 @@ def check_mt_wire(scene, timed=True):
     cases = [("SF3D asset 161^3, snap 0.2", (sdf, dx, dy, dz), res, 1 << 21, 0.2),
              ("SF3D asset 161^3, snap 0", (sdf, dx, dy, dz), res, 1 << 21, 0.0),
              ("ragged res 37, surface on the faces", _ragged_border_mt(), 37, 1 << 17, 0.2),
+             ("multi-tile res 100, 8 scan tiles", _ragged_border_mt(101), 100, 1 << 20, 0.2),
              ("SF3D asset 161^3, a third of the vertex capacity", (sdf, dx, dy, dz), res, nv // 3, 0.2)]
     result, failures = None, []
     for name, inputs, r, mv, eps in cases:
@@ -1396,7 +1510,7 @@ def planted_faults(g, tsr, sf3d, scene, lean):
                   "density_grid": lambda: check_density(g, tsr, timed=False),
                   "grid_multihead": lambda: check_grid_multihead(g, sf3d, timed=False),
                   "raster_winner": lambda: check_raster(scene, timed=False),
-                  "points_multihead": lambda: check_points(g, sf3d, timed=False),
+                  "points_multihead": lambda: check_points(g, sf3d, scene, timed=False),
                   "uv_unwrap": lambda: check_unwrap(scene, timed=False),
                   "triplane_points": lambda: check_triplane_points(tsr, lean, timed=False),
                   "marching_cubes": lambda: all_of(lambda: check_mc_wire(lean, timed=False),
@@ -2070,7 +2184,8 @@ def main():
     k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
     k5_split(fast.model, scene["codes"][0])
     k8 = check_raster(scene)
-    k6_err, k6, k6_by = check_points(g, fast.model)
+    k6_err, k6, k6_by = check_points(g, fast.model, scene)
+    k6_split(fast.model, scene["codes"][0])
     k9_err, k9, k9_by = check_unwrap(scene)
     k4 = check_triplane_points(gen.model, lean)
     k3 = check_mc_wire(lean)
@@ -2078,6 +2193,7 @@ def main():
     k10 = check_marching_cubes(lean)
     k10_split(lean)
     k7 = check_mt_wire(scene)
+    k7_split(scene)
     planted_faults(g, gen.model, fast.model, scene, lean)
     f1_check(gen.model, fast.model, scene)
     small_model_check()
@@ -2125,7 +2241,9 @@ def main():
         {"name": "points_multihead_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/points_multihead.cu",
          "replaces": "sculptmate_tpu/ops/density_grid.py:323", "launches": tex_launches["K6"],
          "max_abs_err": k6_err, "limit": f"{K6_SPREAD_SHARE} of each channel's spread", "check": "pass",
-         "ms": k6["ms"], "relayout_ms": k6["relayout_ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "ms": k6["ms"], "relayout_ms": k6["relayout_ms"], "relayout_bound_ms": k6["relayout_bound_ms"],
+         "weights_pack_ms": k6["weights_pack_ms"], "asset_texels_ms": k6["asset_texels_ms"], "plain_ms": k6["plain_ms"],
+         "bound_ms": k6["bound_ms"],
          "bound_by": k6_by, "library_ms": None},
         {"name": "raster_winner", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/raster_winner.cu",
          "replaces": "sculptmate_tpu/geometry/texture_bake.py:234", "launches": tex_launches["K8"],
@@ -2176,8 +2294,10 @@ def main():
         " the serving batch), K5 the 161^3 tet lattice (launches of the Fast3DGenerator asset; ms the kernel alone,"
         " weights_pack_ms its heads' packing, once per model in SF3D._k5_weights_packed); K2's max_abs_err"
         " is on d before the exp; K6, K8 and K9 count the textured Fast3DGenerator asset's launches; K6's ms is the"
-        " kernel alone, its relayout_ms the planes' bf16 channels-last copy and the weights' packing it takes once"
-        " per asset; K8's times sum its bake raster (512^2) and its two unwrap rasters (1024^2), each measured; K9's"
+        " kernel alone at 262 144 scattered points and asset_texels_ms at the asset's own 512^2 bake texels, its"
+        " relayout_ms the planes' bf16 channels-last pass (once per scene code, beside its bound)"
+        " and weights_pack_ms its heads' packing (once per model in SF3D._k6_weights_packed); K8's times sum its"
+        " bake raster (512^2) and its two unwrap rasters (1024^2), each measured; K9's"
         " ms include its two K8 rasters, its plain_ms the plain K8's; K9's max_abs_err is the larger of its UV error"
         " and the share of faces whose atlas index differs; K3 is the Lean asset's 256^3 wire (its launches the"
         " TripoGenerator asset's, ms the wire without the color positions); K4's launches are the TripoGenerator"

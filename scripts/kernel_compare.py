@@ -1,8 +1,8 @@
 """Kernels of one version of the port at the main paths' shapes, on one
-card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, and
-K4's and K10's design variants.
+card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, K6 and
+K7 on the full-width SF3D asset, and K4's and K10's design variants.
 
-    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K10]
+    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K10]
                                       [--csrc DIR] [--variants]
 
 Imports ``sculptmate_tpu_torch`` from ``--root`` (default: this checkout;
@@ -23,6 +23,14 @@ split by kernel name under torch.profiler (``chip_smoke.device_split``):
   the weights inside each call is timed on the same launch with the
   weights packed before (``kernel_alone_shim``), so ``ms`` is the kernel
   alone on both trees;
+- K6 (``check_points``: 512^2 points of random codes with the default
+  ``SF3D``'s (seed 0) features and perturb-normal heads, and the asset's
+  512^2 bake texels with its codes; ``K6_split``: one
+  ``SF3D._surface_query``, the ``sf3d.texel_query`` span, with its
+  launches) and K7 (``check_mt_wire``, ``K7_split``: its 161^3 sdf and
+  offsets) on the default ``SF3D``'s asset as ``chip_smoke.sf3d_scene``
+  makes it. A tree without K6's one-pass planes relayout is timed on its
+  own two-pass relayout (``planes_relayout_shim``);
 - with ``--variants``, kernels rebuilt (``kernels.sources_from``) from
   copies of this checkout's sources with edits (``edit_copy``; a CPU test
   checks that every edit still applies), each held to its plain version:
@@ -37,7 +45,11 @@ split by kernel name under torch.profiler (``chip_smoke.device_split``):
   warpgroups or loads at once) and one ``k10_variant`` line per variant of
   K10 at 256^3 (``K10_VARIANTS``: more blocks per SM, and the face pass
   recomputing each cell's case from the level in place of reading the
-  classify pass's case byte).
+  classify pass's case byte), one ``k6_variant`` line per variant of K6
+  (``K6_VARIANTS``: one side of its hand-over idle; at the scattered
+  points and at the asset's texels) and one ``k7_variant`` line per
+  variant of K7 (``K7_VARIANTS``: the count loading its halo two blocks
+  ahead).
 
 ``--time-only`` times K5 alone whatever its output (``k5_time``), for a
 ``--csrc`` copy that is wrong by design: one side of the ring idle, the
@@ -155,6 +167,31 @@ K4_VARIANTS = [
       CONSUMERS_ALONE]),
 ]
 
+# what holds K6 back: the kernel as it is, and with one side of the hand-over
+# idle (its output is wrong, only its time counts)
+K6_VARIANTS = [
+    ("as it is", []),
+    ("producers alone", [text("points_multihead.cu",
+                              "        mbar_wait(full + 8 * s, (uint32_t)((n / NSTAGE) & 1));\n",
+                              "        mbar_wait(full + 8 * s, (uint32_t)((n / NSTAGE) & 1));\n"
+                              "        if (N > 0) {\n            mbar_arrive(empty + 8 * s);\n            continue;\n"
+                              "        }\n")]),
+    ("consumers alone", [text("points_multihead.cu", "        if (p < N) {\n", "        if (p < 0) {\n")]),
+]
+# K7's count pass loading each block's halo two blocks ahead in place of one
+K7_VARIANTS = [
+    ("as it is", []),
+    ("count loads its halo two blocks ahead", [
+        text("marching_tets.cu", "    float next[HALO_LOADS];\n    load(0, next);\n",
+             "    float ahead[2][HALO_LOADS];\n    load(0, ahead[0]);\n    if (nb > 1) load(1, ahead[1]);\n"),
+        text("marching_tets.cu", "(next[r] > 0.f ? INSIDE : OUTSIDE)",
+             "(((bz & 1) ? ahead[1][r] : ahead[0][r]) > 0.f ? INSIDE : OUTSIDE)"),
+        text("marching_tets.cu", "        if (bz + 1 < nb) load(bz + 1, next);\n",
+             "        if (bz + 2 < nb) {\n            if (bz & 1) load(bz + 2, ahead[1]);\n"
+             "            else load(bz + 2, ahead[0]);\n        }\n"),
+    ]),
+]
+
 
 def edit_copy(csrc, edits, dst):
     """A copy of the kernel sources in ``csrc`` at ``dst``, with each
@@ -226,6 +263,66 @@ def k10_variants(smoke, lean):
                           "split_ms": split["kernels_ms"], "ptxas_spills": spills}), flush=True)
 
 
+def k6_variants(smoke, sf3d, scene):
+    """K6 rebuilt from each of K6_VARIANTS: its time alone at
+    ``check_points``' 262 144 scattered points (N(0, K5_BIAS_STD) biases)
+    and at the asset's bake texels with the model's heads, and its largest
+    error against the plain version at the scattered points."""
+    import torch
+
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.runtime import kernels
+
+    g = torch.Generator(device="cuda").manual_seed(0)  # check_points' inputs
+    heads = [[(w, smoke.K5_BIAS_STD * torch.randn(b.shape, device="cuda", generator=g)) for w, b in layers]
+             for layers in sf3d.texel_head_weights().values()]
+    spec = sf3d.grid_spec(torch.bfloat16)
+    codes = torch.randn(3, sf3d.config.upsample_out_channels, 384, 384, device="cuda", generator=g).to(torch.bfloat16)
+    pts = [(torch.rand(512 * 512, device="cuda", generator=g) * 2 - 1) * spec.radius for _ in range(3)]
+    texels, main_codes = scene["texels"], scene["codes"][0]
+    main_heads = list(sf3d.texel_head_weights().values())
+    ref = dg.points_multihead_plain(codes, heads, *pts, spec)
+    root = os.path.join(kernels.BUILD_DIR, "k6_variants")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (variant, edits) in enumerate(K6_VARIANTS):
+        csrc = os.path.join(root, str(i))
+        edit_copy(kernels.CSRC, edits, csrc)
+        with kernels.sources_from(csrc):
+            packed = dg.pack_points_inputs(codes, heads)
+            packed_main = dg.pack_points_inputs(main_codes, main_heads)
+            err = (dg.points_multihead(codes, heads, *pts, spec, packed=packed) - ref).abs().max().item()
+            ms = smoke.cuda_ms(lambda: dg.points_multihead(codes, heads, *pts, spec, packed=packed), iters=10)
+            ms_texels = smoke.cuda_ms(
+                lambda: dg.points_multihead(main_codes, main_heads, *texels, spec, packed=packed_main), iters=10)
+        print(json.dumps({"k6_variant": variant, "ms": ms, "asset_texels_ms": ms_texels, "max_abs_err": err}),
+              flush=True)
+
+
+def k7_variants(smoke, scene):
+    """K7 rebuilt from each of K7_VARIANTS: its time and split at the
+    asset's 161^3 lattice (snap_eps 0.2), and whether its wire equals the
+    plain version's."""
+    import torch
+
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+    from sculptmate_tpu_torch.runtime import kernels
+
+    inputs, res = scene["mt"], scene["mt_res"]
+    ref = mt.mt_wire_device_plain(*inputs, res, 1 << 21, 0.2)
+    root = os.path.join(kernels.BUILD_DIR, "k7_variants")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (variant, edits) in enumerate(K7_VARIANTS):
+        csrc = os.path.join(root, str(i))
+        edit_copy(kernels.CSRC, edits, csrc)
+        with kernels.sources_from(csrc):
+            equal = bool(torch.equal(mt.mt_wire_device(*inputs, res, 1 << 21, 0.2), ref))
+            ms = smoke.cuda_ms(lambda: mt.mt_wire_device(*inputs, res, 1 << 21, 0.2), iters=10)
+            split = smoke.device_split("k7_variant_split", variant,
+                                       lambda: mt.mt_wire_device(*inputs, res, 1 << 21, 0.2))
+        print(json.dumps({"k7_variant": variant, "ms": ms, "byte_equal": equal, "split_ms": split["kernels_ms"]}),
+              flush=True)
+
+
 def k5_time(smoke, sf3d):
     """K5 alone at 161^3 on ``check_grid_multihead``'s inputs, timed whatever
     its output, beside its error per channel and the check's limit: for
@@ -287,13 +384,34 @@ def kernel_alone_shim():
     dg.grid_multihead = grid_multihead
 
 
-KERNELS = {"K3": "marching_cubes", "K4": "triplane_points", "K5": "grid_multihead", "K10": "marching_cubes"}
+def planes_relayout_shim():
+    """On a tree without K6's one-pass planes relayout (``points_planes``),
+    whose K6 lays its planes out inside each call in two PyTorch passes
+    (cast, then a channels-last copy), give ``check_points`` those two
+    passes under the new names, so that ``relayout_ms`` times the tree's
+    own relayout."""
+    import torch
+
+    from sculptmate_tpu_torch.ops import density_grid as dg
+
+    if hasattr(dg, "points_planes"):
+        return
+
+    def points_planes(triplane):
+        return triplane.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+    points_planes.launches = 0
+    dg.points_planes = dg.points_planes_plain = points_planes
+
+
+KERNELS = {"K3": "marching_cubes", "K4": "triplane_points", "K5": "grid_multihead", "K6": "points_multihead",
+           "K7": "marching_tets", "K10": "marching_cubes"}
 
 
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
-    p.add_argument("--kernels", default="K3,K4,K5,K10")
+    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K10")
     p.add_argument("--csrc", default=None, help="build the kernels from these sources")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--time-only", action="store_true",
@@ -362,10 +480,31 @@ def main():
             else:
                 phases += [("K5", lambda: smoke.check_grid_multihead(g, fast.model)),
                            ("K5 split", lambda: smoke.k5_split(fast.model, codes))]
+        if {"K6", "K7"} & set(wanted):
+            from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
+
+            fast6 = Fast3DGenerator()
+            if fast6.initiate_model(device="cuda") != 0:
+                raise RuntimeError("Fast3DGenerator.initiate_model failed")
+            with torch.no_grad():
+                smoke.randomize_modulations(fast6.model, torch.Generator(device="cuda").manual_seed(0))
+            planes_relayout_shim()
+            sf3d_scene = smoke.sf3d_scene(fast6)
+            g6 = torch.Generator(device="cuda").manual_seed(0)
+            if "K6" in wanted:
+                phases += [("K6", lambda: smoke.check_points(g6, fast6.model, sf3d_scene)),
+                           ("K6 split", lambda: smoke.k6_split(fast6.model, sf3d_scene["codes"][0]))]
+            if "K7" in wanted:
+                phases += [("K7", lambda: smoke.check_mt_wire(sf3d_scene)),
+                           ("K7 split", lambda: smoke.k7_split(sf3d_scene))]
         if args.variants and "K4" in wanted:
             phases += [("K4 steps", lambda: k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
                        ("K4 variants", lambda: k4_steps(
                            smoke, gen.model, lean, [(v, e, False) for v, e in K4_VARIANTS], "k4_variant"))]
+        if args.variants and "K6" in wanted:
+            phases.append(("K6 variants", lambda: k6_variants(smoke, fast6.model, sf3d_scene)))
+        if args.variants and "K7" in wanted:
+            phases.append(("K7 variants", lambda: k7_variants(smoke, sf3d_scene)))
         if args.variants and "K10" in wanted:
             phases.append(("K10 variants", lambda: k10_variants(smoke, lean)))
         for phase, fn in phases:

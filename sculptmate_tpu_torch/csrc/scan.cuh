@@ -1,10 +1,8 @@
 // Exclusive scans shared by the marching kernels (K3, K10 in
 // marching_cubes.cu, K7 in marching_tets.cu): the in-block prefix of one
-// int per thread; a single-block scan of a count array that also writes its
-// sums (as ints, or as little-endian u32 wire counters), which K7 launches;
-// and the multi-block scan of one or several count arrays in one launch
-// (scan_segments: decoupled look-back over tiles of 2048 counts), which K3
-// and K10 launch.
+// int per thread, which K10's face pass takes; and the multi-block scan of
+// one or several count arrays in one launch (scan_segments: decoupled
+// look-back over tiles of 2048 counts), which K3, K7 and K10 launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,14 +10,7 @@
 
 namespace {
 
-constexpr int SCAN_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ unsigned lanemask_lt() {
-    unsigned m;
-    asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-    return m;
-}
 
 // exclusive prefix of v over the block's threads in order; *total gets the
 // block's sum. Every thread of the block must call it.
@@ -51,44 +42,6 @@ __device__ int block_exclusive_scan(int v, int *total) {
     *total = block_total;
     __syncthreads();  // the shared parts may be reused by the next call
     return excl;
-}
-
-// One block: base[i] = cnt[0] + ... + cnt[i - 1] (in place when base ==
-// cnt; skipped when base is null); sums[0] the total and sums[1] the
-// nonzero entries (when sums is not null); the same two as little-endian
-// u32 bytes at le (when le is not null).
-__global__ void __launch_bounds__(SCAN_THREADS) scan_counts(const int *cnt, int n, int *base, int *sums,
-                                                            uint8_t *le) {
-    const int per = (n + SCAN_THREADS - 1) / SCAN_THREADS;
-    const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
-    int s = 0, nz = 0;
-    for (int i = lo; i < hi; ++i) {
-        const int c = cnt[i];
-        s += c;
-        nz += c != 0;
-    }
-    int total, nonzero;
-    int run = block_exclusive_scan(s, &total);
-    block_exclusive_scan(nz, &nonzero);
-    if (base != nullptr) {
-        for (int i = lo; i < hi; ++i) {
-            const int c = cnt[i];
-            base[i] = run;
-            run += c;
-        }
-    }
-    if (threadIdx.x == 0) {
-        if (sums != nullptr) {
-            sums[0] = total;
-            sums[1] = nonzero;
-        }
-        if (le != nullptr) {
-            for (int b = 0; b < 4; ++b) {
-                le[b] = (uint8_t)(((unsigned)total >> (8 * b)) & 0xFF);
-                le[4 + b] = (uint8_t)(((unsigned)nonzero >> (8 * b)) & 0xFF);
-            }
-        }
-    }
 }
 
 // ---- the multi-block scan ----------------------------------------------------

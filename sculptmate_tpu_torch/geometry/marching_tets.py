@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from sculptmate_tpu_torch.geometry.marching_cubes import BS, _u32_le_bytes, pack_bits_u8
+from sculptmate_tpu_torch.geometry.marching_cubes import _SCAN_TILE, BS, _u32_le_bytes, pack_bits_u8
 from sculptmate_tpu_torch.geometry.mt_tables import EDGE_DIRS
 from sculptmate_tpu_torch.runtime import kernels
 
@@ -144,9 +144,21 @@ def mt_wire_device_plain(
 def _mt_fn():
     fn = kernels.load("marching_tets").mt_wire_fwd  # the library of the sources in use (kernels.sources_from)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def k7_scratch(N: int) -> dict:
+    """Element counts of kernel K7's scratch for an N^3 lattice (NB 8^3
+    blocks of the padded lattice): ``masks`` (each block's seven 512-bit
+    cut masks, 112 NB 32-bit words), ``vcnt`` and ``vbase`` (7 NB per-class
+    block counts and their scanned bases), and the int32 ``zeroed`` words
+    (the 2 counters, the scan's tile counter, 1 pad word, then a u64 status
+    word per tile of the scan of the 7 NB counts)."""
+    NB = (-(-N // BS)) ** 3
+    tiles = -(-7 * NB // _SCAN_TILE)
+    return {"masks": 112 * NB, "vcnt": 7 * NB, "vbase": 7 * NB, "status_tiles": tiles, "zeroed": 4 + 2 * tiles}
 
 
 def mt_wire_device(
@@ -179,22 +191,23 @@ def mt_wire_device(
         if t.device != sdf.device or t.dtype != torch.float32 or t.numel() != N**3:
             raise ValueError(f"{name}: the MT kernel takes {N}^3 f32 values on {sdf.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-        inputs.append(kernels.aligned(t.reshape(-1)))
+        inputs.append(t.reshape(-1).contiguous())  # scalar loads only: a view is read as it lies
     Np = -(-N // BS) * BS
-    NB = (Np // BS) ** 3
     dev = sdf.device
     wire = torch.zeros(Np**3 // 8 + 6 * max_verts + 4 * N_WIRE_COUNTS, dtype=torch.uint8, device=dev)
-    vcnt = torch.empty(7 * NB, dtype=torch.int32, device=dev)
-    vbase = torch.empty(7 * NB, dtype=torch.int32, device=dev)
+    size = k7_scratch(N)
+    # the counters, the scan's tile counter and status words, zeroed on the stream
+    zeroed = torch.zeros(size["zeroed"], dtype=torch.int32, device=dev)
+    scratch = [torch.empty(size[name], dtype=torch.int32, device=dev) for name in ("masks", "vcnt", "vbase")]
     # the scalars as the plain version's f32 arithmetic rounds them on the
     # card (ctypes rounds each double to f32); PyTorch divides a CUDA tensor
     # by a Python scalar as a product with the scalar's reciprocal, taken
     # in double and rounded to f32 (the f32 quotient 1.f / span differs by
     # an ulp at res 160 and moves ~0.2 % of the u16 positions a step)
     err = _mt_fn()(
-        *(t.data_ptr() for t in inputs), wire.data_ptr(), vcnt.data_ptr(), vbase.data_ptr(), N, max_verts,
-        1.0 / resolution, -1.0 / resolution, 1.0 / (1.0 + 2.0 / resolution), snap_eps, 1.0 - snap_eps,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in inputs), wire.data_ptr(), *(t.data_ptr() for t in scratch), zeroed.data_ptr(), N,
+        max_verts, size["status_tiles"], 1.0 / resolution, -1.0 / resolution, 1.0 / (1.0 + 2.0 / resolution),
+        snap_eps, 1.0 - snap_eps, torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "mt_wire_fwd")
     mt_wire_device.launches += 1

@@ -234,10 +234,6 @@ def _triplane_lib():
     return fn
 
 
-# padded rows (bf16 values) of kernel K6's weights, copied to shared memory
-# as they lie: 128-deep rows (the 120 features) and 64-deep rows
-_ROW = 128 + 8
-_HROW = _HIDDEN + 8
 _K4_FEATURES = 128  # K4's first-layer depth: the 120 features and 8 zero columns
 
 
@@ -546,47 +542,88 @@ def _points_lib():
     return fn
 
 
+def _planes_lib():
+    fn = kernels.load("points_multihead").points_planes_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 _K6_LAYERS = 2  # hidden 64x64 layers per head kernel K6 is built for (MaterialMLP's features/perturb_normal)
 
 
 def pack_points_weights(heads: Sequence[Weights], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two heads in kernel K6's layout, bf16 rows (out, in) padded so
-    the kernel copies them to shared memory as they lie: the first layers
-    side by side (128 rows of 120 features), each hidden layer as the two
-    heads' 64 x 64 blocks (128 rows of 64), then an 8-row output tile with
-    head 0's channels from row 0 and head 1's after them (each reading its
-    own head's 64 columns). Biases f32: the first layers', each hidden
-    layer's, then the output channels' zero-padded to 8."""
-    k0 = heads[0][-1][0].shape[1]
+    """The two heads in kernel K6's layout.
+
+    Returns bf16 rows (2*2*64 + 2*L*64 + 2*8, 64), 128-byte swizzled: each
+    head's first-layer (out, in) matrix, its 120 inputs zero-padded to 128,
+    as two 64-deep halves of 64 rows (head 0's, then head 1's); each head's
+    hidden (out, in) matrices in layer order (head 0's, then head 1's); all
+    of these halved; then an 8-row output tile per head (not halved) whose
+    rows are the head's output channels at their place in the concatenated
+    output (head 0's from row 0, head 1's after them, the rest zero). And
+    f32 (3*2*64 + 8,): the halved biases of the first layer (head 0's, head
+    1's), then of each hidden layer likewise, then the output biases in
+    channel order, zero-padded to 8. The halving is exact in bf16 and lets
+    each product give h = x / 2 for silu(x) = h (1 + tanh h); the values are
+    the plain version's bf16 weights and biases."""
+    bf = lambda t: t.detach().to(torch.bfloat16).float()  # noqa: E731
     dev = heads[0][0][0].device
-    bf = lambda t: t.detach().to(torch.bfloat16)  # noqa: E731
-    w1 = torch.zeros(2 * _HIDDEN, _ROW, dtype=torch.bfloat16, device=dev)
-    w1[:, : heads[0][0][0].shape[0]] = torch.cat([bf(h[0][0]).t() for h in heads])
-    hidden = torch.zeros(_K6_LAYERS, 2 * _HIDDEN, _HROW, dtype=torch.bfloat16, device=dev)
-    for layer in range(_K6_LAYERS):
-        hidden[layer, :, :_HIDDEN] = torch.cat([bf(h[1 + layer][0]).t() for h in heads])
-    wout = torch.zeros(8, _ROW, dtype=torch.bfloat16, device=dev)
-    bias_out = torch.zeros(8, dtype=torch.bfloat16, device=dev)
+    k0 = heads[0][-1][0].shape[1]
+    rows = []
+    for w1, _ in (h[0] for h in heads):
+        first = torch.zeros(_HIDDEN, _K4_FEATURES, dtype=torch.float32, device=dev)
+        first[:, : w1.shape[0]] = 0.5 * bf(w1).t()
+        rows += [first[:, :_HIDDEN], first[:, _HIDDEN:]]
+    rows += [0.5 * bf(h[1 + layer][0]).t() for h in heads for layer in range(_K6_LAYERS)]
+    tiles = torch.zeros(2, 8, _HIDDEN, dtype=torch.float32, device=dev)
+    bias_out = torch.zeros(8, dtype=torch.float32, device=dev)
     for i, (w, b) in enumerate(h[-1] for h in heads):
         off = 0 if i == 0 else k0
-        wout[off : off + w.shape[1], i * _HIDDEN : (i + 1) * _HIDDEN] = bf(w).t()
+        tiles[i, off : off + w.shape[1]] = bf(w).t()
         bias_out[off : off + w.shape[1]] = bf(b)
-    W = torch.cat([w1.flatten(), hidden.flatten(), wout.flatten()])
-    bias = torch.cat(
-        [torch.cat([bf(h[0][1]) for h in heads])]
-        + [torch.cat([bf(h[1 + layer][1]) for h in heads]) for layer in range(_K6_LAYERS)]
-        + [bias_out]
-    ).float()
-    return W.to(device).contiguous(), bias.to(device).contiguous()
+    W = swizzle_128b(torch.cat(rows + [tiles.reshape(16, _HIDDEN)]).to(device, torch.bfloat16)).contiguous()
+    bias = torch.cat([0.5 * bf(h[layer][1]) for layer in range(_K6_LAYERS + 1) for h in heads] + [bias_out])
+    return W, bias.to(device).contiguous()
+
+
+def points_planes_plain(triplane: torch.Tensor) -> torch.Tensor:
+    """Plain version of K6's planes relayout: (3, C, H, W) -> bf16 (3, H, W,
+    C), so that a bilinear tap is one contiguous 80-byte row."""
+    return triplane.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+
+def points_planes(triplane: torch.Tensor) -> torch.Tensor:
+    """K6's planes relayout, once per scene code: the kernel
+    ``points_planes_fwd`` (one pass, f32 or bf16 codes) on a CUDA tensor,
+    ``points_planes_plain`` on a CPU tensor; the same result."""
+    if not triplane.is_cuda:
+        return points_planes_plain(triplane)
+    P, C, H, W = triplane.shape
+    if C != 40 or triplane.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the planes relayout takes (P, 40, H, W) f32 or bf16 planes, got {triplane.dtype} "
+                         f"{tuple(triplane.shape)}")
+    src = triplane.contiguous()
+    out = torch.empty((P, H, W, C), dtype=torch.bfloat16, device=triplane.device)
+    err = _planes_lib()(
+        src.data_ptr(), int(src.dtype == torch.bfloat16), out.data_ptr(), P, C, H, W,
+        torch.cuda.current_stream(triplane.device).cuda_stream,
+    )
+    kernels.check(err, "points_planes_fwd")
+    points_planes.launches += 1
+    return out
+
+
+points_planes.launches = 0
 
 
 def pack_points_inputs(triplane: torch.Tensor, heads: Sequence[Weights]):
-    """Kernel K6's inputs besides the points, laid out once per scene code:
-    the planes as bf16 (3, H, W, C), so that a bilinear tap is one
-    contiguous 80-byte row, and the heads as ``pack_points_weights`` packs
-    them -> (planes, weights, biases)."""
-    planes = triplane.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-    return (planes, *pack_points_weights(heads, triplane.device))
+    """Kernel K6's inputs besides the points: the planes as
+    ``points_planes`` lays them out (once per scene code) and the heads as
+    ``pack_points_weights`` packs them (once per model, ``SF3D`` keeps
+    them) -> (planes, weights, biases)."""
+    return (points_planes(triplane), *pack_points_weights(heads, triplane.device))
 
 
 def points_multihead(
@@ -615,10 +652,19 @@ def points_multihead(
                          "at most 8 outputs in all, over (3, 40, H, W) planes")
     N = px.shape[0]
     coords = [kernels.aligned(t.float()) for t in (px, py, pz)]
-    if any(t.shape != (N,) for t in coords):
-        raise ValueError("point query kernel takes three flat (N,) coordinate arrays")
+    if any(t.shape != (N,) or not t.is_cuda for t in coords):
+        raise ValueError("point query kernel takes three flat (N,) coordinate arrays on the card")
     dev = triplane.device
     planes, Wp, bias = packed if packed is not None else pack_points_inputs(triplane, heads)
+    rows = 2 * 2 * _HIDDEN + 2 * _K6_LAYERS * _HIDDEN + 2 * 8
+    if (
+        planes.shape != (P, H, W, C) or planes.dtype != torch.bfloat16 or not planes.is_contiguous()
+        or Wp.shape != (rows, _HIDDEN) or Wp.dtype != torch.bfloat16 or bias.shape != (6 * _HIDDEN + 8,)
+        or bias.dtype != torch.float32 or not all(t.is_cuda for t in (planes, Wp, bias))
+    ):
+        raise ValueError("point query kernel takes its planes and weights as pack_points_inputs gives them on the "
+                         f"card, got {planes.dtype} {tuple(planes.shape)}, {Wp.dtype} {tuple(Wp.shape)}, "
+                         f"{bias.dtype} {tuple(bias.shape)}")
     out = torch.empty((k_total, N), dtype=torch.float32, device=dev)
     inv_r = _inv_radius(spec)
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -636,12 +682,13 @@ points_multihead.launches = 0
 
 def query_points_multihead(
     triplane: torch.Tensor, head_weights: Dict[str, Weights], px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
-    spec: DensityGridSpec,
+    spec: DensityGridSpec, packed=None,
 ) -> Dict[str, torch.Tensor]:
     """Scattered multi-head query (the texture bake, ``sf3d/system.py:375-377``):
     flat (N,) world coords -> {head: (K, N) f32 raw outputs}, channels
-    first; kernel K6 on the card."""
-    out = points_multihead(triplane, list(head_weights.values()), px, py, pz, spec)
+    first; kernel K6 on the card. ``packed``: K6's planes and weights as
+    ``pack_points_inputs`` gives them, when the caller keeps them."""
+    out = points_multihead(triplane, list(head_weights.values()), px, py, pz, spec, packed)
     split, col = {}, 0
     for name, w in head_weights.items():
         k = w[-1][0].shape[1]

@@ -69,6 +69,8 @@ from sculptmate_tpu_torch.ops.density_grid import (
     lattice_coords_tets,
     mlp_weights_from_params,
     pack_multihead_weights,
+    pack_points_weights,
+    points_planes,
     query_grid_multihead,
     query_points_multihead,
 )
@@ -298,6 +300,7 @@ class SF3D:
         self._bg = upload(np.asarray(c.background_color), self.device)
         self._mt_cap: Optional[int] = None
         self._k5_weights = None  # (key, K5's packed heads), see _k5_weights_packed
+        self._k6_weights = None  # (key, K6's packed heads), see _k6_weights_packed
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=self.dtype, enabled=self.dtype != torch.float32)
@@ -348,20 +351,33 @@ class SF3D:
         """The density and vertex-offset heads' weights, in that order."""
         return {n: mlp_weights_from_params(self.module.decoder.heads[n]) for n in _LATTICE_HEADS}
 
-    def _k5_weights_packed(self, device):
-        """Kernel K5's packed heads on ``device``, packed once and kept
-        while the heads' parameters (their storage and version counters)
-        stay the same, as ``TSR._k4_inputs`` keeps K4's decoder (the plain
-        version on the CPU does not read them). Parameters made under
-        inference mode keep no version counter: they are packed anew."""
-        params = [p for n in _LATTICE_HEADS for p in self.module.decoder.heads[n].parameters()]
+    def _packed_once(self, slot: str, names, device, pack):
+        """``pack(heads, device)`` of the named heads, packed once and kept
+        in ``self.<slot>`` while their parameters (their storage and version
+        counters) stay the same, as ``TSR._k4_inputs`` keeps K4's decoder.
+        Parameters made under inference mode keep no version counter: they
+        are packed anew."""
+        params = [p for n in names for p in self.module.decoder.heads[n].parameters()]
         key = None
         if not any(p.is_inference() for p in params):
             key = (torch.device(device), tuple((p.data_ptr(), p._version) for p in params))
-        if key is None or self._k5_weights is None or self._k5_weights[0] != key:
-            heads = list(self.lattice_head_weights().values())
-            self._k5_weights = (key, pack_multihead_weights(heads, device))
-        return self._k5_weights[1]
+        kept = getattr(self, slot)
+        if key is None or kept is None or kept[0] != key:
+            heads = [mlp_weights_from_params(self.module.decoder.heads[n]) for n in names]
+            kept = (key, pack(heads, device))
+            setattr(self, slot, kept)
+        return kept[1]
+
+    def _k5_weights_packed(self, device):
+        """Kernel K5's packed heads on ``device``, packed once per model
+        (``_packed_once``; the plain version on the CPU does not read
+        them)."""
+        return self._packed_once("_k5_weights", _LATTICE_HEADS, device, pack_multihead_weights)
+
+    def _k6_weights_packed(self, device):
+        """Kernel K6's packed heads (features, perturb normal) on
+        ``device``, packed once per model (``_packed_once``)."""
+        return self._packed_once("_k6_weights", _TEXEL_HEADS, device, pack_points_weights)
 
     @torch.inference_mode()
     def query_lattice(self, scene_code: torch.Tensor):
@@ -511,9 +527,14 @@ class SF3D:
 
     def _surface_query(self, scene_code, px, py, pz):
         """Albedo (sigmoid of the features head) and the unit perturbed
-        normal at flat (N,) world positions (kernel K6 on the card)."""
+        normal at flat (N,) world positions (kernel K6 on the card: the
+        code's planes laid out once in one pass, the heads packed once per
+        model)."""
+        packed = None
+        if scene_code.is_cuda:
+            packed = (points_planes(scene_code), *self._k6_weights_packed(scene_code.device))
         out = query_points_multihead(scene_code, self.texel_head_weights(), px, py, pz,
-                                     self.grid_spec(self.extract_dtype))
+                                     self.grid_spec(self.extract_dtype), packed)
         albedo = torch.sigmoid(out["features"])
         pn = out["perturb_normal"]
         return albedo, pn / torch.linalg.vector_norm(pn, dim=0, keepdim=True).clamp_min(1e-12)

@@ -127,6 +127,40 @@ def test_sf3d_packs_k5_weights_once():
     assert torch.equal(W3, want_W) and torch.equal(b3, want_b) and not torch.equal(b3, b)
 
 
+def test_sf3d_packs_k6_weights_once():
+    """``SF3D._k6_weights_packed``: the features and perturb-normal heads
+    packed as ``pack_points_weights`` packs them, once; a second call hands
+    out the same tensors, and an in-place update of a head parameter packs
+    them anew."""
+    from sculptmate_tpu_torch.systems.sf3d import SF3D, SF3DConfig
+
+    sf = SF3D(SF3DConfig(**TINY), dtype=torch.float32, device="cpu")
+    want_W, want_b = dg.pack_points_weights(list(sf.texel_head_weights().values()), "cpu")
+    W, b = sf._k6_weights_packed(torch.device("cpu"))
+    assert torch.equal(W, want_W) and torch.equal(b, want_b)
+    W2, b2 = sf._k6_weights_packed(torch.device("cpu"))
+    assert W2 is W and b2 is b
+    with torch.no_grad():
+        sf.module.decoder.heads["perturb_normal"][-1].bias.add_(1.0)
+    W3, b3 = sf._k6_weights_packed(torch.device("cpu"))
+    want_W, want_b = dg.pack_points_weights(list(sf.texel_head_weights().values()), "cpu")
+    assert torch.equal(W3, want_W) and torch.equal(b3, want_b) and not torch.equal(b3, b)
+
+
+def test_k7_scratch_spans_the_scan_tiles():
+    """K7's scratch: seven 512-bit masks and seven counts per 8^3 block of
+    the padded lattice, and one status word per 2 048-count tile of the
+    scan (161^3: 21^3 blocks, 32 tiles; 101^3: 13^3 blocks, 8 tiles, the
+    last partial)."""
+    from sculptmate_tpu_torch.geometry.marching_tets import k7_scratch
+
+    for N, nb, tiles in ((161, 21, 32), (101, 13, 8), (38, 5, 1)):
+        size = k7_scratch(N)
+        assert size["masks"] == 7 * 16 * nb**3 and size["vcnt"] == size["vbase"] == 7 * nb**3
+        assert size["status_tiles"] == tiles and size["zeroed"] == 4 + 2 * tiles
+        assert (tiles - 1) * 2048 < 7 * nb**3 <= tiles * 2048
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [33, 65])
 def test_grid_multihead_kernel_matches_plain(R):
@@ -211,22 +245,24 @@ def test_mt_wire_matches_jax(scene, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["snap 0.2", "ragged border, res 37", "undersized capacity"])
+@pytest.mark.parametrize("case", ["snap 0.2", "ragged border, res 37", "undersized capacity", "multi-tile res 100"])
 def test_mt_wire_kernel_matches_plain(case):
     """K7 on the card against its plain version on the same inputs: the
-    wire byte for byte (bits, positions, counters)."""
+    wire byte for byte (bits, positions, counters). At res 100 the 7 NB =
+    15 379 block counts fill 7 of the scan's 2 048-count tiles and end in
+    a partial eighth."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from sculptmate_tpu_torch.geometry.marching_tets import mt_wire_device_plain
 
     rng = np.random.default_rng(2)
-    res = 37 if case.startswith("ragged") else 40
+    res = {"ragged border, res 37": 37, "multi-tile res 100": 100}.get(case, 40)
     if case.startswith("ragged"):
         sdf, offs = _ragged_border_lattice(res)
     else:
         sdf = rng.standard_normal((res + 1,) * 3).astype(np.float32)
         offs = [rng.standard_normal((res + 1,) * 3).astype(np.float32) for _ in range(3)]
-    mv = 1000 if case == "undersized capacity" else 1 << 18
+    mv = {"undersized capacity": 1000, "multi-tile res 100": 1 << 22}.get(case, 1 << 18)
     args = [torch.from_numpy(a).cuda() for a in (sdf, *offs)]
     got = mt_wire_device(*args, res, mv, 0.2)
     ref = mt_wire_device_plain(*args, res, mv, 0.2)

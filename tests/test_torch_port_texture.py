@@ -188,20 +188,40 @@ def test_points_multihead_matches_jax(texel_heads, dtype):
 
 
 def test_points_weights_pack_for_the_kernel(texel_heads):
-    """K6's layout: the first layers side by side, each hidden layer as the
-    two heads' 64 x 64 blocks, the output tile with head 0's channels from
-    row 0 and head 1's after them reading their own head's columns."""
+    """K6's layout, 128-byte swizzled rows of 64: each head's first layer
+    (its 120 inputs zero-padded to 128) as two 64-deep halves, then each
+    head's hidden layers, all halved; then an 8-row output tile per head
+    (not halved) with its channels at their place in the output. Biases
+    halved likewise, layer by layer and head by head, then the output
+    biases in channel order."""
     heads = list(_torch_heads(texel_heads).values())
     W, b = dg.pack_points_weights(heads, "cpu")
-    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
-    w1 = W[: 128 * 136].reshape(128, 136)
-    hid = W[128 * 136 : 128 * 136 + 2 * 128 * 72].reshape(2, 128, 72)
-    wo = W[128 * 136 + 2 * 128 * 72 :].reshape(8, 136)
-    assert torch.equal(w1[:64, :120], bf(heads[0][0][0]).t()) and torch.equal(w1[64:, :120], bf(heads[1][0][0]).t())
-    assert not w1[:, 120:].float().any() and not hid[:, :, 64:].float().any()
-    assert torch.equal(hid[1, 64:, :64], bf(heads[1][2][0]).t())
-    assert torch.equal(wo[3:6, 64:128], bf(heads[1][3][0]).t()) and not wo[3:6, :64].float().any()
-    assert torch.equal(b[-8:-5], bf(heads[0][3][1]).float()) and not b[-2:].any()
+    rows = dg.swizzle_128b(W).float()  # the swizzle is its own inverse
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    assert W.dtype == torch.bfloat16 and rows.shape == (528, 64) and b.shape == (392,)
+    assert not torch.equal(W.float(), rows)
+    for h in range(2):
+        first = torch.cat([rows[128 * h : 128 * h + 64], rows[128 * h + 64 : 128 * h + 128]], dim=1)
+        assert torch.equal(first[:, :120], 0.5 * bf(heads[h][0][0]).t()) and not first[:, 120:].any()
+        for layer in range(2):
+            r0 = 256 + 64 * (2 * h + layer)
+            assert torch.equal(rows[r0 : r0 + 64], 0.5 * bf(heads[h][1 + layer][0]).t())
+        for layer in range(3):
+            i = 64 * (2 * layer + h)
+            assert torch.equal(b[i : i + 64], 0.5 * bf(heads[h][layer][1]))
+    assert torch.equal(rows[512:515], bf(heads[0][3][0]).t()) and not rows[515:523].any()
+    assert torch.equal(rows[523:526], bf(heads[1][3][0]).t()) and not rows[526:].any()
+    assert torch.equal(b[384:390], bf(torch.cat([heads[0][3][1], heads[1][3][1]]))) and not b[390:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_points_planes_relayout(dtype):
+    """K6's planes relayout on the CPU (its plain version) is the codes in
+    bf16, channels last: ``triplane.to(bf16).permute(0, 2, 3, 1)``."""
+    planes = torch.from_numpy(np.random.default_rng(12).standard_normal((3, 40, 5, 67)).astype(np.float32)).to(dtype)
+    got = dg.points_planes(planes)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got, planes.to(torch.bfloat16).permute(0, 2, 3, 1))
 
 
 @pytest.mark.cuda
@@ -218,16 +238,23 @@ def test_winner_kernel_matches_plain():
 
 
 @pytest.mark.cuda
-def test_points_kernel_matches_plain(texel_heads):
-    """K6 on the card against its plain version in bf16 at 20 000 points:
-    each channel within 0.1 of its spread."""
+@pytest.mark.parametrize("case", ["20000 points", "ragged 10007 points, a tenth outside the box"])
+def test_points_kernel_matches_plain(texel_heads, case):
+    """K6 on the card against its plain version in bf16 at 20 000 points
+    and at a ragged N (not a multiple of the 64-point tile) with points
+    outside the box: each channel within 0.1 of its spread. The planes'
+    relayout kernel equals its plain version on f32 and bf16 codes, and
+    on codes whose rows are not whole 16-byte loads."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cuda").manual_seed(0)
     heads = [[(w.cuda(), b.cuda()) for w, b in ws] for ws in _torch_heads(texel_heads).values()]
-    planes = torch.randn(3, 40, 64, 64, device="cuda", generator=g)
-    pts = [(torch.rand(20000, device="cuda", generator=g) * 2 - 1) * 0.87 for _ in range(3)]
+    planes = torch.randn(3, 40, 64, 72, device="cuda", generator=g)
+    n, scale = (20000, 2.0) if case.startswith("20000") else (10007, 2.2)
+    pts = [(torch.rand(n, device="cuda", generator=g) * scale - scale / 2) * 0.87 for _ in range(3)]
     spec = dg.DensityGridSpec(radius=0.87, align_corners=True, compute_dtype=torch.bfloat16)
+    for p in (planes, planes.to(torch.bfloat16), planes[..., :67]):  # 67: rows of no whole 16-byte loads
+        assert torch.equal(dg.points_planes(p), dg.points_planes_plain(p))
     got = dg.points_multihead(planes, heads, *pts, spec)
     ref = dg.points_multihead_plain(planes, heads, *pts, spec)
     for k in range(6):
