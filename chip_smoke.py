@@ -74,15 +74,19 @@ Phases (any failure raises and exits non-zero):
    against the same weights on the CPU: scene codes and the raw lattice
    query. The texture
    kernels, checked before phase 2's planted faults and under their own:
-   K8 (``csrc/raster_winner.cu``) bit-equal to its plain version at the
-   full-width asset's bake (512^2, face ids) and first unwrap raster
-   (1024^2, depth keys, margin 0.05), and at a ragged 100^2 with oversized
-   faces; K6 (``csrc/points_multihead.cu``) at 512^2 scattered points with
-   the full-width decoder's features and perturb-normal heads and at the
-   asset's own 512^2 bake texels with the model's heads, its planes'
+   K8 (``csrc/raster_winner.cu`` on ``csrc/raster.cuh``) bit-equal to its
+   plain version at the full-width asset's bake (512^2, face ids) and both
+   unwrap rasters (1024^2, depth keys, margin 0.05), at a ragged 100^2
+   with oversized faces, and in its unwrap form (corners, keys and winner
+   of both rounds from K9's state), and the ``K8_split`` line (one bake
+   raster); K6 (``csrc/points_multihead.cu``) at 512^2 scattered points
+   with the full-width decoder's features and perturb-normal heads and at
+   the asset's own 512^2 bake texels with the model's heads, its planes'
    one-pass relayout equal to its plain version, and the ``K6_split`` line
-   (one ``SF3D._surface_query``); K9
-   (``csrc/uv_unwrap.cu``) on the full-width asset's mesh.
+   (one ``SF3D._surface_query``); K9 (``csrc/uv_unwrap.cu``) on the
+   full-width asset's mesh and on layered sheets (round 1's depth range,
+   the pool over five scan tiles), and the ``K9_split`` line (one
+   ``unwrap_core``: every launch and copy of the call).
 9. The SF3D path at full width (default ``SF3DConfig``: DINOv2-L, 96^2
    triplane tokens, 1 792 latents, 4 x 3 blocks, 40 x 384^2 codes, R = 160)
    with seeded random weights and nonzero modulations, untextured (its
@@ -229,10 +233,22 @@ PLANTED_FAULTS = (
      "const uint32_t slot = smem_u32(ring + ((s + 1) % NSTAGE) * SLOT_BYTES);"),
     ("K5's second consumer reads the first one's B rows", "grid_multihead",
      "slot + (wg * HEADS + h) * BOX_BYTES", "slot + h * BOX_BYTES"),
+    # in raster.cuh: K8's warp-balanced raster, which both its bake form and
+    # its unwrap form (launched inside K9) run; held to K8's check, whose
+    # unwrap-form cases run the unwrap form alone
     ("K8 keeps the highest key (atomicMax)", "raster_winner",
-     "atomicMin(winner + texel, key);", "atomicMax(winner + texel, key);"),
-    ("K8's bbox loop drops its last row", "raster_winner",
-     "const int h = yhi - ylo + 1;", "const int h = yhi - ylo;"),
+     "atomicMin(winner + texel, key);", "atomicMax(winner + texel, key);", "raster.cuh"),
+    ("K8's bbox drops its last row", "raster_winner",
+     "const int h = yhi - ylo + 1;", "const int h = yhi - ylo;", "raster.cuh"),
+    ("K8's candidate search gives a lane the next face's terms", "raster_winner",
+     "const int k = __popc(at & ((2u << lane) - 1u));", "const int k = __popc(at & ((4u << lane) - 1u));",
+     "raster.cuh"),
+    ("K8's warp skips a face's last candidate row", "raster_winner",
+     "return covers ? fc.w * h : 0;", "return covers ? fc.w * (h - 1) : 0;", "raster.cuh"),
+    ("K8's unwrap loader skips the lo/hi normalisation", "raster_winner",
+     "        normalised(uv, F, f, s, stats, uc, vc);\n        const float gx = (float)(s % 4), gy = (float)(s / 4);\n#pragma",
+     "        for (int k = 0; k < 3; ++k) uc[k] = uv[k * F + f], vc[k] = uv[(3 + k) * F + f];\n"
+     "        const float gx = (float)(s % 4), gy = (float)(s / 4);\n#pragma", "uv_unwrap.cu"),
     ("K6 drops the last bilinear tap", "points_multihead",
      "for (int t = 0; t < 4; ++t) {\n#pragma unroll\n            for (int mm = 0; mm < G; ++mm) {",
      "for (int t = 0; t < 3; ++t) {\n#pragma unroll\n            for (int mm = 0; mm < G; ++mm) {"),
@@ -249,9 +265,16 @@ PLANTED_FAULTS = (
      "for (int i = 0; i < VEC; ++i) tile[(xv + i) * C + ch] = to_bf16(v[i]);",
      "for (int i = 0; i < VEC; ++i) tile[((xv + i) ^ 1) * C + ch] = to_bf16(v[i]);"),
     ("K9's depth key is not inverted (the nearest face wins)", "uv_unwrap",
-     "key[f] = part ? ~sortable(depth[f]) : SINK - 1;", "key[f] = part ? sortable(depth[f]) : SINK - 1;"),
+     "key = ~sortable(depth[f]);", "key = sortable(depth[f]);"),
     ("K9 skips the slice rotation", "uv_unwrap",
      "const float ca = angles[s], sa = angles[6 + s];", "const float ca = 1.f, sa = 0.f;"),
+    ("K9's round-1 depth range is over all faces", "uv_unwrap",
+     "if (!vis) hidden_slice = s;", "hidden_slice = s;"),
+    ("K9's last-block epilogue sums one row short", "uv_unwrap",
+     "for (int r = from + chain; r < to; r += CHAINS)", "for (int r = from + chain; r < to - 1; r += CHAINS)"),
+    ("K9's pool prefix leaves out the earlier scan tiles", "uv_unwrap",
+     "const int rank = pool_base[f >> 5] + __popc(",
+     "const int rank = pool_base[f >> 5] - pool_base[(f >> 5) / MS_TILE * MS_TILE] + __popc("),
     ("K4 drops the last bilinear tap", "triplane_points",
      "for (int t = 0; t < 4; ++t) {\n#pragma unroll\n            for (int mm = 0; mm < G; ++mm) {",
      "for (int t = 0; t < 3; ++t) {\n#pragma unroll\n            for (int mm = 0; mm < G; ++mm) {"),
@@ -295,10 +318,15 @@ PLANTED_FAULTS = (
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
 # the outputs least; the multi-block scan's fault must fail both of its
-# kernels (a lattice of two scan tiles or fewer does not show it)
+# kernels (a lattice of two scan tiles or fewer does not show it); K9's
+# round-1 depth range and its pool's scan tiles show on the layered sheets,
+# whose hidden faces span a tenth of the depth range and fill the pool over
+# five scan tiles
 PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
                      "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3"),
-                     "K7's class base misses the earlier classes' totals": ("multi-tile res 100",)}
+                     "K7's class base misses the earlier classes' totals": ("multi-tile res 100",),
+                     "K9's round-1 depth range is over all faces": ("layered sheets",),
+                     "K9's pool prefix leaves out the earlier scan tiles": ("layered sheets",)}
 
 
 def log(msg):
@@ -607,7 +635,7 @@ def sf3d_scene(fast):
     recorded, winner_fn = [], ud.binned_winner_plain
     ud.binned_winner_plain = lambda *a, **k: recorded.append(a) or winner_fn(*a, **k)
     try:
-        uv6, _, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+        uv6, _, angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
     finally:
         ud.binned_winner_plain = winner_fn
     texels, query = [], sf3d._surface_query
@@ -623,7 +651,8 @@ def sf3d_scene(fast):
                     "texels": texels[0][0].numel(), "texels_off_the_origin": covered,
                     "codes_dtype": str(codes.dtype)}))
     return {"image": image, "threshold": threshold, "codes": codes, "materials": materials, "verts": verts,
-            "faces": faces, "pos": pos, "f": f, "uv6": uv6, "round1": recorded[0], "round2": recorded[1],
+            "faces": faces, "pos": pos, "f": f, "uv6": uv6, "angles": angles, "round1": recorded[0],
+            "round2": recorded[1],
             "mt": mt_inputs, "mt_res": sf3d.config.isosurface_resolution, "mt_nv": nv, "texels": [t.contiguous() for t in texels[0]]}
 
 
@@ -634,10 +663,15 @@ def check_raster(scene, timed=True):
     ~sortable(depth) keys, margin 0.05; in round 2 only the faces round 1
     hid take part, the rest carry zero UVs and the sink key), and at a
     ragged 100^2 (not a multiple of 64: the JAX package's brute-force
-    branch) with oversized faces. With ``timed``, the three path cases get
-    their time, the plain version's and their bound, summed over a
-    textured asset's three launches."""
+    branch) with oversized faces; then K8's unwrap form, which K9 launches
+    for its two rounds (where the package has it): from the plain
+    version's rotated UVs, slices, depths and lo/hi, the corners and keys
+    its loader forms equal to those the plain round rasterized, and its
+    winner equal to theirs. With ``timed``, the three path cases get their
+    time, the plain version's and their bound, summed over a textured
+    asset's three launches."""
     from sculptmate_tpu_torch.geometry import texture_bake as tb
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
 
     uv = scene["uv6"]
     F = uv.shape[1]
@@ -684,6 +718,24 @@ def check_raster(scene, timed=True):
                         "launches_per_asset": n}))
         for k in totals:
             totals[k] += n * row[k]
+    if hasattr(ud, "unwrap_round"):
+        pos, f = scene["pos"], scene["f"]
+        index, depth, r6, lo6, hi6, _ = ud.unwrap_slices_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2],
+                                                               scene["angles"])
+        vis0 = scene["round2"][6] == tb.WINNER_SINK - 1  # round 0's visible faces sit out round 1
+        for r, recorded in enumerate((scene["round1"], scene["round2"])):
+            corners, key, winner = ud.unwrap_round(r6, index, depth, lo6, hi6, vis0 if r else None)
+            torch.cuda.synchronize()
+            ref = tb.binned_winner_plain(*recorded[:6], recorded[6], 1024, 0.05)
+            line = {"check": "K8", "case": f"unwrap form round {r + 1} from K9's state",
+                    "corners_equal": bool(torch.equal(corners, torch.stack(recorded[:6]))),
+                    "keys_equal": bool(torch.equal(key, recorded[6])),
+                    "texels_differing": int((winner != ref).sum()), "limit": 0}
+            line["check_passed"] = line["corners_equal"] and line["keys_equal"] and not line["texels_differing"]
+            log(json.dumps(line))
+            if not line["check_passed"]:
+                failures.append(f"{line['case']}: corners equal {line['corners_equal']}, keys equal "
+                                f"{line['keys_equal']}, {line['texels_differing']} texels differ")
     if failures:
         raise AssertionError("K8 " + "; ".join(failures))
     return totals
@@ -783,45 +835,79 @@ def check_points(g, sf3d, scene, timed=True):
     return max(errs), {**row, "asset_texels_ms": t_row["ms"]}, by
 
 
+def layered_sheets(n=80, backs=21):
+    """A flat n x n sheet of 2 n^2 faces facing +z at z = 1 (x in [1, 3]:
+    off the z axis, so the slice's mean expected tangent is well defined),
+    and ``backs``
+    copies of it at z = -0.8, -0.81, ... (2 (backs + 1) n^2 faces; 281 600
+    by default). Round 0 hides every back copy behind the sheet; in round
+    1 the copy at -0.8 wins and the others lie 0.01 apart behind it, within
+    a depth range of 0.2 of the whole 2: the tolerance over round 1's
+    participants (0.004) hides them into the pool, one over all faces
+    (0.04) would keep the nearest ones. The pool's ~0.24 M faces span five
+    scan tiles of the pool flags. -> (positions (3, Nv) f32, faces (3, F)
+    int32) on the card."""
+    x, y = np.meshgrid(np.linspace(1, 3, n + 1), np.linspace(-1, 1, n + 1), indexing="ij")
+    grid = np.stack([x, y], -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    a = (i * (n + 1) + j).reshape(-1)
+    b, c, d = a + (n + 1), a + 1, a + (n + 2)  # (x + 1, y), (x, y + 1), (x + 1, y + 1)
+    sheet = np.concatenate([np.stack([a, b, c], 1), np.stack([b, d, c], 1)])  # counter-clockwise in xy: +z
+    zs = [1.0] + [-0.8 - 0.01 * k for k in range(backs)]
+    pos = np.concatenate([np.concatenate([grid, np.full((len(grid), 1), z)], 1) for z in zs])
+    faces = np.concatenate([sheet + k * len(grid) for k in range(len(zs))])
+    return (torch.from_numpy(np.ascontiguousarray(pos.T, np.float32)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(faces.T, np.int32)).cuda())
+
+
 def check_unwrap(scene, timed=True):
-    """K9 on the full-width asset's mesh against its plain version given the
-    kernel's slice angles: the same atlas index on K9_ATLAS_SHARE of the
-    faces, UVs within K9_UV_LIMIT where it agrees; and the kernel's angles
-    against the plain version's own sums within K9_ANGLE_LIMIT."""
+    """K9 against its plain version given the kernel's slice angles: the
+    same atlas index on K9_ATLAS_SHARE of the faces, UVs within
+    K9_UV_LIMIT where it agrees; and the kernel's angles against the plain
+    version's own sums within K9_ANGLE_LIMIT. On the full-width asset's
+    mesh (timed with ``timed``) and on ``layered_sheets``, where round 1's
+    depth range and the pool's later scan tiles decide the result."""
     from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
 
-    pos, f = scene["pos"], scene["f"]
-    uv, atlas, angles = ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2])
-    torch.cuda.synchronize()
-    ref_uv, ref_atlas, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], angles=angles)
-    _, _, own_angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
-    same = atlas == ref_atlas
-    share = same.float().mean().item()
-    uv_err = (uv - ref_uv)[:, same].abs().max().item() if bool(same.any()) else float("inf")
-    ang_err = (angles - own_angles).abs().max().item()
-    line = {"check": "K9", "case": "unwrap of the full-width mesh", "faces": int(f.shape[1]),
-            "atlas_equal_share": share, "uv_max_abs_err": uv_err, "angle_max_abs_err": ang_err,
-            "limits": {"atlas_equal_share": K9_ATLAS_SHARE, "uv": K9_UV_LIMIT, "angles": K9_ANGLE_LIMIT},
-            "classes": torch.bincount(atlas // 6, minlength=3).tolist()}
-    ok = share >= K9_ATLAS_SHARE and uv_err <= K9_UV_LIMIT and ang_err <= K9_ANGLE_LIMIT and bool(
-        torch.isfinite(uv).all())
-    if not ok:
-        log(json.dumps({**line, "check_passed": False}))
-        raise AssertionError(f"K9 atlas share {share}, uv err {uv_err}, angle err {ang_err}")
-    if not timed:
-        log(json.dumps({**line, "check_passed": True}))
-        return None
-    # bytes: positions and faces in, per-corner f32 UVs and the atlas index
-    # out, plus the two visibility rasters' (faces in, 1024^2 winners out)
-    F, Nv = int(f.shape[1]), int(pos.shape[1])
-    bound, by = bound_ms(0, 12 * Nv + 12 * F + 28 * F + 2 * (28 * F + 4 * 1024 * 1024), PEAK_F32_FLOPS)
-    row = {"ms": cuda_ms(lambda: ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2]), iters=5),
-           "plain_ms": cuda_ms(lambda: ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2]), iters=2,
-                               warmup=1, graph=False),
-           "bound_ms": bound}
-    log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "bound_share": bound / row["ms"],
-                    "launches_per_asset": 1}))
-    return max(uv_err, 1.0 - share), row, by
+    cases = [("unwrap of the full-width mesh", scene["pos"], scene["f"]), ("layered sheets", *layered_sheets())]
+    failures, result = [], None
+    for name, pos, f in cases:
+        uv, atlas, angles = ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+        torch.cuda.synchronize()
+        ref_uv, ref_atlas, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], angles=angles)
+        _, _, own_angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+        same = atlas == ref_atlas
+        share = same.float().mean().item()
+        uv_err = (uv - ref_uv)[:, same].abs().max().item() if bool(same.any()) else float("inf")
+        ang_err = (angles - own_angles).abs().max().item()
+        line = {"check": "K9", "case": name, "faces": int(f.shape[1]),
+                "atlas_equal_share": share, "uv_max_abs_err": uv_err, "angle_max_abs_err": ang_err,
+                "limits": {"atlas_equal_share": K9_ATLAS_SHARE, "uv": K9_UV_LIMIT, "angles": K9_ANGLE_LIMIT},
+                "classes": torch.bincount(atlas // 6, minlength=3).tolist()}
+        ok = share >= K9_ATLAS_SHARE and uv_err <= K9_UV_LIMIT and ang_err <= K9_ANGLE_LIMIT and bool(
+            torch.isfinite(uv).all())
+        if not ok:
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"{name}: atlas share {share}, uv err {uv_err}, angle err {ang_err}")
+            continue
+        if not (timed and result is None):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # bytes: positions and faces in, per-corner f32 UVs and the atlas
+        # index out, plus the two visibility rasters' (faces in, 1024^2
+        # winners out)
+        F, Nv = int(f.shape[1]), int(pos.shape[1])
+        bound, by = bound_ms(0, 12 * Nv + 12 * F + 28 * F + 2 * (28 * F + 4 * 1024 * 1024), PEAK_F32_FLOPS)
+        row = {"ms": cuda_ms(lambda: ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2]), iters=5),
+               "plain_ms": cuda_ms(lambda: ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2]), iters=2,
+                                   warmup=1, graph=False),
+               "bound_ms": bound}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "bound_share": bound / row["ms"],
+                        "launches_per_asset": 1}))
+        result = (max(uv_err, 1.0 - share), row, by)
+    if failures:
+        raise AssertionError("K9 " + "; ".join(failures))
+    return result
 
 
 def lean_scene(tsr):
@@ -1128,6 +1214,29 @@ def k7_split(scene):
 
     return device_split("K7_split", "one mt_wire_device call, SF3D asset 161^3, snap 0.2",
                         lambda: mt.mt_wire_device(*scene["mt"], scene["mt_res"], 1 << 21, 0.2))
+
+
+def k8_split(scene):
+    """One K8 bake raster at 512^2 (face ids, margin 0) of the full-width
+    asset's atlas, split by kernel name (``device_split``): the winner's
+    fill and the raster."""
+    from sculptmate_tpu_torch.geometry import texture_bake as tb
+
+    rows = [scene["uv6"][k].contiguous() for k in range(6)]
+    key = torch.arange(rows[0].shape[0], dtype=torch.int32, device="cuda")
+    return device_split("K8_split", "one binned_winner call, bake 512^2, face ids",
+                        lambda: tb.binned_winner(*rows, key, 512))
+
+
+def k9_split(scene):
+    """One K9 ``unwrap_core`` on the full-width asset's mesh, its two K8
+    rasters included, split by kernel name (``device_split``): every launch
+    and copy of the call, PyTorch's glue between the passes included."""
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
+
+    pos, f = scene["pos"], scene["f"]
+    return device_split("K9_split", "one unwrap_core call, SF3D asset mesh",
+                        lambda: ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2]))
 
 
 def _ragged_border_mt(N=38):
@@ -2184,9 +2293,11 @@ def main():
     k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
     k5_split(fast.model, scene["codes"][0])
     k8 = check_raster(scene)
+    k8_launches = k8_split(scene)["launches"]
     k6_err, k6, k6_by = check_points(g, fast.model, scene)
     k6_split(fast.model, scene["codes"][0])
     k9_err, k9, k9_by = check_unwrap(scene)
+    k9_launches = k9_split(scene)["launches"]
     k4 = check_triplane_points(gen.model, lean)
     k3 = check_mc_wire(lean)
     k3_split(lean)
@@ -2249,13 +2360,13 @@ def main():
          "replaces": "sculptmate_tpu/geometry/texture_bake.py:234", "launches": tex_launches["K8"],
          "launches_untextured": sf3d_launches["K8"], "max_abs_err": 0.0, "limit": "bit-equal winners",
          "check": "pass", "ms": k8["ms"], "plain_ms": k8["plain_ms"], "bound_ms": k8["bound_ms"], "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "device_ops_per_bake_raster": k8_launches},
         {"name": "uv_unwrap", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/uv_unwrap.cu",
          "replaces": "sculptmate_tpu/geometry/uv_unwrap_device.py:114", "launches": tex_launches["K9"],
          "launches_untextured": sf3d_launches["K9"], "max_abs_err": k9_err,
          "limit": f"atlas equal on {K9_ATLAS_SHARE}, UVs within {K9_UV_LIMIT}", "check": "pass",
          "ms": k9["ms"], "plain_ms": k9["plain_ms"], "bound_ms": k9["bound_ms"], "bound_by": k9_by,
-         "library_ms": None},
+         "library_ms": None, "device_ops_per_call": k9_launches},
         {"name": "mc_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
          "replaces": "sculptmate_tpu/geometry/marching_cubes.py:454", "launches": lean_launches["K3"],
          "launches_by_path": {"tripo_generator": lean_launches["K3"], "serving_batch_of_8": launches["K3"]},
@@ -2297,8 +2408,10 @@ def main():
         " kernel alone at 262 144 scattered points and asset_texels_ms at the asset's own 512^2 bake texels, its"
         " relayout_ms the planes' bf16 channels-last pass (once per scene code, beside its bound)"
         " and weights_pack_ms its heads' packing (once per model in SF3D._k6_weights_packed); K8's times sum its"
-        " bake raster (512^2) and its two unwrap rasters (1024^2), each measured; K9's"
-        " ms include its two K8 rasters, its plain_ms the plain K8's; K9's max_abs_err is the larger of its UV error"
+        " bake raster (512^2) and its two unwrap rasters (1024^2), each measured, and its launches count the two"
+        " unwrap rasters K9 runs as K8's unwrap form, device_ops_per_bake_raster the fill and raster of one bake"
+        " (K8_split); K9's ms include its two K8 rasters, its plain_ms the plain K8's, device_ops_per_call the"
+        " launches and copies of one call (K9_split); K9's max_abs_err is the larger of its UV error"
         " and the share of faces whose atlas index differs; K3 is the Lean asset's 256^3 wire (its launches the"
         " TripoGenerator asset's, ms the wire without the color positions); K4's launches are the TripoGenerator"
         " asset's (per path beside them), its ms the asset's ~0.6 M vertices and render_view_ms one view's 8.39 M"

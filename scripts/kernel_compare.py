@@ -1,8 +1,9 @@
 """Kernels of one version of the port at the main paths' shapes, on one
-card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, K6 and
-K7 on the full-width SF3D asset, and K4's and K10's design variants.
+card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, K6,
+K7, K8 and K9 on the full-width SF3D asset, and K4's and K10's design
+variants.
 
-    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K10]
+    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K8,K9,K10]
                                       [--csrc DIR] [--variants]
 
 Imports ``sculptmate_tpu_torch`` from ``--root`` (default: this checkout;
@@ -27,9 +28,12 @@ split by kernel name under torch.profiler (``chip_smoke.device_split``):
   ``SF3D``'s (seed 0) features and perturb-normal heads, and the asset's
   512^2 bake texels with its codes; ``K6_split``: one
   ``SF3D._surface_query``, the ``sf3d.texel_query`` span, with its
-  launches) and K7 (``check_mt_wire``, ``K7_split``: its 161^3 sdf and
-  offsets) on the default ``SF3D``'s asset as ``chip_smoke.sf3d_scene``
-  makes it. A tree without K6's one-pass planes relayout is timed on its
+  launches), K7 (``check_mt_wire``, ``K7_split``: its 161^3 sdf and
+  offsets), K8 (``check_raster``: the bake at 512^2, the two unwrap
+  rasters at 1024^2 and a ragged 100^2; ``K8_split``: one bake raster)
+  and K9 (``check_unwrap``, ``K9_split``: one ``unwrap_core`` with every
+  launch and copy of the call) on the default ``SF3D``'s asset as
+  ``chip_smoke.sf3d_scene`` makes it. A tree without K6's one-pass planes relayout is timed on its
   own two-pass relayout (``planes_relayout_shim``);
 - with ``--variants``, kernels rebuilt (``kernels.sources_from``) from
   copies of this checkout's sources with edits (``edit_copy``; a CPU test
@@ -405,13 +409,13 @@ def planes_relayout_shim():
 
 
 KERNELS = {"K3": "marching_cubes", "K4": "triplane_points", "K5": "grid_multihead", "K6": "points_multihead",
-           "K7": "marching_tets", "K10": "marching_cubes"}
+           "K7": "marching_tets", "K8": "raster_winner", "K9": "uv_unwrap", "K10": "marching_cubes"}
 
 
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
-    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K10")
+    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K8,K9,K10")
     p.add_argument("--csrc", default=None, help="build the kernels from these sources")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--time-only", action="store_true",
@@ -480,7 +484,7 @@ def main():
             else:
                 phases += [("K5", lambda: smoke.check_grid_multihead(g, fast.model)),
                            ("K5 split", lambda: smoke.k5_split(fast.model, codes))]
-        if {"K6", "K7"} & set(wanted):
+        if {"K6", "K7", "K8", "K9"} & set(wanted):
             from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
 
             fast6 = Fast3DGenerator()
@@ -497,6 +501,12 @@ def main():
             if "K7" in wanted:
                 phases += [("K7", lambda: smoke.check_mt_wire(sf3d_scene)),
                            ("K7 split", lambda: smoke.k7_split(sf3d_scene))]
+            if "K8" in wanted:
+                phases += [("K8", lambda: smoke.check_raster(sf3d_scene)),
+                           ("K8 split", lambda: smoke.k8_split(sf3d_scene))]
+            if "K9" in wanted:
+                phases += [("K9", lambda: smoke.check_unwrap(sf3d_scene)),
+                           ("K9 split", lambda: smoke.k9_split(sf3d_scene))]
         if args.variants and "K4" in wanted:
             phases += [("K4 steps", lambda: k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
                        ("K4 variants", lambda: k4_steps(

@@ -1,8 +1,9 @@
 // Exclusive scans shared by the marching kernels (K3, K10 in
-// marching_cubes.cu, K7 in marching_tets.cu): the in-block prefix of one
-// int per thread, which K10's face pass takes; and the multi-block scan of
-// one or several count arrays in one launch (scan_segments: decoupled
-// look-back over tiles of 2048 counts), which K3, K7 and K10 launch.
+// marching_cubes.cu, K7 in marching_tets.cu) and the unwrap (K9 in
+// uv_unwrap.cu): the in-block prefix of one int per thread, which K10's
+// face pass takes; and the multi-block scan of one or several count arrays
+// in one launch (scan_segments: decoupled look-back over tiles of 2048
+// counts), which K3, K7, K9 and K10 launch.
 #pragma once
 
 #include <cuda_runtime.h>

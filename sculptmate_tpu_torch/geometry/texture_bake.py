@@ -6,13 +6,16 @@ texel, barycentric point-in-triangle tests against the faces that may cover
 it; the face with the lowest key wins; the result is the winner's
 barycentrics and its face id.
 
-The winner pass is kernel K8 (``csrc/raster_winner.cu``) on a CUDA tensor
-and ``binned_winner_plain`` on a CPU tensor. K8 is an ``atomicMin``
-rasterizer: one thread per face walks its texel bbox, and a face whose bbox
-exceeds a few dozen texels goes to a second launch that gives it a block.
-The JAX package's fine and coarse (face, tile) pair lists, their capacities,
-overflow counters and retry loops were workarounds for the TPU's scatter
-and have no counterpart here: every face is rasterized in one dispatch.
+The winner pass is kernel K8 (``csrc/raster_winner.cu`` on
+``csrc/raster.cuh``) on a CUDA tensor and ``binned_winner_plain`` on a CPU
+tensor. K8 is an ``atomicMin`` rasterizer in one launch: each warp takes 32
+faces and walks their (face, texel) candidates 32 at a time, so a face of
+any size goes through the same loop. The JAX package's fine and coarse
+(face, tile) pair lists, their capacities, overflow counters and retry
+loops were workarounds for the TPU's scatter and have no counterpart here.
+The device unwrap's two visibility rasters run K8's unwrap form, which
+forms each face's corners and key from K9's state
+(``uv_unwrap_device.unwrap_core``).
 
 Texel x has its centre at u = x / (res - 1), computed as x * (1 / (res - 1))
 in f32 as XLA computes the JAX program's division by that constant; every
@@ -127,13 +130,13 @@ def binned_winner_plain(u0, v0, u1, v1, u2, v2, key_f, resolution: int, margin: 
     return winner
 
 
+_MAX_RES = 8191  # K8 counts a warp's candidates (32 faces of up to res^2 texels) in an int
+
+
 def _winner_lib():
     fn = kernels.load("raster_winner").raster_winner_fwd
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
-            + [ctypes.c_int, ctypes.c_void_p]
-        )
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
@@ -143,23 +146,20 @@ def binned_winner(u0, v0, u1, v1, u2, v2, key_f, resolution: int, margin: float 
     arguments and result as ``binned_winner_plain``)."""
     if not u0.is_cuda:
         return binned_winner_plain(u0, v0, u1, v1, u2, v2, key_f, resolution, margin)
-    corners = [kernels.aligned(t) for t in (u0, v0, u1, v1, u2, v2)]
+    corners = [t.contiguous() for t in (u0, v0, u1, v1, u2, v2)]  # scalar loads: any 4-byte alignment
     F = u0.shape[0]
     if any(t.dtype != torch.float32 or t.shape != (F,) for t in corners):
         raise TypeError("K8 takes six flat (F,) float32 corner arrays")
     if key_f.dtype != torch.int32 or key_f.shape != (F,):
         raise TypeError(f"K8 takes (F,) int32 keys, got {tuple(key_f.shape)} {key_f.dtype}")
-    if resolution < 2:
-        raise ValueError(f"K8 needs a resolution of at least 2, got {resolution}")
+    if not 2 <= resolution <= _MAX_RES:
+        raise ValueError(f"K8 takes a resolution from 2 to {_MAX_RES}, got {resolution}")
     dev = u0.device
-    key_f = kernels.aligned(key_f)
+    key_f = key_f.contiguous()
     winner = torch.full((resolution * resolution,), WINNER_SINK, dtype=torch.int32, device=dev)
-    scratch = torch.empty(F + 1, dtype=torch.int32, device=dev)  # big-face list and its count
-    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = _winner_lib()(
         *(t.data_ptr() for t in corners), key_f.data_ptr(), F, resolution, texel_scale(resolution),
-        _f32(margin), _f32(margin * (resolution - 1)), winner.data_ptr(), scratch.data_ptr(), num_sms,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _f32(margin), _f32(margin * (resolution - 1)), winner.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "raster_winner_fwd")
     binned_winner.launches += 1

@@ -14,22 +14,26 @@ The stages, each a pass over the faces:
    the per-corner-slot max of the projection axis over all faces (the
    reference's quirk);
 2. the projected corner UVs, and per slice the sums of the faces' tangents
-   and of their expected tangents, as per-block partial sums reduced in a
-   fixed order (no order of atomics enters a result);
-3. each slice rotated by the angle between its mean tangents, then
-   normalised by its min/max over both UV components (``atomicMin`` /
-   ``atomicMax`` on sortable ints);
+   and of their expected tangents, reduced in a fixed order (no order of
+   atomics enters a result) into each slice's rotation angle;
+3. each slice rotated by that angle, then normalised by its min/max over
+   both UV components (``atomicMin`` / ``atomicMax`` on sortable ints);
 4. two depth-visibility rounds, each a K8 raster of the participating faces
    into a 4x4 grid of slice cells (key ~sortable(depth): the deepest face
    wins) and a test of each face at its own centroid texel with a per-slice
-   depth tolerance of 0.02 of the participants' depth range;
+   depth tolerance of 0.02 of the participants' depth range (round 0: all
+   faces; round 1: the faces round 0 hid);
 5. placement: primary slices on a 3x2 grid, demoted ones rescaled into the
    half-scale overlap cells, twice-demoted faces into individual squares of
    the pool (its running index is a prefix sum over the pool flags).
 
-The glue between the passes (the six slices' angles from the partial sums,
-the prefix over the pool) is a few torch ops on the device; nothing waits
-for the host.
+On the card (``csrc/uv_unwrap.cu``) one call launches the whole chain:
+about ten passes, the angles and the pool's prefix among them, and the two
+rasters as K8's unwrap form, which forms each face's corners and key from
+the rotated UVs, the face's slice and that slice's lo/hi. Nothing between
+the passes is a PyTorch op, and nothing waits for the host.
+``unwrap_slices_plain`` and ``unwrap_round`` hold that decomposition to
+``unwrap_core_plain``.
 
 Two choices differ from the JAX program, both deliberately:
 
@@ -121,6 +125,29 @@ def unwrap_core_plain(
     ``angles``, when given, replaces the slices' rotation (the one result
     that depends on the order of a sum), so that a check can hold every
     other stage of the kernel to this version exactly."""
+    index, depth, r6, lo6, hi6, angles = unwrap_slices_plain(px, py, pz, fa, fb, fc, angles)
+    lo, hi = lo6[index.long()], hi6[index.long()]  # a gather: an empty slice is never looked up
+    scale = (hi - lo).clamp_min(1e-12)
+    uc = [(c - lo) / scale for c in r6[:3]]
+    vc = [(c - lo) / scale for c in r6[3:]]
+
+    # -- overlap resolution: two depth-visibility rounds --------------------
+    everyone = torch.ones_like(depth, dtype=torch.bool)
+    vis1 = _depth_round_plain(uc, vc, index, depth, everyone)
+    vis2 = _depth_round_plain(uc, vc, index, depth, ~vis1)
+    atlas = torch.where(vis1, index, torch.where(vis2, index + 6, index + 12))
+    return _place_plain(uc, vc, atlas, island_padding), atlas, angles
+
+
+def unwrap_slices_plain(
+    px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor, fa: torch.Tensor, fb: torch.Tensor, fc: torch.Tensor,
+    angles: Optional[torch.Tensor] = None,
+):
+    """``unwrap_core_plain``'s stages before the visibility rounds (K9's
+    passes up to ``faces_rotate``), same arguments -> (index (F,) int32,
+    depth (F,) f32, the rotated UVs (6, F) f32 rows [u0, u1, u2, v0, v1,
+    v2], not yet normalised, each slice's lo (6,) and hi (6,) over both
+    components, angles (2, 6))."""
     dev = px.device
     fa, fb, fc = (f.long() for f in (fa, fb, fc))
     P = torch.stack([px, py, pz]).float()
@@ -180,18 +207,8 @@ def unwrap_core_plain(
     inf = torch.full((6,), float("inf"), device=dev)
     lo6 = inf.scatter_reduce(0, index.long(), r6.amin(0), "amin")
     hi6 = (-inf).scatter_reduce(0, index.long(), r6.amax(0), "amax")
-    lo, hi = lo6[index.long()], hi6[index.long()]  # a gather: an empty slice is never looked up
-    scale = (hi - lo).clamp_min(1e-12)
-    uc = [(c - lo) / scale for c in ru]
-    vc = [(c - lo) / scale for c in rv]
-
-    # -- overlap resolution: two depth-visibility rounds --------------------
     depth = sgn * (pick(0, ax) + pick(1, ax) + pick(2, ax)) * _THIRD
-    everyone = torch.ones_like(depth, dtype=torch.bool)
-    vis1 = _depth_round_plain(uc, vc, index, depth, everyone)
-    vis2 = _depth_round_plain(uc, vc, index, depth, ~vis1)
-    atlas = torch.where(vis1, index, torch.where(vis2, index + 6, index + 12))
-    return _place_plain(uc, vc, atlas, island_padding), atlas, angles
+    return index, depth, r6, lo6, hi6, angles
 
 
 def _depth_round_plain(uc, vc, index, depth, participate) -> torch.Tensor:
@@ -273,85 +290,98 @@ def _place_plain(uc, vc, atlas, pad: float) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def round_inputs_plain(uv_rot, index, depth, lo6, hi6, participate):
+    """Plain version of K8's unwrap-form loader: the corners and keys of
+    one visibility round from the rotated, not yet normalised UVs (6, F)
+    rows [u0, u1, u2, v0, v1, v2], each face's slice and depth, and the
+    slices' lo/hi -> (corners (6, F) f32 rows [u0, v0, u1, v1, u2, v2],
+    keys (F,) int32). A face outside ``participate`` gets zero corners (it
+    covers nothing) and the key WINNER_SINK - 1, as in
+    ``_depth_round_plain``."""
+    ix = index.long()
+    lo, hi = lo6[ix], hi6[ix]
+    scale = (hi - lo).clamp_min(1e-12)
+    gx, gy = (index % 4).float(), (index // 4).float()
+    zero = torch.zeros((), device=depth.device)
+    rows = []
+    for c in range(3):
+        rows.append(torch.where(participate, _warp((uv_rot[c] - lo) / scale, gx), zero))
+        rows.append(torch.where(participate, _warp((uv_rot[3 + c] - lo) / scale, gy), zero))
+    return torch.stack(rows), torch.where(participate, ~_sortable(depth), WINNER_SINK - 1)
+
+
 # -- kernel K9 -----------------------------------------------------------------
 
-_INF_S = 0x7F800000  # sortable(+inf)
-_NINF_S = -0x7F800000 - 1  # sortable(-inf)
-
-
-def _fn(name: str, argtypes):
-    fn = getattr(kernels.load("uv_unwrap"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
+_STATS = 72  # int32 slots of K9's stats; the slices' lo at 9, hi at 15 (sortable)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def _fn(name: str, argtypes, restype=ctypes.c_int):
+    fn = getattr(kernels.load("uv_unwrap"), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
+
+
+def unwrap_round(uv_rot, index, depth, lo6, hi6, vis0=None):
+    """One visibility round's raster alone: K8's unwrap form on CUDA
+    tensors, ``round_inputs_plain`` and ``binned_winner_plain`` on CPU
+    ones. Round 0 (``vis0`` None) takes every face, round 1 the faces
+    hidden in round 0 (``vis0`` (F,) bool). Arguments as
+    ``round_inputs_plain``'s -> (corners (6, F), keys (F,), the 1024^2
+    winner). ``unwrap_core`` runs the same loader and raster inside its
+    chain; this entry lets a check hold them to the plain version."""
+    part = torch.ones_like(depth, dtype=torch.bool) if vis0 is None else ~vis0
+    if not depth.is_cuda:
+        corners, key = round_inputs_plain(uv_rot, index, depth, lo6, hi6, part)
+        return corners, key, binned_winner_plain(*corners, key, RASTER_RES, _MARGIN)
+    dev, F = depth.device, depth.shape[0]
+    stats = torch.zeros(_STATS, dtype=torch.int32, device=dev)
+    stats[9:15] = _sortable(lo6)
+    stats[15:21] = _sortable(hi6)
+    nw = -(-F // 32)
+    bits = torch.zeros(nw * 32, dtype=torch.int64, device=dev)
+    if vis0 is not None:
+        bits[:F] = vis0.long()
+    words = (bits.view(nw, 32) << torch.arange(32, device=dev)).sum(1).to(torch.int32)
+    corners = torch.empty(6, F, dtype=torch.float32, device=dev)
+    key = torch.empty(F, dtype=torch.int32, device=dev)
+    winner = torch.full((RASTER_RES * RASTER_RES,), WINNER_SINK, dtype=torch.int32, device=dev)
+    inputs = [uv_rot.float().contiguous(), index.to(torch.int32).contiguous(), depth.float().contiguous()]
+    err = _fn("uw_round", [_P] * 5 + [_I, _I] + [_P] * 4)(
+        *(t.data_ptr() for t in inputs), stats.data_ptr(), words.data_ptr(), F, 0 if vis0 is None else 1,
+        corners.data_ptr(), key.data_ptr(), winner.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "uw_round")
+    binned_winner.launches += 1
+    return corners, key, winner
+
+
 def unwrap_core(px, py, pz, fa, fb, fc, island_padding: float = 0.02):
-    """Kernel K9 on CUDA tensors (``unwrap_core_plain``'s stages as passes
-    over the faces, with K8 for the two visibility rasters), its plain
-    version on CPU tensors; same arguments and results."""
+    """Kernel K9 on CUDA tensors (``unwrap_core_plain``'s stages as one
+    chain of passes over the faces, its two visibility rasters K8's unwrap
+    form), its plain version on CPU tensors; same arguments and results.
+    No host sync: the whole chain is launched by one call."""
     if not px.is_cuda:
         return unwrap_core_plain(px, py, pz, fa, fb, fc, island_padding)
     dev = px.device
     Nv, F = px.shape[0], fa.shape[0]
-    pos = kernels.aligned(torch.stack([px, py, pz]).float())
-    faces = kernels.aligned(torch.stack([fa, fb, fc]).to(torch.int32))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    i32 = dict(dtype=torch.int32, device=dev)
-    # per-slot sortable min/max: bbox (3 min, 3 max), mdd (3), rotated lo/hi
-    # (6, 6), depth min/max per round (6, 6), overlap-slice u/v lo/hi (4 x 6)
-    stats = torch.empty(6 + 3 + 12 + 24 + 24, **i32)
-    stats[0:3] = _INF_S
-    stats[3:6] = _NINF_S
-    stats[6:9] = 0
-    stats[9:15] = _INF_S
-    stats[15:21] = _NINF_S
-    for r in range(2):
-        stats[21 + 12 * r : 27 + 12 * r] = _INF_S
-        stats[27 + 12 * r : 33 + 12 * r] = _NINF_S
-    stats[45:57] = _INF_S  # ulo, vlo of slices 6..11
-    stats[57:69] = _NINF_S  # uhi, vhi
-    index = torch.empty(F, **i32)
-    depth = torch.empty(F, dtype=torch.float32, device=dev)
-    uv = torch.empty(6, F, dtype=torch.float32, device=dev)  # [u0, u1, u2, v0, v1, v2] while unwrapping
-    corners = torch.empty(6, F, dtype=torch.float32, device=dev)  # K8's inputs
-    key = torch.empty(F, **i32)
-    vis = torch.empty(2, F, dtype=torch.uint8, device=dev)
-    atlas = torch.empty(F, **i32)
     out = torch.empty(F, 6, dtype=torch.float32, device=dev)
-    nblk = (F + 255) // 256
-    partial = torch.empty(max(nblk, 1), 6, 7, dtype=torch.float32, device=dev)
-    ptr = lambda t: t.data_ptr()  # noqa: E731
-
-    kernels.check(_fn("uw_bbox", [_P, _I, _P, _P])(ptr(pos), Nv, ptr(stats), stream), "uw_bbox")
-    kernels.check(_fn("uw_faces_index", [_P, _I, _P, _I, _P, _P, _P, _P])(
-        ptr(pos), Nv, ptr(faces), F, ptr(stats), ptr(index), ptr(depth), stream), "uw_faces_index")
-    kernels.check(_fn("uw_faces_project", [_P, _I, _P, _I, _P, _P, _P, _P, _P])(
-        ptr(pos), Nv, ptr(faces), F, ptr(stats), ptr(index), ptr(uv), ptr(partial), stream), "uw_faces_project")
-    angles = _angles(partial.sum(0)).contiguous()  # fixed-order reduction of the partials
-    kernels.check(_fn("uw_faces_rotate", [_P, _I, _P, _P, _P, _P])(
-        ptr(uv), F, ptr(index), ptr(angles), ptr(stats), stream), "uw_faces_rotate")
-    for r in range(2):
-        kernels.check(_fn("uw_round_prepare", [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P])(
-            ptr(uv), F, ptr(index), ptr(depth), ptr(vis), r, ptr(corners), ptr(key), ptr(stats), stream),
-            "uw_round_prepare")
-        winner = binned_winner(*corners, key, RASTER_RES, _MARGIN)
-        kernels.check(_fn("uw_round_visible", [_P, _I, _P, _P, _P, _P, _I, _P, _P])(
-            ptr(uv), F, ptr(index), ptr(depth), ptr(winner), ptr(stats), r, ptr(vis), stream), "uw_round_visible")
-    kernels.check(_fn("uw_atlas", [_P, _I, _P, _P, _P, _P, _P])(
-        ptr(uv), F, ptr(index), ptr(vis), ptr(atlas), ptr(stats), stream), "uw_atlas")
-    pool = (atlas >= 12).to(torch.int32)
-    ids = torch.cumsum(pool, 0, dtype=torch.int32)  # the prefix over the pool flags
-    n_rem = ids[-1:] if F else torch.zeros(1, **i32)
+    atlas = torch.empty(F, dtype=torch.int32, device=dev)
+    if F == 0:  # no face, no slice to rotate
+        return out.t(), atlas, torch.stack([torch.ones(6, device=dev), torch.zeros(6, device=dev)])
+    angles = torch.empty(2, 6, dtype=torch.float32, device=dev)
+    pos = [t.float().contiguous() for t in (px, py, pz)]
+    corners = [t.to(torch.int32).contiguous() for t in (fa, fb, fc)]
+    ws = torch.empty(_fn("uw_workspace_words", [_I], ctypes.c_longlong)(F), dtype=torch.int32, device=dev)
     pad = island_padding
-    kernels.check(_fn("uw_place", [_P, _I, _P, _P, _P, _P] + [_F] * 4 + [_P, _P])(
-        ptr(uv), F, ptr(atlas), ptr(ids), ptr(n_rem), ptr(stats), _f32(pad), _f32(1 - 2 * pad), _f32(1 - pad),
-        _f32(pad * 0.5), ptr(out), stream), "uw_place")
+    err = _fn("uw_unwrap", [_P] * 3 + [_I] + [_P] * 3 + [_I] + [_F] * 4 + [_P] * 5)(
+        *(t.data_ptr() for t in pos), Nv, *(t.data_ptr() for t in corners), F, _f32(pad), _f32(1 - 2 * pad),
+        _f32(1 - pad), _f32(pad * 0.5), ws.data_ptr(), out.data_ptr(), atlas.data_ptr(), angles.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "uw_unwrap")
     unwrap_core.launches += 1
+    binned_winner.launches += 2  # the two visibility rasters are K8's
     return out.t(), atlas, angles
 
 

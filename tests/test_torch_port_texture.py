@@ -224,17 +224,57 @@ def test_points_planes_relayout(dtype):
     assert torch.equal(got, planes.to(torch.bfloat16).permute(0, 2, 3, 1))
 
 
+def _warp_mix(seed=12, res=256):
+    """Per-corner UV rows of 4 warps of 32 faces: in each, one oversized
+    face (legs 0.3-0.9 of the atlas) at a random lane among tiny ones, and
+    every third face degenerate or off the atlas (no candidates), so faces
+    with many candidates sit beside faces with none."""
+    rng = np.random.default_rng(seed)
+    tri = rng.random((128, 1, 2)) + rng.standard_normal((128, 3, 2)) * 1.5 / res
+    tri[::3] = rng.random((1, 1, 2)) + np.zeros((3, 2))  # degenerate: a point
+    tri[1::9] += 2.0  # off the atlas
+    for w in range(4):
+        lane = 32 * w + int(rng.integers(32))
+        legs = 0.3 + 0.6 * rng.random(2)
+        tri[lane] = np.array([[0.05, 0.05], [0.05 + legs[0], 0.05], [0.05, 0.05 + legs[1]]])
+    tri = tri.astype(np.float32)
+    return [np.ascontiguousarray(tri[:, c, d]) for c in range(3) for d in range(2)]
+
+
 @pytest.mark.cuda
 def test_winner_kernel_matches_plain():
     """K8 on the card against its plain version: bit-equal winners at 512^2
-    (face ids, margin 0) and 100^2 (depth keys, margin 0.05)."""
+    (face ids, margin 0) and 100^2 (depth keys, margin 0.05); in warps that
+    hold one oversized face among tiny ones and faces with no candidates;
+    and K8's unwrap form (``uv_unwrap_device.unwrap_round``, both rounds)
+    on a random unwrap state: its corners and keys equal to the plain
+    loader's (``round_inputs_plain``, the corners and keys the plain round
+    rasterizes), its winner to the plain raster's."""
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for res, margin, kind in ((512, 0.0, "id"), (100, 0.05, "depth")):
-        corners = [torch.from_numpy(c).cuda() for c in _atlas(10, 20000, res)]
+    cases = [(_atlas(10, 20000, 512), 512, 0.0, "id"), (_atlas(10, 20000, 100), 100, 0.05, "depth"),
+             (_warp_mix(), 256, 0.0, "id"), (_warp_mix(), 256, 0.05, "depth")]
+    for rows, res, margin, kind in cases:
+        corners = [torch.from_numpy(c).cuda() for c in rows]
         key = torch.from_numpy(_keys(kind, corners[0].shape[0], 11)).cuda()
         got = tb.binned_winner(*corners, key, res, margin)
         assert torch.equal(got, tb.binned_winner_plain(*corners, key, res, margin))
+    rng = np.random.default_rng(13)
+    F = 40000
+    index = torch.from_numpy(rng.integers(0, 6, F).astype(np.int32)).cuda()
+    base = rng.random((2, 1, F)) * 2 - 1  # atlas-like: a texel or two per face
+    uv_rot = torch.from_numpy((base + 0.01 * rng.standard_normal((2, 3, F))).reshape(6, F).astype(np.float32)).cuda()
+    depth = torch.from_numpy(rng.standard_normal(F).astype(np.float32)).cuda()
+    lo6 = torch.stack([uv_rot[:, index == s].min() for s in range(6)])
+    hi6 = torch.stack([uv_rot[:, index == s].max() for s in range(6)])
+    for vis0 in (None, torch.from_numpy(rng.random(F) < 0.9).cuda()):
+        corners, key, winner = ud.unwrap_round(uv_rot, index, depth, lo6, hi6, vis0)
+        part = torch.ones(F, dtype=torch.bool, device="cuda") if vis0 is None else ~vis0
+        ref_corners, ref_key = ud.round_inputs_plain(uv_rot, index, depth, lo6, hi6, part)
+        assert torch.equal(corners, ref_corners) and torch.equal(key, ref_key)
+        assert torch.equal(winner, tb.binned_winner_plain(*ref_corners, ref_key, 1024, 0.05))
 
 
 @pytest.mark.cuda

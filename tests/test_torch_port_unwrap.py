@@ -1,7 +1,12 @@
 """Port parity for the device UV unwrap: the plain version of kernel K9
 against ``uv_unwrap_device._unwrap_core`` / ``unwrap_device`` on a decoded
-tiny-SF3D mesh, and the JAX program's empty-slice fault, which the port
+tiny-SF3D mesh, K9's decomposition of the visibility rounds (the depth
+ranges its passes reduce, K8's unwrap-form loader) against
+``_depth_round``, and the JAX program's empty-slice fault, which the port
 repairs. Kernel K9 itself runs only on the card (the ``cuda`` test)."""
+
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -107,21 +112,95 @@ def test_unwrap_device_matches_jax(mesh):
     np.testing.assert_array_equal(uniq[idx], flat)
 
 
-def test_empty_slice_gives_finite_uvs():
+def _jax_round(uc, vc, index, depth, participate):
+    """The JAX package's ``_depth_round`` on the port's normalised UVs,
+    slices and depths (torch tensors), retried until its pair lists fit ->
+    visible (F,) bool."""
+    F = len(depth)
+    args = ([jnp.asarray(c.numpy()) for c in uc], [jnp.asarray(c.numpy()) for c in vc], jnp.asarray(index.numpy()),
+            jnp.asarray(depth.numpy()), jnp.asarray(participate.numpy()))
+    caps = [1 << max(16, int(4 * size_bucket(F) - 1).bit_length()), 1 << 16, 1 << 16]
+    while True:
+        vis, fine, coarse, n_multi = jud._depth_round(*args, tuple(caps))
+        over = [int(n) > cap for n, cap in zip((fine, coarse, n_multi), caps)]
+        if not any(over):
+            return np.asarray(vis)
+        caps = [2 * cap if o else cap for cap, o in zip(caps, over)]
+
+
+def test_round_decomposition_matches_jax(mesh, monkeypatch):
+    """K9 splits each visibility round otherwise than ``_depth_round``:
+    round 0's per-slice depth range is reduced over all faces (in the pass
+    that finds the slices), round 1's over the faces round 0 hid (in round
+    0's test), and K8's unwrap form forms the corners and keys from the
+    rotated, not yet normalised UVs. On the tiny SF3D mesh: each range
+    equals the JAX program's over the round's participants, the corners and
+    keys ``unwrap_round`` forms (its plain loader here) equal those
+    ``_depth_round_plain`` rasterizes, and the visibility from them equals
+    the JAX ``_depth_round``'s in both rounds."""
+    verts, faces = mesh
+    rp = verts @ _main_axis_rotation(verts).T
+    pos = torch.from_numpy(np.ascontiguousarray(rp.T, np.float32))
+    f = torch.from_numpy(np.ascontiguousarray(faces.T, np.int32))
+    recorded, plain = [], ud.binned_winner_plain
+    monkeypatch.setattr(ud, "binned_winner_plain", lambda *a: recorded.append(a) or plain(*a))
+    _, atlas, angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2])
+    monkeypatch.undo()
+    index, depth, r6, lo6, hi6, _ = ud.unwrap_slices_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], angles)
+    ix = index.long()
+    scale = (hi6[ix] - lo6[ix]).clamp_min(1e-12)
+    uc = [(r6[c] - lo6[ix]) / scale for c in range(3)]
+    vc = [(r6[3 + c] - lo6[ix]) / scale for c in range(3)]
+    vis0 = None
+    for r in range(2):
+        part = torch.ones_like(depth, dtype=torch.bool) if vis0 is None else ~vis0
+        corners, key, winner = ud.unwrap_round(r6, index, depth, lo6, hi6, vis0)
+        assert torch.equal(corners, torch.stack(recorded[r][:6])) and torch.equal(key, recorded[r][6])
+        # the participants' per-slice range, as the kernel's passes reduce it
+        slot = torch.where(part, ix, 6)
+        inf = torch.full((7,), float("inf"))
+        dmin = inf.scatter_reduce(0, slot, depth, "amin")[:6]
+        dmax = (-inf).scatter_reduce(0, slot, depth, "amax")[:6]
+        d, p = depth.numpy(), part.numpy()
+        for s in range(6):
+            m = p & (index.numpy() == s)
+            assert float(dmin[s]) == float(jnp.min(jnp.where(m, d, jnp.inf)))
+            assert float(dmax[s]) == float(jnp.max(jnp.where(m, d, -jnp.inf)))
+        # each face at its centroid texel of the round's winner
+        eps = (0.02 * (dmax - dmin).clamp_min(1e-6))[ix]
+        gx, gy = (index % 4).float(), (index // 4).float()
+        cu = ud._warp((uc[0] + uc[1] + uc[2]) * ud._THIRD, gx)
+        cv = ud._warp((vc[0] + vc[1] + vc[2]) * ud._THIRD, gy)
+        cx, cy = ((c * 1023.0).round().long().clamp(0, 1023) for c in (cu, cv))
+        wkey = winner[cy * 1024 + cx]
+        vis = (wkey >= ud.WINNER_SINK - 1) | (ud._unsortable(~wkey) <= depth + eps)
+        np.testing.assert_array_equal(vis.numpy(), _jax_round(uc, vc, index, depth, part))
+        kept = vis if vis0 is None else kept | (vis & part)
+        vis0 = vis
+    assert torch.equal(kept, atlas < 12)  # the faces the two rounds keep are the atlas's first two classes
+
+
+def _terrain(n=24, x0=0.0):
     """A terrain patch whose faces all look one way along the thin axis, so
-    one cube slice is empty. The JAX device program looks the slices' lo/hi
-    up with a one-hot product, where the empty slice's +-inf times 0 is NaN
-    for every face: its UVs (the NaN quantized to u16) disagree with the JAX
-    package's own host reconstruction, which gathers, on every face (the
-    reference's fault). The port gathers: its UVs are finite and equal that
-    reconstruction from its atlas indices and angles."""
-    n = 24
-    x, y = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-0.6, 0.6, n))
+    one cube slice is empty; centred at x = ``x0``."""
+    x, y = np.meshgrid(np.linspace(x0 - 1, x0 + 1, n), np.linspace(-0.6, 0.6, n))
     z = 0.15 * np.sin(2.5 * x) * np.cos(3 * y)
     verts = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
     i, j = np.arange(n - 1)[:, None] * n, np.arange(n - 1)[None, :]
     a, b, c, d = i + j, i + j + 1, i + n + j, i + n + j + 1
     faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3), np.stack([b, d, c], -1).reshape(-1, 3)])
+    return verts, faces
+
+
+def test_empty_slice_gives_finite_uvs():
+    """A terrain patch with an empty cube slice (``_terrain``). The JAX
+    device program looks the slices' lo/hi up with a one-hot product, where
+    the empty slice's +-inf times 0 is NaN for every face: its UVs (the NaN
+    quantized to u16) disagree with the JAX package's own host
+    reconstruction, which gathers, on every face (the reference's fault).
+    The port gathers: its UVs are finite and equal that reconstruction from
+    its atlas indices and angles."""
+    verts, faces = _terrain()
     rp, ref_uv, ref_atlas, ref_angles = _jax_unwrap(verts, faces)
     rec = jud.reconstruct_uvs_numpy(rp, faces, ref_atlas, ref_angles[0], ref_angles[1], 0.02)
     assert (np.abs(ref_uv - rec).reshape(len(faces), -1).max(1) > 1e-3).all()  # the reference's fault
@@ -137,15 +216,30 @@ def test_empty_slice_gives_finite_uvs():
 def test_unwrap_kernel_matches_plain(mesh):
     """K9 on the card against its plain version given the kernel's slice
     angles (the one order-dependent sum, held to the plain sum within
-    1e-5): the same atlas index on every face, UVs within 1e-5."""
+    1e-5): the same atlas index on every face, UVs within 1e-5. On the
+    tiny SF3D mesh, the terrain patch with an empty slice (moved off the z
+    axis: centred on it, a slice's mean expected tangent is near zero and
+    its angle turns with the order of the sum, by 1.4 rad between two face
+    orders of the plain version itself), and ``chip_smoke.layered_sheets``
+    (281 600 faces, ~0.26 M of them in the pool: its prefix spans five scan
+    tiles; round 1's depth range decides which back sheet is kept)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    verts, faces = mesh
-    rp = verts @ _main_axis_rotation(verts).T
-    pos = torch.from_numpy(np.ascontiguousarray(rp.T, np.float32)).cuda()
-    f = torch.from_numpy(np.ascontiguousarray(faces.T, np.int32)).cuda()
-    uv, atlas, angles = ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2], 0.02)
-    ref_uv, ref_atlas, ref_angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], 0.02)
-    assert (angles - ref_angles).abs().max() <= 1e-5
-    ref_uv, ref_atlas, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], 0.02, angles=angles)
-    assert torch.equal(atlas, ref_atlas) and (uv - ref_uv).abs().max() <= 1e-5
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+
+    def rotated(verts, faces):
+        rp = verts @ _main_axis_rotation(verts).T
+        return (torch.from_numpy(np.ascontiguousarray(rp.T, np.float32)).cuda(),
+                torch.from_numpy(np.ascontiguousarray(faces.T, np.int32)).cuda())
+
+    for pos, f in (rotated(*mesh), rotated(*_terrain(x0=2.0)), chip_smoke.layered_sheets()):
+        uv, atlas, angles = ud.unwrap_core(pos[0], pos[1], pos[2], f[0], f[1], f[2], 0.02)
+        ref_uv, ref_atlas, ref_angles = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], 0.02)
+        assert (angles - ref_angles).abs().max() <= 1e-5
+        ref_uv, ref_atlas, _ = ud.unwrap_core_plain(pos[0], pos[1], pos[2], f[0], f[1], f[2], 0.02, angles=angles)
+        assert torch.equal(atlas, ref_atlas) and (uv - ref_uv).abs().max() <= 1e-5
+        assert bool(torch.isfinite(uv).all())
