@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero):
    switched off for matmuls and convolutions so the f32 checks compare
    full-precision math.
 2. Kernel checks at the main path's shapes and at ragged ones (K1 at
-   B=2, Nq=129, Nk=77, H=3; K2 at R = 64 and 100): each kernel against its
+   B=2, Nq=129, Nk=77, H=3, and at head dim 88: SingleStreamTransformer's
+   27 648 tokens x 16 heads, the ragged shape, and in f32; K2 at R = 64
+   and 100): each kernel against its
    plain PyTorch version on the same inputs, with its time, the plain
    version's time, a library yardstick where one exists, the least time the
    card could take (bound) and the ratios ms / library ms and bound / ms.
@@ -51,7 +53,12 @@ Phases (any failure raises and exits non-zero):
 4. Frontend checks: a narrow u2net (``SMALL_CONFIG``) at 64^2 on the card
    against the same weights on the CPU; the full u2net at 320^2 on the card
    (finite, masks in [0, 1]); ``preprocess_batch_device`` on the card
-   against the CPU on the same RGBA.
+   against the CPU on the same RGBA. Then the session zoo at full width
+   (``session_zoo`` lines): each session from ``new_session`` on its device
+   method at its input size (u2netp, u2net_human_seg, silueta at 320^2,
+   ISNet at 1024^2, the cloth session's class map at 768^2, SAM ViT-B's
+   encode and a point and a box decode, one ViT-H encode), finite masks in
+   [0, 1], ms per image; a narrow ISNet and a tiny SAM card vs CPU.
 5. The serving path at full width: ``AssetFarm.generate_batch_rgba`` on
    eight raw 512^2 RGBA images with full-u2net matting, the fused
    preprocess, encode and 256^3 extraction with vertex colors; one batch
@@ -108,9 +115,16 @@ Phases (any failure raises and exits non-zero):
    ``model.safetensors`` (and ``config.yaml`` where ``yaml`` imports),
    ``Fast3DGenerator().initiate_model(dir)`` timed, and one untextured
    asset equal to that of a model given the same weights directly.
+   Then SF3D's unused backbone modules (``dead_upstream_path`` lines): a
+   ``SingleStreamTransformer`` at its class defaults over 27 648 tokens
+   (K1 at head dim 88, 32 launches) and ``TriplaneAttention`` full at res
+   96 (K1) and masked at res 32 (plain), bf16, timed; narrow versions of
+   both card vs CPU in f32.
 10. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
    serving batch and K1's times summed over a Lean asset, as before the
-   SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys; K5's
+   SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys, its
+   head-dim-88 time at SingleStreamTransformer's shape under ``d88_*``
+   keys and the dead-upstream runs' launches in ``launches_by_path``; K5's
    launches counted on the untextured SF3D asset; K6's, K8's and K9's on
    the textured one; K3's and K4's on the TripoGenerator asset, K4's per
    path beside them; K10's on the packed asset; K7's on the untextured SF3D
@@ -198,6 +212,11 @@ K4_NOISE_FACTOR = 2.0
 # A narrow model's render on the card (K4, bf16) against the CPU's (plain
 # K4, bf16) from the same codes, on views in [0, 1]
 RENDER_LIMIT = 0.02
+# K1's check case at SingleStreamTransformer's shape (head dim 88)
+SST_CASE = "single-stream transformer (16 x 88)"
+# The narrow card-vs-CPU checks of the new paths (f32, TF32 off): within
+# this share of max |CPU output|, as the u2net's
+CARD_CPU_SHARE = 1e-4
 
 # Deliberate faults, each one edit to a kernel source, that the kernel
 # checks must fail: (name, kernel, text, replacement[, file]), the file
@@ -211,6 +230,13 @@ PLANTED_FAULTS = (
      "const bool v0 = col < (Nk & ~(BKV - 1)), v1 = col + 1 < (Nk & ~(BKV - 1));"),
     ("K1 drops the rescale of O when the running max moves", "flash_attn",
      "acc[4 * n] *= al[0]; acc[4 * n + 1] *= al[0]; acc[4 * n + 2] *= al[1]; acc[4 * n + 3] *= al[1];", ";"),
+    # at D = 88 the tensor maps' extent (D) zero-fills columns 88-95: with the
+    # padded width there, they load the next head's first columns
+    ("K1's pad columns are not zeroed at D = 88", "flash_attn",
+     "const cuuint64_t width = D;", "const cuuint64_t width = T::DP;"),
+    ("K1 takes its scale from the padded D", "flash_attn",
+     "const float scale = (float)(1.0 / sqrt((double)D));",
+     "const float scale = (float)(1.0 / sqrt((double)((D + 15) / 16 * 16)));"),
     ("K2 reads B[i, k] for B[k, i]", "density_grid",
      "sb[2] = {rowb, planeb}", "sb[2] = {planeb, rowb}"),
     ("K2 drops the first layer (h1 = 0)", "density_grid",
@@ -323,6 +349,8 @@ PLANTED_FAULTS = (
 # whose hidden faces span a tenth of the depth range and fill the pool over
 # five scan tiles
 PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
+                     "K1's pad columns are not zeroed at D = 88": ("single-stream transformer",),
+                     "K1 takes its scale from the padded D": ("single-stream transformer", "ragged batched d88 f32"),
                      "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3"),
                      "K7's class base misses the earlier classes' totals": ("multi-tile res 100",),
                      "K9's round-1 depth range is over all faces": ("layered sheets",),
@@ -401,16 +429,19 @@ def check_attention(g, timed=True):
     """K1 at the three attention shapes of the Lean path and the six of the
     SF3D path in bf16, a ragged batched case, and once in f32, against the
     plain version (each shape's limit from its reference, as set out
-    above). Every case is checked and printed before a failure raises. With
-    ``timed``, each passing case also gets its time, the plain version's,
-    SDPA's (yardstick only) and its bound, summed per asset of each path."""
+    above); at head dim 88 at SingleStreamTransformer's shape (16 heads over
+    3 x 96^2 tokens), at the ragged batched shape, and in f32. Every case is
+    checked and printed before a failure raises. With ``timed``, each
+    passing case also gets its time, the plain version's, SDPA's (yardstick
+    only) and its bound, summed per asset of each path; the head-dim-88
+    shape's row is returned apart."""
     from sculptmate_tpu_torch.ops.attention import dot_product_attention_plain, flash_attention
 
     sdpa = torch.nn.functional.scaled_dot_product_attention  # yardstick only
     # (name, B, Nq, Nk, H, launches per Lean asset, per SF3D asset, dtype,
-    # scale of v). With 77 (or 50) keys the outputs reach ~1.5, where half a
-    # bf16 ulp alone is 3.9e-3: v at half scale keeps |o| < 1, as at the
-    # main path's shapes
+    # scale of v[, head dim: 64 unless given]). With 77 (or 50) keys the
+    # outputs reach ~1.5, where half a bf16 ulp alone is 3.9e-3: v at half
+    # scale keeps |o| < 1, as at the main path's shapes
     cases = [
         ("backbone attn1", 1, 3072, 3072, 16, 16, 0, torch.bfloat16, 1.0),
         ("backbone attn2", 1, 3072, 1025, 16, 16, 0, torch.bfloat16, 1.0),
@@ -423,13 +454,17 @@ def check_attention(g, timed=True):
         ("sf3d clip vit-b/32", 1, 50, 50, 12, 0, 12, torch.bfloat16, 0.5),
         ("ragged batched", 2, 129, 77, 3, 0, 0, torch.bfloat16, 0.5),
         ("backbone attn2 f32", 1, 3072, 1025, 16, 0, 0, torch.float32, 1.0),
+        (SST_CASE, 1, 27648, 27648, 16, 0, 0, torch.bfloat16, 1.0, 88),
+        ("ragged batched d88", 2, 129, 77, 3, 0, 0, torch.bfloat16, 0.5, 88),
+        ("ragged batched d88 f32", 2, 129, 77, 3, 0, 0, torch.float32, 0.5, 88),
+        ("d88 f32 (1025 x 1025 x 4)", 1, 1025, 1025, 4, 0, 0, torch.float32, 1.0, 88),
     ]
     totals = {path: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0} for path in ("lean", "sf3d")}
     # bound ms per path and per kind (bytes or operations): the per-asset
     # bound is bound by the kind that holds most of it
-    worst, worst_share, bound_by, failures = 0.0, 0.0, {"lean": {}, "sf3d": {}}, []
-    for name, B, Nq, Nk, H, lean_n, sf3d_n, dt, v_scale in cases:
-        D = 64
+    worst, worst_share, bound_by, failures, d88 = 0.0, 0.0, {"lean": {}, "sf3d": {}}, [], None
+    for name, B, Nq, Nk, H, lean_n, sf3d_n, dt, v_scale, *head_dim in cases:
+        D = head_dim[0] if head_dim else 64
         q = torch.randn(B, Nq, H, D, device="cuda", generator=g).to(dt)
         k = torch.randn(B, Nk, H, D, device="cuda", generator=g).to(dt)
         v = (v_scale * torch.randn(B, Nk, H, D, device="cuda", generator=g)).to(dt)
@@ -462,6 +497,8 @@ def check_attention(g, timed=True):
         log(json.dumps({**line, "check_passed": True, **row, "bound_by": by,
                         "launches_per_asset": {"lean": lean_n, "sf3d": sf3d_n},
                         "ms_over_library": row["ms"] / row["library_ms"], "bound_share": bound / row["ms"]}))
+        if name == SST_CASE:
+            d88 = {**row, "bound_by": by}
         for path, n in (("lean", lean_n), ("sf3d", sf3d_n)):
             if n:
                 bound_by[path][by] = bound_by[path].get(by, 0.0) + n * bound
@@ -470,8 +507,9 @@ def check_attention(g, timed=True):
     if failures:
         raise AssertionError("K1 " + "; ".join(failures))
     # worst bf16 error and error over limit; per-asset sums and what bounds
-    # them, per path
-    return (worst, worst_share), totals, {path: max(b, key=b.get, default=None) for path, b in bound_by.items()}
+    # them, per path; the head-dim-88 row
+    return ((worst, worst_share), totals, {path: max(b, key=b.get, default=None) for path, b in bound_by.items()},
+            d88)
 
 
 def sm_clock_hz():
@@ -2187,6 +2225,204 @@ def frontend_checks():
     return matting
 
 
+def card_vs_cpu(name, cpu_fn, card_fn):
+    """``card_fn()`` on the card against ``cpu_fn()`` on the CPU (each a
+    tuple of tensors): within CARD_CPU_SHARE of max |CPU output| each."""
+    ref, got = cpu_fn(), card_fn()
+    errs = [(g.cpu() - r).abs().max().item() for g, r in zip(got, ref)]
+    limits = [CARD_CPU_SHARE * r.abs().max().item() for r in ref]
+    ok = all(e <= lim for e, lim in zip(errs, limits)) and all(bool(torch.isfinite(g).all()) for g in got)
+    log(json.dumps({"check": f"{name}, card vs CPU", "max_abs_err": errs, "limit": limits, "check_passed": ok}))
+    if not ok:
+        raise AssertionError(f"{name} disagrees between the card and the CPU: {errs} > {limits}")
+
+
+def _seeded_batchnorm(net, rng):
+    """Random BatchNorm scales, biases and running statistics (a
+    checkpoint's are not 1, 0, 0, 1)."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy(0.1 * rng.standard_normal(n).astype(np.float32)))
+                m.running_mean.copy_(torch.from_numpy(0.1 * rng.standard_normal(n).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+    return net.eval()
+
+
+def session_zoo_path():
+    """The rembg session zoo at full width with seeded weights, each session
+    made by ``new_session`` on the card and driven through its device method
+    at its input size: u2netp, u2net_human_seg and silueta at 320^2, ISNet
+    (isnet-general-use) at 1024^2, the cloth session at 768^2 (its class
+    map in 0..3), SAM ViT-B (one encode of a 1024^2 canvas, then a point
+    prompt and a box prompt decoded) and one ViT-H encode. Masks finite in
+    [0, 1]; ms per image (CUDA events, after a warm-up), and for the
+    matting sessions one call's device time and launches (``device_split``,
+    a ``session_split`` line each). Then a narrow ISNet
+    (64^2) and a tiny SAM (dim 32, 128^2) on the card against the CPU."""
+    from sculptmate_tpu_torch.frontend.isnet import ISNet
+    from sculptmate_tpu_torch.frontend.sam import Sam, SamSession
+    from sculptmate_tpu_torch.frontend.sessions import new_session
+
+    rng = np.random.default_rng(9)
+    ms_per_image, failures = {}, []
+
+    def record(name, shape, ok, ms, **extra):
+        ms_per_image[name] = ms
+        log(json.dumps({"session_zoo": name, "shape": list(shape), "finite_in_range": ok, "ms_per_image": ms,
+                        **extra}))
+        if not ok:
+            failures.append(name)
+
+    for name in ("u2netp", "u2net_human_seg", "silueta", "isnet-general-use", "u2net_cloth_seg"):
+        sess = new_session(name, device="cuda")
+        imgs = torch.from_numpy(rng.random((1, *sess.input_size, 3), np.float32)).cuda()
+        if name == "u2net_cloth_seg":
+            fn = lambda sess=sess, imgs=imgs: sess.predict_classes_batch(imgs)  # noqa: E731
+            out = fn()
+            ok = out.shape == (1, *sess.input_size) and int(out.min()) >= 0 and int(out.max()) <= 3
+            extra = {"class_counts": torch.bincount(out.flatten(), minlength=4).tolist()}
+        else:
+            fn = lambda sess=sess, imgs=imgs: sess.predict_mask_batch(imgs)  # noqa: E731
+            out = fn()
+            ok = (out.shape == (1, *sess.input_size) and bool(torch.isfinite(out).all())
+                  and out.min().item() >= 0.0 and out.max().item() <= 1.0)
+            extra = {"mask_mean": out.mean().item()}
+        split = device_split("session_split", name, fn)
+        extra.update(device_sum_ms=split["sum_ms"], device_range_ms=split["range_ms"], launches=split["launches"])
+        record(name, out.shape, ok, cuda_ms(fn, iters=5, warmup=3, graph=False), **extra)
+        del sess
+    new_session.cache_clear()
+
+    sam = new_session("sam", device="cuda")  # ViT-B
+    canvas = torch.from_numpy(255 * rng.random((1, 1024, 1024, 3), np.float32)).cuda()
+    emb = sam.encode_batch(canvas)
+    prompts = {"point": ([[500.0, 400.0], [0.0, 0.0]], [1, -1]),
+               "box": ([[100.0, 150.0], [800.0, 900.0], [0.0, 0.0]], [2, 3, -1])}
+    decode_ms = {}
+    for kind, (pts, lbl) in prompts.items():
+        pts_t = torch.tensor([pts], device="cuda")
+        lbl_t = torch.tensor([lbl], device="cuda")
+        masks, iou = sam.decode_batch(emb, pts_t, lbl_t)
+        best = sam.predict_mask_batch(canvas, pts_t, lbl_t)
+        ok = (masks.shape == (1, 4, 256, 256) and bool(torch.isfinite(masks).all())
+              and bool(torch.isfinite(iou).all()) and set(best.unique().tolist()) <= {0.0, 1.0})
+        decode_ms[kind] = cuda_ms(lambda: sam.decode_batch(emb, pts_t, lbl_t), iters=5, warmup=1, graph=False)
+        record(f"sam vit_b decode ({kind})", masks.shape, ok, decode_ms[kind], mask_share=best.mean().item())
+    ok = emb.shape == (1, 256, 64, 64) and bool(torch.isfinite(emb).all())
+    record("sam vit_b encode", emb.shape, ok, cuda_ms(lambda: sam.encode_batch(canvas), iters=3, warmup=1,
+                                                      graph=False))
+    del sam, emb
+    new_session.cache_clear()
+    vit_h = SamSession(variant="vit_h", device="cuda")
+    emb = vit_h.encode_batch(canvas)
+    ok = emb.shape == (1, 256, 64, 64) and bool(torch.isfinite(emb).all())
+    record("sam vit_h encode", emb.shape, ok, cuda_ms(lambda: vit_h.encode_batch(canvas), iters=2, warmup=0,
+                                                      graph=False))
+    del vit_h, emb
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"session zoo outputs out of range: {failures}")
+
+    cpu = ISNet()
+    cpu.reset_parameters(torch.Generator().manual_seed(9))
+    _seeded_batchnorm(cpu, rng)
+    card = ISNet().cuda()
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    x = torch.from_numpy(rng.standard_normal((1, 3, 64, 64), np.float32))
+    with torch.no_grad():
+        card_vs_cpu("isnet 64^2", lambda: cpu(x)[1], lambda: card(x.cuda())[1])
+
+    cpu_sam = Sam(32, 2, 2, img_size=128)
+    cpu_sam.reset_parameters(torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        for name, prm in cpu_sam.named_parameters():
+            if name.endswith("bias") or "rel_pos" in name or name.endswith("pos_embed"):
+                prm.copy_(torch.from_numpy(0.2 * rng.standard_normal(prm.shape).astype(np.float32)))
+    card_sam = Sam(32, 2, 2, img_size=128).cuda()
+    card_sam.load_state_dict(cpu_sam.state_dict())
+    img = torch.from_numpy(rng.standard_normal((1, 3, 128, 128), np.float32))
+    pts = torch.tensor([[[30.0, 40.0], [10.0, 20.0], [90.0, 100.0], [0.0, 0.0]]])
+    lbl = torch.tensor([[1, 2, 3, -1]])
+    with torch.no_grad():
+        card_vs_cpu("sam tiny (dim 32, 128^2)", lambda: cpu_sam.eval()(img, pts, lbl),
+                    lambda: card_sam.eval()(img.cuda(), pts.cuda(), lbl.cuda()))
+    return ms_per_image
+
+
+def dead_upstream_path():
+    """SF3D's unused backbone modules at full width, seeded weights, bf16
+    autocast as the SF3D encode runs: one ``SingleStreamTransformer`` at its
+    class defaults (1 024 channels, 16 layers, 16 heads x 88) over 3 x 96^2 =
+    27 648 tokens, K1 counted (32 launches: two attentions a layer) and the
+    call timed; ``TriplaneAttention`` full at res 96 (dim 1 024, 16 heads,
+    one K1 launch) and masked at res 32 (plain, its O(N^2) bias; no K1
+    launch). Then narrow versions of both on the card in f32 (K1's f32
+    kernel at head dim 88 and 64) against the CPU."""
+    from sculptmate_tpu_torch.models.two_stream import SingleStreamTransformer, TriplaneAttention
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    sst = SingleStreamTransformer().cuda().eval()
+    sst.reset_parameters(g)
+    x = torch.randn(1, 1024, 3 * 96 * 96, device="cuda", generator=g)
+
+    def bf16(module, inp):
+        def run():
+            with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return module(inp)
+        return run
+
+    lines = {}
+    for key, label, module, inp, want in (
+        ("single_stream_transformer", "SingleStreamTransformer (16 x 88, 16 layers, 27 648 tokens)", sst, x, 32),
+        ("triplane_attention_full_res96", "TriplaneAttention full, res 96 (dim 1 024, 16 heads)", None, 96, 1),
+        ("triplane_attention_masked_res32", "TriplaneAttention masked, res 32 (dim 1 024, 16 heads)", None, 32, 0),
+    ):
+        if module is None:
+            module = TriplaneAttention(1024, inp, 16, full_attention=want > 0).cuda().eval()
+            module.reset_parameters(g)
+            inp = torch.randn(1, 3 * inp * inp, 1024, device="cuda", generator=g)
+        run = bf16(module, inp)
+        torch.cuda.synchronize()
+        flash_attention.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        ok = out.shape == inp.shape and bool(torch.isfinite(out).all())
+        ms = cuda_ms(run, iters=3, warmup=1, graph=False)
+        lines[key] = {"label": label, "K1_launches": launches, "ms": ms}
+        log(json.dumps({"dead_upstream_path": label, "key": key, "shape": list(out.shape), "finite": ok,
+                        "launches": {"K1": launches}, "ms": ms, "out_std": out.float().std().item()}))
+        if not ok or launches != want:
+            raise AssertionError(f"{label}: finite {ok}, K1 launches {launches} (want {want})")
+        del module, out
+    del sst, x
+    torch.cuda.empty_cache()
+
+    gc = torch.Generator().manual_seed(13)
+    cpu = SingleStreamTransformer(2, 88, 64, 2)
+    cpu.reset_parameters(gc)
+    card = SingleStreamTransformer(2, 88, 64, 2).cuda()
+    card.load_state_dict(cpu.state_dict())
+    xs = torch.randn(2, 64, 3 * 8 * 8, generator=gc)
+    with torch.no_grad():
+        card_vs_cpu("SingleStreamTransformer narrow (2 x 88, 2 layers)", lambda: (cpu(xs),), lambda: (card(xs.cuda()),))
+    for full in (True, False):
+        cpu = TriplaneAttention(128, 8, 2, qkv_bias=True, full_attention=full)
+        cpu.reset_parameters(gc)
+        card = TriplaneAttention(128, 8, 2, qkv_bias=True, full_attention=full).cuda()
+        card.load_state_dict(cpu.state_dict())
+        xt = torch.randn(2, 3 * 8 * 8, 128, generator=gc)
+        with torch.no_grad():
+            card_vs_cpu(f"TriplaneAttention narrow ({'full' if full else 'masked'}, res 8)", lambda: (cpu(xt),),
+                        lambda: (card(xt.cuda()),))
+    return lines
+
+
 def serving_path(tsr, matting):
     """``AssetFarm.generate_batch_rgba`` on eight raw 512^2 RGBA images, as
     ``bench.py:bench_farm`` drives the JAX farm: the counted batch (also
@@ -2288,7 +2524,7 @@ def main():
         randomize_modulations(fast.model, torch.Generator(device="cuda").manual_seed(0))
     scene = sf3d_scene(fast)
     lean = lean_scene(gen.model)
-    k1_err, k1, k1_by = check_attention(g)
+    k1_err, k1, k1_by, k1_d88 = check_attention(g)
     k2_err, k2_limit, k2, k2_by = check_density(g, gen.model)
     k5_err, k5, k5_by = check_grid_multihead(g, fast.model)
     k5_split(fast.model, scene["codes"][0])
@@ -2313,6 +2549,7 @@ def main():
     render_launches, _ = render_path(gen.model, lean)
     packed_launches, _ = packed_path(gen.model, lean, wire_sec)
     matting = frontend_checks()
+    session_ms = session_zoo_path()
     farm, rgba, threshold, launches, served = serving_path(gen.model, matting)
     async_contract(farm, matting, rgba, threshold, served)
     where_time_goes(
@@ -2327,18 +2564,23 @@ def main():
     sf3d_async_contract(fast.model, scene)
     farm_launches = sf3d_farm_path(fast.model, scene)
     sf3d_checkpoint_path(fast, scene)
+    dead_upstream = dead_upstream_path()
 
     sf3d_k1 = {f"sf3d_{key}": value for key, value in k1["sf3d"].items()}
     kernels_line = {"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/flash_attn.cu",
          "replaces": "sculptmate_tpu/ops/attention.py:30", "launches": launches["K1"],
          "launches_by_path": {"tripo_generator": lean_launches["K1"], "serving_batch_of_8": launches["K1"],
-                              "fast3d_generator": sf3d_launches["K1"]},
+                              "fast3d_generator": sf3d_launches["K1"],
+                              **{key: v["K1_launches"] for key, v in dead_upstream.items() if v["K1_launches"]}},
          "max_abs_err": k1_err[0], "limit": f"min({K1_BF16_LIMIT}, {K1_BF16_ULP} x max |ref|) per shape",
          "max_err_over_limit": k1_err[1], "check": "pass",
          "ms": k1["lean"]["ms"], "plain_ms": k1["lean"]["plain_ms"], "bound_ms": k1["lean"]["bound_ms"],
          "bound_by": k1_by["lean"], "library_ms": k1["lean"]["library_ms"],
-         "sf3d_launches": sf3d_launches["K1"], **sf3d_k1, "sf3d_bound_by": k1_by["sf3d"]},
+         "sf3d_launches": sf3d_launches["K1"], **sf3d_k1, "sf3d_bound_by": k1_by["sf3d"],
+         "d88_shape": [1, 27648, 27648, 16, 88], "d88_ms": k1_d88["ms"], "d88_plain_ms": k1_d88["plain_ms"],
+         "d88_bound_ms": k1_d88["bound_ms"], "d88_bound_by": k1_d88["bound_by"],
+         "d88_library_ms": k1_d88["library_ms"]},
         {"name": "density_grid_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/density_grid.cu",
          "replaces": "sculptmate_tpu/ops/density_grid.py:129", "launches": launches["K2"], "max_abs_err": k2_err,
          "limit": k2_limit, "check": "pass",
@@ -2418,7 +2660,11 @@ def main():
         " samples, relayout_ms its planes' channels-last copy (once per code) and weights_pack_ms its decoder's"
         " packing (once per model); K10 is the asset's 256^3 packed mesh, its launches those of"
         " the packed asset; K7 is the full-width SF3D asset's 161^3 wire at snap_eps 0.2, its launches the untextured"
-        " Fast3DGenerator asset's (per path beside them)")
+        " Fast3DGenerator asset's (per path beside them); K1's d88_* keys are one call at head dim 88 at"
+        " SingleStreamTransformer's shape (1, 27648, 27648, 16, 88), and launches_by_path counts its 32 launches in"
+        " one SingleStreamTransformer call and its 1 in one full TriplaneAttention at res 96")
+    log(json.dumps({"session_zoo_ms_per_image": session_ms,
+                    "dead_upstream_ms": {key: v["ms"] for key, v in dead_upstream.items()}}))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@
 // Design (bf16): one block per (batch x head, 128-query tile) with three
 // warpgroups. Warpgroup 2 is the producer: it gives up its registers
 // (setmaxnreg) and one of its threads loads the Q tile once and streams
-// 128-key K and V tiles by TMA into a ring of STAGES shared-memory stages,
+// 128-key (at D = 88, 96-key) K and V tiles by TMA into a ring of STAGES shared-memory stages,
 // guarded by full/empty mbarriers. Warpgroups 0 and 1 each own 64 query
 // rows: S = Q K^T is wgmma m64n128k16 with both operands in shared memory
 // (K-major, the 128-byte swizzle TMA writes), the online softmax runs on
@@ -37,6 +37,19 @@
 // on bf16 pairs (P is bf16 anyway) halve the SFU work but doubled the error
 // and, through the moves into P's registers, serialized the wgmma too.
 //
+// Head dims 64 and 88 (SF3D's unused SingleStreamTransformer, 16 heads x
+// 88), each its own instantiation. A 128-byte-swizzle TMA box is at most 64
+// bf16 wide, so a D = 88 row is two boxes, columns 0-63 and 64-127, and the
+// tensor map's extent (D) makes TMA fill columns 88-127 with zeros. Q K^T
+// then runs 6 k16 steps (columns 0-95; the zeros add nothing) and P V one
+// m64n96k16 whose MN-major V spans both boxes (LBO = one box); the store
+// drops output columns 88-95, and the scale is 1/sqrt(D), not of the padded
+// width. O takes 48 accumulators a thread there (32 at D = 64); with S's 64
+// and P's 32 of a 128-key tile the consumers spilled under ptxas's 168
+// registers a thread (384 threads a block), so D = 88 streams 96-key tiles
+// (S 48, P 24). Q and the 3-stage K/V ring take 177 KB of shared memory at
+// D = 88 (113 KB at 64).
+//
 // float32 inputs take a plain FMA kernel (one thread per query row) with its
 // own 64-key tiles; it exists so the card can check the masking and softmax
 // in full precision, and is not on the main path.
@@ -49,15 +62,32 @@ namespace {
 
 using namespace sm_port;
 
-constexpr int D = 64;       // head dim (the wrapper rejects any other)
 constexpr int BQ = 128;     // query rows per block: 2 consumer warpgroups x 64
-constexpr int BKV = 128;    // keys per ring stage (wgmma N: a multiple of 16, <= 256)
-constexpr int NJ = BKV / 8;   // 8-column accumulator blocks of S
-constexpr int NKC = BKV / 16;  // 16-key chunks of P V
 constexpr int STAGES = 3;   // K/V ring depth: tile j + 2 loads while j and j + 1 compute
-constexpr int Q_BYTES = BQ * D * 2;
-constexpr int TILE_BYTES = BKV * D * 2;  // one K or V stage (a multiple of 1024)
-constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * (2 * STAGES + 1) + 1024;
+constexpr int BOX_COLS = 64;  // bf16 columns of one 128-byte-swizzle TMA box
+constexpr int ROW_BYTES = BOX_COLS * 2;  // one row of a box
+
+// The tiles of head dim D (64 or 88; the wrapper rejects any other)
+template <int D>
+struct Tiles {
+    // keys per ring stage (wgmma N: a multiple of 16, <= 256): at D = 88, O's
+    // 48 accumulators leave no room for S's 64 and P's 32 of 128 keys
+    static constexpr int BKV = D == 64 ? 128 : 96;
+    static constexpr int NBOX = (D + BOX_COLS - 1) / BOX_COLS;  // boxes per row
+    static constexpr int DP = (D + 15) / 16 * 16;  // columns the products run over
+    static constexpr int KSTEPS = DP / 16;         // k16 steps of Q K^T
+    static constexpr int NACC = DP / 2;            // O accumulators a thread
+    static constexpr int Q_BOX = BQ * ROW_BYTES, KV_BOX = BKV * ROW_BYTES;  // one box of a tile
+    static constexpr int Q_BYTES = NBOX * Q_BOX;
+    static constexpr int TILE_BYTES = NBOX * KV_BOX;  // one K or V stage (a multiple of 1024)
+    static constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGES * TILE_BYTES + 8 * (2 * STAGES + 1) + 1024;
+    static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
+};
+
+// registers a thread after setmaxnreg: the producer hands its share to the
+// consumers (2 x 128 x CONSUMER_REGS + 128 x PRODUCER_REGS = 64 512, the
+// block's 168 a thread)
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 __device__ __forceinline__ float ex2(float x) {
     float y;
@@ -65,13 +95,16 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-// One tile's scores -> unnormalised probabilities in place (exp2 domain).
+// One tile of BKV keys' scores -> unnormalised probabilities in place (exp2
+// domain).
 // Masks the key columns >= Nk of a tile that starts at kt, updates the
 // running raw-score maxima m and per-lane sums l of this thread's rows
 // (g and g + 8), and returns in al the factors that bring what was
 // accumulated under the old maxima to the new ones.
+template <int BKV>
 __device__ __forceinline__ void online_softmax(float (&sc)[BKV / 2], int kt, int Nk, int c, float scale_log2,
                                                float (&m)[2], float (&l)[2], float (&al)[2]) {
+    constexpr int NJ = BKV / 8;  // 8-column accumulator blocks of S
     if (kt + BKV > Nk) {  // TMA loaded the keys past Nk as zeros
 #pragma unroll
         for (int jn = 0; jn < NJ; ++jn) {
@@ -113,7 +146,9 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BKV / 2], int kt, int
 
 // P as the register A operand of P V: S's accumulator blocks (2kc, 2kc+1)
 // are P's A fragment of key chunk kc
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[NKC][4], const float (&sc)[BKV / 2]) {
+template <int BKV>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4], const float (&sc)[BKV / 2]) {
+    constexpr int NKC = BKV / 16;  // 16-key chunks of P V
 #pragma unroll
     for (int kc = 0; kc < NKC; ++kc) {
         pa[kc][0] = pack_bf16(sc[8 * kc], sc[8 * kc + 1]);
@@ -123,29 +158,41 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[NKC][4], const float (&sc)
     }
 }
 
-// S = Q K^T for key tile j: 64 rows x BKV keys, D in 4 steps of 16 (+32 bytes)
-__device__ __forceinline__ void issue_qk(float (&sc)[BKV / 2], uint64_t dq, uint32_t stage) {
+// S = Q K^T for key tile j: 64 rows x BKV keys, DP columns in steps of 16
+// (+32 bytes within a box, the next box one box on)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[Tiles<D>::BKV / 2], uint64_t dq, uint32_t stage) {
+    using T = Tiles<D>;
     const uint64_t dk = desc_sw128(stage);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss<0>(sc, dq + 2 * kk, dk + 2 * kk, kk);
+    for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const int step = 2 * (kk % 4), box = kk / 4;
+        wgmma_ss<0>(sc, dq + box * (T::Q_BOX >> 4) + step, dk + box * (T::KV_BOX >> 4) + step, kk);
+    }
     wgmma_commit();
 }
 
-// O += P V: V (keys x D) is the MN-major B operand; key chunk kc starts 16
-// rows (2048 bytes) on
-__device__ __forceinline__ void issue_pv(float (&acc)[32], const uint32_t (&pa)[NKC][4], uint32_t stage) {
-    const uint64_t dv = desc_sw128(stage + TILE_BYTES);
+// O += P V: V (keys x DP) is the MN-major B operand, its 64-wide atoms one
+// box apart; key chunk kc starts 16 rows (2048 bytes) on
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[Tiles<D>::NACC], const uint32_t (&pa)[Tiles<D>::BKV / 16][4],
+                                         uint32_t stage) {
+    using T = Tiles<D>;
+    const uint64_t dv = desc_sw128(stage + T::TILE_BYTES, T::NBOX > 1 ? T::KV_BOX : 16);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < NKC; ++kc) wgmma_rs<1>(acc, pa[kc], dv + 128 * kc, 1);
+    for (int kc = 0; kc < T::BKV / 16; ++kc) wgmma_rs<1>(acc, pa[kc], dv + 128 * kc, 1);
     wgmma_commit();
 }
 
+template <int D>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, __nv_bfloat16 *__restrict__ o,
                int Nq, int Nk, int H, float scale_log2) {
+    using T = Tiles<D>;
+    constexpr int Q_BYTES = T::Q_BYTES, TILE_BYTES = T::TILE_BYTES, NACC = T::NACC, BKV = T::BKV;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms
     const uint32_t sq = base, skv = base + Q_BYTES;  // stage s: K, then V
@@ -169,30 +216,34 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
     const int wg = threadIdx.x / 128;
     if (wg == 2) {  // producer
-        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+        setmaxnreg_dec<PRODUCER_REGS>();
         if (threadIdx.x == 256) {
             mbar_expect_tx(qbar, Q_BYTES);
-            tma_load_4d(sq, &tq, qbar, 0, h, q0, b);
+#pragma unroll
+            for (int x = 0; x < T::NBOX; ++x) tma_load_4d(sq + x * T::Q_BOX, &tq, qbar, x * BOX_COLS, h, q0, b);
             for (int j = 0; j < ntiles; ++j) {
                 const int s = j % STAGES;
                 mbar_wait(empty(s), ((j / STAGES) & 1) ^ 1);
                 mbar_expect_tx(full(s), 2 * TILE_BYTES);
                 const uint32_t dst = skv + s * 2 * TILE_BYTES;
-                tma_load_4d(dst, &tk, full(s), 0, h, j * BKV, b);
-                tma_load_4d(dst + TILE_BYTES, &tv, full(s), 0, h, j * BKV, b);
+#pragma unroll
+                for (int x = 0; x < T::NBOX; ++x) {
+                    tma_load_4d(dst + x * T::KV_BOX, &tk, full(s), x * BOX_COLS, h, j * BKV, b);
+                    tma_load_4d(dst + TILE_BYTES + x * T::KV_BOX, &tv, full(s), x * BOX_COLS, h, j * BKV, b);
+                }
             }
         }
     } else {  // consumers: 64 query rows each
-        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+        setmaxnreg_inc<CONSUMER_REGS>();
         const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
         const int g = lane >> 2, c = (lane & 3) * 2;
-        const uint64_t dq = desc_sw128(sq + wg * (Q_BYTES / 2));
+        const uint64_t dq = desc_sw128(sq + wg * 64 * ROW_BYTES);  // this warpgroup's 64 rows
 
-        float acc[32], sc[BKV / 2];
+        float acc[NACC], sc[BKV / 2];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
         float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, al[2];  // raw-score maxima
-        uint32_t pa[NKC][4];
+        uint32_t pa[BKV / 16][4];
         auto stage = [&](int j) { return skv + (j % STAGES) * 2 * TILE_BYTES; };
         auto wait_full = [&](int j) { mbar_wait(full(j % STAGES), (j / STAGES) & 1); };
         mbar_wait(qbar, 0);
@@ -212,35 +263,35 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
         wait_full(0);
         take_turn();
-        issue_qk(sc, dq, stage(0));
+        issue_qk<D>(sc, dq, stage(0));
         pass_turn();
         wgmma_wait<0>();
         fence_regs(sc);
-        online_softmax(sc, 0, Nk, c, scale_log2, m, l, al);
-        pack_p(pa, sc);
+        online_softmax<BKV>(sc, 0, Nk, c, scale_log2, m, l, al);
+        pack_p<BKV>(pa, sc);
         // FA3-style overlap: tile j + 1's Q K^T and tile j's P V run on the
         // tensor cores while this warpgroup computes tile j + 1's softmax
         for (int j = 0; j + 1 < ntiles; ++j) {
             wait_full(j + 1);
             take_turn();
-            issue_qk(sc, dq, stage(j + 1));
-            issue_pv(acc, pa, stage(j));
+            issue_qk<D>(sc, dq, stage(j + 1));
+            issue_pv<D>(acc, pa, stage(j));
             pass_turn();
             wgmma_wait<1>();  // S of tile j + 1 is done; P V of tile j may run on
             fence_regs(sc);
-            online_softmax(sc, (j + 1) * BKV, Nk, c, scale_log2, m, l, al);
+            online_softmax<BKV>(sc, (j + 1) * BKV, Nk, c, scale_log2, m, l, al);
             wgmma_wait<0>();
             fence_regs(acc);
             if (lane == 0) mbar_arrive(empty(j % STAGES));  // this warp is done with stage j
             // rescale what was accumulated to the new running maxima
 #pragma unroll
-            for (int n = 0; n < 8; ++n) {
+            for (int n = 0; n < NACC / 4; ++n) {
                 acc[4 * n] *= al[0]; acc[4 * n + 1] *= al[0]; acc[4 * n + 2] *= al[1]; acc[4 * n + 3] *= al[1];
             }
-            pack_p(pa, sc);
+            pack_p<BKV>(pa, sc);
         }
         take_turn();
-        issue_pv(acc, pa, stage(ntiles - 1));
+        issue_pv<D>(acc, pa, stage(ntiles - 1));
         pass_turn();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -255,7 +306,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         const size_t rs = (size_t)H * D;  // row stride of (B, N, H, D)
         __nv_bfloat16 *ob = o + ((size_t)b * Nq * H + h) * D;
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+        for (int n = 0; n < D / 8; ++n) {  // the padded columns D .. DP - 1 are dropped
             if (r0 < Nq)
                 *reinterpret_cast<uint32_t *>(ob + (size_t)r0 * rs + n * 8 + c) =
                     pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
@@ -270,6 +321,7 @@ constexpr int BK = 64;   // f32 kernel: keys per shared-memory tile
 
 constexpr int FQ = 128;  // f32 kernel: query rows (threads) per block
 
+template <int D>
 __global__ void __launch_bounds__(FQ)
 flash_fwd_f32(const float *__restrict__ q, const float *__restrict__ k,
               const float *__restrict__ v, float *__restrict__ o, int Nq,
@@ -333,41 +385,65 @@ flash_fwd_f32(const float *__restrict__ q, const float *__restrict__ k,
     }
 }
 
+// Encodes the maps and launches the bf16 kernel of head dim D
+template <int D>
+int launch_bf16(const void *q, const void *k, const void *v, void *o, int B, int Nq, int Nk, int H,
+                float scale_log2, cudaStream_t st) {
+    using T = Tiles<D>;
+    // (D, H, N, B), innermost first; boxes of 64 columns x 128 rows of one
+    // head. Columns past the extent (a box's tail at D = 88) load as zeros.
+    const cuuint64_t width = D;
+    CUtensorMap tq, tk, tv;
+    const cuuint64_t dq[4] = {width, (cuuint64_t)H, (cuuint64_t)Nq, (cuuint64_t)B};
+    const cuuint64_t dk[4] = {width, (cuuint64_t)H, (cuuint64_t)Nk, (cuuint64_t)B};
+    const cuuint64_t row = (cuuint64_t)H * D * 2;
+    const cuuint64_t sq[3] = {D * 2, row, row * Nq}, sk[3] = {D * 2, row, row * Nk};
+    const cuuint32_t qbox[4] = {BOX_COLS, 1, BQ, 1}, box[4] = {BOX_COLS, 1, T::BKV, 1};
+    int err = encode_bf16_map(&tq, q, 4, dq, sq, qbox);
+    if (!err) err = encode_bf16_map(&tk, k, 4, dk, sk, box);
+    if (!err) err = encode_bf16_map(&tv, v, 4, dk, sk, box);
+    if (err) return err;
+    static bool smem_set = false;  // once per process: it costs host time per call
+    if (!smem_set) {
+        cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             T::SMEM_BYTES);
+        if (e != cudaSuccess) return (int)e;
+        smem_set = true;
+    }
+    dim3 grid((Nq + BQ - 1) / BQ, B * H);
+    flash_fwd_bf16<D><<<grid, 384, T::SMEM_BYTES, st>>>(tq, tk, tv, static_cast<__nv_bfloat16 *>(o), Nq, Nk,
+                                                         H, scale_log2);
+    return 0;
+}
+
+template <int D>
+void launch_f32(const void *q, const void *k, const void *v, void *o, int B, int Nq, int Nk, int H,
+                float scale_log2, cudaStream_t st) {
+    dim3 grid((Nq + FQ - 1) / FQ, B * H);
+    flash_fwd_f32<D><<<grid, FQ, 0, st>>>(static_cast<const float *>(q), static_cast<const float *>(k),
+                                          static_cast<const float *>(v), static_cast<float *>(o), Nq, Nk, H,
+                                          scale_log2);
+}
+
 }  // namespace
 
-extern "C" int flash_attn_fwd(const void *q, const void *k, const void *v,
-                              void *o, int B, int Nq, int Nk, int H,
-                              int is_bf16, float scale, void *stream) {
+// softmax(q k^T / sqrt(D)) v on (B, N, H, D) tensors, D = 64 or 88; returns
+// a cudaError_t (cudaErrorInvalidValue for another D)
+extern "C" int flash_attn_fwd(const void *q, const void *k, const void *v, void *o, int B, int Nq, int Nk,
+                              int H, int D, int is_bf16, void *stream) {
+    // 1/sqrt(D) rounded to f32 once, then to the exp2 domain
+    const float scale = (float)(1.0 / sqrt((double)D));
     const float scale_log2 = scale * 1.4426950408889634f;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    if (D != 64 && D != 88) return (int)cudaErrorInvalidValue;
     if (is_bf16) {
-        // (D, H, N, B), innermost first; boxes of 128 rows of one head
-        CUtensorMap tq, tk, tv;
-        const cuuint64_t dq[4] = {D, (cuuint64_t)H, (cuuint64_t)Nq, (cuuint64_t)B};
-        const cuuint64_t dk[4] = {D, (cuuint64_t)H, (cuuint64_t)Nk, (cuuint64_t)B};
-        const cuuint64_t row = (cuuint64_t)H * D * 2;
-        const cuuint64_t sq[3] = {D * 2, row, row * Nq}, sk[3] = {D * 2, row, row * Nk};
-        const cuuint32_t qbox[4] = {D, 1, BQ, 1}, box[4] = {D, 1, BKV, 1};
-        int err = encode_bf16_map(&tq, q, 4, dq, sq, qbox);
-        if (!err) err = encode_bf16_map(&tk, k, 4, dk, sk, box);
-        if (!err) err = encode_bf16_map(&tv, v, 4, dk, sk, box);
+        const int err = D == 64 ? launch_bf16<64>(q, k, v, o, B, Nq, Nk, H, scale_log2, st)
+                                : launch_bf16<88>(q, k, v, o, B, Nq, Nk, H, scale_log2, st);
         if (err) return err;
-        static bool smem_set = false;  // once per process: it costs host time per call
-        if (!smem_set) {
-            cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 SMEM_BYTES);
-            if (e != cudaSuccess) return (int)e;
-            smem_set = true;
-        }
-        dim3 grid((Nq + BQ - 1) / BQ, B * H);
-        flash_fwd_bf16<<<grid, 384, SMEM_BYTES, st>>>(tq, tk, tv, static_cast<__nv_bfloat16 *>(o), Nq,
-                                                      Nk, H, scale_log2);
+    } else if (D == 64) {
+        launch_f32<64>(q, k, v, o, B, Nq, Nk, H, scale_log2, st);
     } else {
-        dim3 grid((Nq + FQ - 1) / FQ, B * H);
-        flash_fwd_f32<<<grid, FQ, 0, st>>>(
-            static_cast<const float *>(q), static_cast<const float *>(k),
-            static_cast<const float *>(v), static_cast<float *>(o), Nq, Nk,
-            H, scale_log2);
+        launch_f32<88>(q, k, v, o, B, Nq, Nk, H, scale_log2, st);
     }
     return (int)cudaGetLastError();
 }

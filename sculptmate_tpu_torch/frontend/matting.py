@@ -1,4 +1,4 @@
-"""Background removal (``rembg.remove``) on the port's u2net.
+"""Background removal (``rembg.remove``) on the port's matting sessions.
 
 Counterpart of ``sculptmate_tpu/frontend/matting.py``, after the reference's
 ``rembg/bg.py:149-238`` with the u2net session recipe
@@ -7,21 +7,23 @@ Counterpart of ``sculptmate_tpu/frontend/matting.py``, after the reference's
   input -> Lanczos to 320^2 -> /max -> ImageNet mean/std -> u2net ->
   sigmoid of d0, min-max normalised -> mask back to the input size -> alpha.
 
-The network and its normalisation run on the device in f32
-(``U2NetMatting.predict_mask_batch``). The host surface (``predict_mask``,
-``remove``) works on PIL images; PIL and cv2 are imported inside the
-functions that use them, so the device path needs neither.
+``SessionBase`` is that recipe for any network and input size; the other
+sessions (``frontend/sessions.py``) derive from it. The network and its
+normalisation run on the device in f32 (``predict_mask_batch``). The host
+surface (``predict_mask``, ``remove``) works on PIL images; PIL and cv2 are
+imported inside the functions that use them, so the device path needs
+neither.
 """
 
 from __future__ import annotations
 
-import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from sculptmate_tpu_torch.frontend.u2net import U2Net
+from sculptmate_tpu_torch.runtime.checkpoint import U2NET_KEY, try_load_onnx_state_dict
 from sculptmate_tpu_torch.runtime.device import resolve_device
 
 U2NET_SIZE = 320
@@ -29,50 +31,76 @@ _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
 
 
-class U2NetMatting:
-    """The full u2net on a device, and its mask predictor.
+class SessionBase:
+    """A matting network on a device and its mask recipe (``rembg/sessions/
+    base.py``): resize to ``input_size``, /max, mean/std, the network,
+    sigmoid of d0, per-image min-max. Subclasses pick the network
+    (``build_module``), its input size and normalisation, and its ONNX blob
+    (``weights_file``) with the initializer names that are the network's
+    parameters (``weights_key``).
 
-    ``state_dict`` holds the original U-2-Net names (``u2net.onnx``'s
-    initializers); without one the weights are random from ``seed``.
-    ``device`` defaults to the card and raises without one (pass
-    ``device="cpu"`` for the CPU)."""
+    ``state_dict`` holds the network's weights under the original torch
+    names; without one and with ``load_weights``, ``weights_file`` is read
+    from the checkpoint directory where it is there; else the weights are
+    random from ``seed``. ``device`` defaults to the card and raises without
+    one (pass ``device="cpu"`` for the CPU)."""
 
-    def __init__(self, state_dict=None, seed: int = 0, device=None):
+    input_size: Tuple[int, int] = (U2NET_SIZE, U2NET_SIZE)
+    mean: Tuple[float, float, float] = _MEAN
+    std: Tuple[float, float, float] = _STD
+    weights_file: str = "u2net.onnx"
+    weights_key = U2NET_KEY
+
+    def __init__(self, state_dict=None, seed: int = 0, load_weights: bool = False, device=None):
         self.device = resolve_device(device)
         with torch.device(self.device):
-            self.module = U2Net()
+            self.module = self.build_module()
+        if state_dict is None and load_weights:
+            state_dict = try_load_onnx_state_dict(self.weights_file, self.weights_key)
         if state_dict is None:
             self.module.reset_parameters(torch.Generator(device=self.device).manual_seed(seed))
         else:
             self.module.load_state_dict(state_dict)
         self.module.eval().requires_grad_(False)
-        self._mean = torch.tensor(_MEAN, device=self.device)
-        self._std = torch.tensor(_STD, device=self.device)
+        self._mean = torch.tensor(self.mean, device=self.device)
+        self._std = torch.tensor(self.std, device=self.device)
+
+    def build_module(self) -> torch.nn.Module:
+        return U2Net()
+
+    def _logits(self, img: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) raw [0, 1]-ish -> d0 (B, C, H, W): per-image /max,
+        then the session's normalisation."""
+        maxv = img.amax(dim=(1, 2, 3), keepdim=True).clamp(min=1e-6)
+        x = (img / maxv - self._mean) / self._std
+        return self.module(x.permute(0, 3, 1, 2))[0]
 
     @torch.inference_mode()
     def _predict(self, img: torch.Tensor) -> torch.Tensor:
-        """(B, 320, 320, 3) raw [0, 1]-ish on the device -> (B, 320, 320)
-        masks in [0, 1]: per-image /max, ImageNet normalisation, sigmoid of
-        d0, per-image min-max."""
-        maxv = img.amax(dim=(1, 2, 3), keepdim=True).clamp(min=1e-6)
-        x = (img / maxv - self._mean) / self._std
-        d0, _ = self.module(x.permute(0, 3, 1, 2))
-        pred = torch.sigmoid(d0[:, 0])
+        """(B, H, W, 3) on the device -> (B, H, W) masks in [0, 1]: sigmoid
+        of d0, per-image min-max."""
+        pred = torch.sigmoid(self._logits(img)[:, 0])
         mn = pred.amin(dim=(1, 2), keepdim=True)
         mx = pred.amax(dim=(1, 2), keepdim=True)
         return (pred - mn) / (mx - mn).clamp(min=1e-8)
 
     def predict_mask_batch(self, images: torch.Tensor) -> torch.Tensor:
-        """Device path: (B, 320, 320, 3) in [0, 1] -> (B, 320, 320) masks."""
+        """Device path: (B, H, W, 3) in [0, 1] at ``input_size`` -> (B, H, W)
+        masks."""
         return self._predict(images.to(self.device, torch.float32))
+
+    def _small(self, image) -> torch.Tensor:
+        """PIL image -> (1, H, W, 3) in [0, 1] at ``input_size`` (Lanczos)."""
+        from PIL import Image
+
+        small = image.convert("RGB").resize(self.input_size, Image.Resampling.LANCZOS)
+        return torch.from_numpy(np.asarray(small, dtype=np.float32) / 255.0)[None]
 
     def predict_mask(self, image):
         """PIL image -> PIL 'L' mask at the image's size."""
         from PIL import Image
 
-        small = image.convert("RGB").resize((U2NET_SIZE, U2NET_SIZE), Image.Resampling.LANCZOS)
-        arr = torch.from_numpy(np.asarray(small, dtype=np.float32) / 255.0)
-        mask = self.predict_mask_batch(arr[None])[0].cpu().numpy()
+        mask = self.predict_mask_batch(self._small(image))[0].cpu().numpy()
         mask_img = Image.fromarray((mask * 255).astype(np.uint8), mode="L")
         return mask_img.resize(image.size, Image.Resampling.LANCZOS)
 
@@ -81,13 +109,19 @@ class U2NetMatting:
         return [self.predict_mask(image)]
 
 
-@functools.lru_cache(maxsize=2)
-def default_session(device=None) -> U2NetMatting:
-    """The u2net session: ``u2net.onnx``'s weights when the checkpoint
-    directory holds it, else random weights (seed 0)."""
-    from sculptmate_tpu_torch.runtime.checkpoint import try_load_u2net_state_dict
+class U2NetMatting(SessionBase):
+    """The full u2net at 320^2 (``sessions/u2net.py``), the default session
+    and the registry's ``u2net`` (``u2net.onnx``'s initializers as its state
+    dict)."""
 
-    return U2NetMatting(state_dict=try_load_u2net_state_dict(), device=device)
+
+def default_session(device=None) -> U2NetMatting:
+    """The registry's ``u2net`` session (``frontend/sessions.py:new_session``):
+    ``u2net.onnx``'s weights when the checkpoint directory holds it, else
+    random weights (seed 0)."""
+    from sculptmate_tpu_torch.frontend.sessions import new_session
+
+    return new_session("u2net", device)
 
 
 def post_process_mask(mask: np.ndarray) -> np.ndarray:
@@ -122,6 +156,7 @@ def remove(
     only_mask: bool = False,
     putalpha: bool = False,
     bgcolor=None,
+    device=None,
     **session_kwargs,
 ):
     """``rembg.remove`` on a PIL image, option for option (``bg.py:149-238``):
@@ -137,16 +172,16 @@ def remove(
       kwargs go to the session's ``predict``.
 
     ``session`` is any object with ``predict`` (a list of masks) or
-    ``predict_mask``. Only the u2net session is ported: another
-    ``session_name`` raises."""
+    ``predict_mask``; ``session_name`` selects one from
+    ``frontend.sessions.new_session`` (an unknown name raises
+    ``ValueError``) on ``device``, which defaults to the card."""
     from PIL import Image, ImageOps
 
-    if session is None and session_name not in (None, "u2net"):
-        raise NotImplementedError(
-            f"session {session_name!r}: only the u2net session is ported; the other "
-            "sessions (frontend/sessions.py) are ROADMAP item 13"
-        )
-    session = session or default_session()
+    if session is None and session_name is not None:
+        from sculptmate_tpu_torch.frontend.sessions import new_session
+
+        session = new_session(session_name, device=device)
+    session = session or default_session(device)
     image = ImageOps.exif_transpose(image)
     if hasattr(session, "predict"):
         masks = session.predict(image, **session_kwargs)

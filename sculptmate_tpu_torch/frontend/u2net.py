@@ -123,6 +123,7 @@ class U2Net(nn.Module):
 
     def __init__(self, variant: str = "full", out_channels: int = 1):
         super().__init__()
+        self.variant, self.out_channels = variant, out_channels
         cfg = FULL_CONFIG if variant == "full" else SMALL_CONFIG
         n_enc, n_dec = len(cfg["enc"]), len(cfg["dec"])
         self.n_enc, self.n_dec = n_enc, n_dec
@@ -165,16 +166,20 @@ class U2Net(nn.Module):
             sides.append(d)
         return self.outconv(torch.cat(sides, dim=1)), sides
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Seeded random weights with the JAX package's initializer: lecun
-        normal kernels (truncated at two standard deviations), zero biases,
-        BatchNorm scale 1, bias 0, running mean 0 and variance 1."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                # the std of a unit normal truncated to [-2, 2]
-                std = m.weight[0].numel() ** -0.5 / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-                m.bias.zero_()
-            elif isinstance(m, nn.BatchNorm2d):
-                m.reset_parameters()
+        reset_conv_bn(self, generator)
+
+
+@torch.no_grad()
+def reset_conv_bn(net: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights with the JAX package's initializer: lecun
+    normal kernels (truncated at two standard deviations), zero biases,
+    BatchNorm scale 1, bias 0, running mean 0 and variance 1."""
+    for m in net.modules():
+        if isinstance(m, nn.Conv2d):
+            # the std of a unit normal truncated to [-2, 2]
+            std = m.weight[0].numel() ** -0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()

@@ -10,12 +10,23 @@ latents) and the 27 648-token triplane stream, interleaved through
 the raw image tokens, GEGLU feed-forward) and a fuse-out (the triplane
 attends to the latents); GroupNorm and a projection in, a projection out and
 a residual on the triplane stream. Every attention call goes through
-``ops.attention``, so on the card it runs on kernel K1. The reference's
-unused ``SingleStreamTransformer`` and ``TriplaneAttention`` are not ported.
+``ops.attention``, so on the card it runs on kernel K1.
+
+The reference's two unused modules are here too (nothing in the SF3D
+system builds them): ``SingleStreamTransformer`` (``backbone.py:151-208``),
+basic blocks over the triplane tokens at 16 heads x 88 by default (K1 at
+head dim 88), and ``TriplaneAttention`` (``backbone.py:250-332``), whose
+full form runs on K1 and whose masked form, each token attending along the
+intersection lines of the other two planes, is a plain product with an
+additive O(N^2) bias, as the JAX package computes it outside any kernel.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -56,10 +67,12 @@ class BasicBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
+        """Without x, the cross-attention attends to the normed z itself."""
         h = self.norm1(z)
         z = z + self.attn1(h, h)
-        z = z + self.attn2(self.norm2(z), x)
+        h = self.norm2(z)
+        z = z + self.attn2(h, h if x is None else x)
         return z + self.ff(self.norm3(z))
 
 
@@ -139,3 +152,108 @@ class TwoStreamInterleaveTransformer(nn.Module):
             latent, triplane = block(latent, triplane, encoder_hidden_states)
         out = self.proj_out(triplane).transpose(1, 2)
         return (out + residual).to(residual.dtype)
+
+
+@torch.no_grad()
+def _reset_linear_norm(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights at the JAX package's initializer scales:
+    fan-in normal Linear kernels, zero biases, unit norms."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            m.weight.normal_(0.0, m.weight.shape[1] ** -0.5, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class SingleStreamTransformer(nn.Module):
+    """GroupNorm and a projection in, ``num_layers`` basic blocks over the
+    tokens (cross-attention to ``encoder_hidden_states`` when given, else to
+    the tokens themselves), a projection out and a residual."""
+
+    def __init__(
+        self,
+        num_attention_heads: int = 16,
+        attention_head_dim: int = 88,
+        in_channels: int = 1024,
+        num_layers: int = 16,
+        norm_num_groups: int = 32,
+        cross_attention_dim: Optional[int] = None,
+        attention_bias: bool = False,
+    ):
+        super().__init__()
+        inner = num_attention_heads * attention_head_dim
+        self.norm = nn.GroupNorm(norm_num_groups, in_channels, eps=1e-6)
+        self.proj_in = nn.Linear(in_channels, inner)
+        self.transformer_blocks = nn.ModuleList(
+            BasicBlock(inner, cross_attention_dim or inner, num_attention_heads, attention_bias)
+            for _ in range(num_layers)
+        )
+        self.proj_out = nn.Linear(inner, in_channels)
+
+    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: Optional[torch.Tensor] = None):
+        """hidden_states: (B, C, N) channels-first tokens -> the same shape."""
+        residual = hidden_states
+        x = self.proj_in(self.norm(hidden_states).transpose(1, 2))
+        for block in self.transformer_blocks:
+            x = block(x, encoder_hidden_states)
+        return (self.proj_out(x).transpose(1, 2) + residual).to(residual.dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_linear_norm(self, generator)
+
+
+@functools.lru_cache(maxsize=2)
+def _triplane_mask(res: int) -> np.ndarray:
+    mask = np.zeros((3, res, res, 3, res, res), bool)
+    i, j = np.meshgrid(np.arange(res), np.arange(res), indexing="ij")
+    mask[0, i, j, 1, i, :] = True
+    mask[0, i, j, 2, j, :] = True
+    mask[1, i, j, 0, i, :] = True
+    mask[1, i, j, 2, :, j] = True
+    mask[2, i, j, 0, :, i] = True
+    mask[2, i, j, 1, :, j] = True
+    return mask.reshape(3 * res * res, 3 * res * res)
+
+
+def triplane_attention_bias(res: int, device=None) -> torch.Tensor:
+    """(3 res^2, 3 res^2) f32 additive bias, 0 where a token may attend (the
+    intersection lines of the other two planes) and -inf elsewhere
+    (``backbone.py:251-272``). O(N^2) memory: for small plane resolutions."""
+    bias = torch.full((3 * res * res,) * 2, -torch.inf, device=device)
+    return bias.masked_fill_(torch.from_numpy(_triplane_mask(res)).to(bias.device), 0.0)
+
+
+class TriplaneAttention(nn.Module):
+    """Self-attention over the 3 res^2 triplane tokens: full (on K1 on the
+    card) or masked to the plane-intersection lines."""
+
+    def __init__(self, dim: int, resolution: int, num_heads: int = 16, qkv_bias: bool = False,
+                 full_attention: bool = False):
+        super().__init__()
+        self.resolution, self.num_heads, self.full_attention = resolution, num_heads, full_attention
+        self.wq = nn.Linear(dim, dim, bias=qkv_bias)
+        self.wk = nn.Linear(dim, dim, bias=qkv_bias)
+        self.wv = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, 3 res^2, dim) -> the same shape."""
+        B, N, C = x.shape
+        if N != 3 * self.resolution**2:
+            raise ValueError(f"{N} tokens, not 3 x {self.resolution}^2")
+        d = C // self.num_heads
+        q, k, v = (w(x).reshape(B, N, self.num_heads, d) for w in (self.wq, self.wk, self.wv))
+        if self.full_attention:
+            out = dot_product_attention(q, k, v)
+        else:  # scores in f32 with the bias, the product back in the input dtype
+            with torch.autocast(x.device.type, enabled=False):
+                s = q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1) / d**0.5
+                p = torch.softmax(s + triplane_attention_bias(self.resolution, x.device), dim=-1)
+                out = (p @ v.float().transpose(1, 2)).transpose(1, 2).to(q.dtype)
+        return self.proj(out.reshape(B, N, C))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _reset_linear_norm(self, generator)

@@ -18,7 +18,7 @@ from sculptmate_tpu_torch.runtime import kernels
 
 # chunk queries so heads * q_chunk * Nk * 4B stays near this budget
 _SCORE_BYTES_BUDGET = 128 * 1024 * 1024
-_HEAD_DIM = 64  # the only head width kernel K1 is built for
+_HEAD_DIMS = (64, 88)  # the head widths kernel K1 is built for
 
 
 def dot_product_attention_plain(
@@ -46,19 +46,17 @@ def _flash_lib():
     lib = kernels.load("flash_attn")
     fn = lib.flash_attn_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel K1 on CUDA tensors (bf16 or f32, D = 64)."""
+    """Kernel K1 on CUDA tensors (bf16 or f32, D = 64 or 88)."""
     B, Nq, H, D = q.shape
     Nk = k.shape[1]
-    if D != _HEAD_DIM:
-        raise ValueError(f"flash attention kernel takes head dim {_HEAD_DIM}, got {D}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head dims {_HEAD_DIMS}, got {D}")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash attention kernel takes bf16 or f32, got {q.dtype}")
     if k.shape != (B, Nk, H, D) or v.shape != k.shape or Nk == 0:
@@ -72,7 +70,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Nq, Nk, H, int(q.dtype == torch.bfloat16), 1.0 / D**0.5, stream,
+        B, Nq, Nk, H, D, int(q.dtype == torch.bfloat16), stream,
     )
     kernels.check(err, "flash_attn_fwd")
     flash_attention.launches += 1

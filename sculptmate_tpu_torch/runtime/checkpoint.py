@@ -23,10 +23,13 @@ packed ``in_proj_weight`` (the Dense kernel transposed) and LayerScale's
 ``lambda1`` as they are.
 
 ``u2net_params_from_jax`` does the same for the JAX package's u2net (the
-inverse of its ``convert_u2net_state_dict``), and
-``try_load_u2net_state_dict`` reads ``u2net.onnx`` from the checkpoint
-directory (``$SCULPTMATE_CHECKPOINTS``, else ``checkpoints/`` in the
-package) through ``runtime/onnx_lite.py``.
+inverse of its ``convert_u2net_state_dict``; the cloth head too),
+``isnet_params_from_jax`` for its ISNet and ``sam_params_from_jax`` for its
+SAM (the official ``segment_anything`` names). ``try_load_session_state_dict``
+reads a session's ONNX blob (named on its class in
+``frontend/sessions.py:_REGISTRY``) from the checkpoint directory (``$SCULPTMATE_CHECKPOINTS``, else ``checkpoints/`` in
+the package) through ``runtime/onnx_lite.py``; ``try_load_sam_state_dict``
+reads ``sam_<variant>.pth`` with ``torch.load(weights_only=True)``.
 
 ``read_safetensors`` reads a ``.safetensors`` file without the
 ``safetensors`` package, and ``load_sf3d_state_dict`` turns the reference's
@@ -51,7 +54,9 @@ CHECKPOINT_DIR = os.environ.get(
 )
 # the u2net parameters among an ONNX file's initializers (it holds graph
 # constants too)
-_U2NET_KEY = re.compile(r"(stage\d+d?|side\d+|outconv)\.")
+U2NET_KEY = re.compile(r"(stage\d+d?|side\d+|outconv)\.")
+# ISNet's: the stem and no outconv
+ISNET_KEY = re.compile(r"(conv_in|stage\d+d?|side\d+)\.")
 
 
 def _t(a) -> torch.Tensor:
@@ -162,18 +167,126 @@ def u2net_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
 def u2net_state_dict_from_onnx(path: str) -> Dict[str, torch.Tensor]:
     """The u2net parameters among an ONNX file's initializers, under the
     port's ``U2Net`` names."""
-    from sculptmate_tpu_torch.runtime.onnx_lite import read_initializers
-
-    return {k: _t(v) for k, v in read_initializers(path).items() if _U2NET_KEY.match(k)}
+    return state_dict_from_onnx(path, U2NET_KEY)
 
 
 def try_load_u2net_state_dict() -> Optional[Dict[str, torch.Tensor]]:
     """The u2net parameters of ``u2net.onnx`` in the checkpoint directory,
     or None when the file is absent."""
-    path = os.path.join(CHECKPOINT_DIR, "u2net.onnx")
+    return try_load_session_state_dict("u2net")
+
+
+def isnet_params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ISNet ``{"params", "batch_stats"}`` -> the port's ``ISNet`` state
+    dict (the inverse of the JAX package's ``convert_isnet_state_dict``): the
+    u2net names, with the stem's ``conv_in.conv`` and ``conv_in.bn``."""
+    sd = u2net_params_from_jax(variables)
+    return {k.replace("conv_in.conv_s1.", "conv_in.conv.").replace("conv_in.bn_s1.", "conv_in.bn."): v
+            for k, v in sd.items()}
+
+
+def state_dict_from_onnx(path: str, key: re.Pattern) -> Dict[str, torch.Tensor]:
+    """The initializers of an ONNX file whose names ``key`` matches (the
+    network's parameters, not the graph's constants)."""
+    from sculptmate_tpu_torch.runtime.onnx_lite import read_initializers
+
+    return {k: _t(v) for k, v in read_initializers(path).items() if key.match(k)}
+
+
+def try_load_onnx_state_dict(fname: str, key: re.Pattern) -> Optional[Dict[str, torch.Tensor]]:
+    """``state_dict_from_onnx`` of ``fname`` in the checkpoint directory, or
+    None when the file is absent."""
+    path = os.path.join(CHECKPOINT_DIR, fname)
+    return state_dict_from_onnx(path, key) if os.path.isfile(path) else None
+
+
+def try_load_session_state_dict(name: str) -> Optional[Dict[str, torch.Tensor]]:
+    """The state dict of a session-zoo entry from its ONNX blob in the
+    checkpoint directory (its class's ``weights_file`` and ``weights_key``),
+    or None when the name is not in the registry or the file is absent."""
+    from sculptmate_tpu_torch.frontend.sessions import _REGISTRY
+
+    cls = _REGISTRY.get(name)
+    return None if cls is None else try_load_onnx_state_dict(cls.weights_file, cls.weights_key)
+
+
+# the mask-prompt path, which the session never runs and the port does not build
+_SAM_UNUSED = "prompt_encoder.mask_downscaling."
+
+
+def try_load_sam_state_dict(variant: str = "vit_b") -> Optional[Dict[str, torch.Tensor]]:
+    """The official ``sam_<variant>.pth`` in the checkpoint directory
+    (``torch.load(weights_only=True)``), without its
+    ``prompt_encoder.mask_downscaling.*`` entries; None when absent."""
+    path = os.path.join(CHECKPOINT_DIR, f"sam_{variant}.pth")
     if not os.path.isfile(path):
         return None
-    return u2net_state_dict_from_onnx(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v for k, v in sd.items() if not k.startswith(_SAM_UNUSED)}
+
+
+def sam_params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``Sam`` params -> the official ``segment_anything`` state dict
+    that the port's ``Sam`` loads (the inverse of the JAX package's
+    ``convert_sam_state_dict``; no ``mask_downscaling``, which it does not
+    read)."""
+    sd: Dict[str, torch.Tensor] = {}
+    enc = params["image_encoder"]
+    _conv(sd, "image_encoder.patch_embed.proj", enc["patch_embed"])
+    sd["image_encoder.pos_embed"] = _t(enc["pos_embed"])
+    for i in _numbered(enc, "block"):
+        fb, tb = enc[f"block_{i}"], f"image_encoder.blocks.{i}"
+        _norm(sd, f"{tb}.norm1", fb["norm1"])
+        _norm(sd, f"{tb}.norm2", fb["norm2"])
+        _linear(sd, f"{tb}.attn.qkv", fb["attn"]["qkv"])
+        _linear(sd, f"{tb}.attn.proj", fb["attn"]["proj"])
+        for rp in ("rel_pos_h", "rel_pos_w"):
+            sd[f"{tb}.attn.{rp}"] = _t(fb["attn"][rp])
+        _linear(sd, f"{tb}.mlp.lin1", fb["mlp_lin1"])
+        _linear(sd, f"{tb}.mlp.lin2", fb["mlp_lin2"])
+    _conv(sd, "image_encoder.neck.0", enc["neck_conv1"])
+    _norm(sd, "image_encoder.neck.1", enc["neck_ln1"])
+    _conv(sd, "image_encoder.neck.2", enc["neck_conv2"])
+    _norm(sd, "image_encoder.neck.3", enc["neck_ln2"])
+
+    pe = params["prompt_encoder"]
+    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = _t(pe["pe_gaussian"])
+    for i in range(4):
+        sd[f"prompt_encoder.point_embeddings.{i}.weight"] = _t(np.asarray(pe["point_embeddings"])[i : i + 1])
+    sd["prompt_encoder.not_a_point_embed.weight"] = _t(pe["not_a_point"])
+    sd["prompt_encoder.no_mask_embed.weight"] = _t(pe["no_mask_embed"])
+
+    md = params["mask_decoder"]
+    sd["mask_decoder.iou_token.weight"] = _t(md["iou_token"])
+    sd["mask_decoder.mask_tokens.weight"] = _t(md["mask_tokens"])
+
+    def attn(prefix, p):
+        for w in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{prefix}.{w}", p[w])
+
+    for i in range(2):
+        fl, tl = md[f"block_{i}"], f"mask_decoder.transformer.layers.{i}"
+        attn(f"{tl}.self_attn", fl["self_attn"])
+        attn(f"{tl}.cross_attn_token_to_image", fl["cross_t2i"])
+        attn(f"{tl}.cross_attn_image_to_token", fl["cross_i2t"])
+        for n in ("norm1", "norm2", "norm3", "norm4"):
+            _norm(sd, f"{tl}.{n}", fl[n])
+        _linear(sd, f"{tl}.mlp.lin1", fl["mlp_lin1"])
+        _linear(sd, f"{tl}.mlp.lin2", fl["mlp_lin2"])
+    attn("mask_decoder.transformer.final_attn_token_to_image", md["final_attn"])
+    _norm(sd, "mask_decoder.transformer.norm_final_attn", md["final_norm"])
+    for n, name in ((0, "upscale1"), (3, "upscale2")):
+        k = np.asarray(md[name]["kernel"])[::-1, ::-1]  # undo the flip of the forward conversion
+        sd[f"mask_decoder.output_upscaling.{n}.weight"] = _t(k.transpose(2, 3, 0, 1))
+        sd[f"mask_decoder.output_upscaling.{n}.bias"] = _t(md[name]["bias"])
+    _norm(sd, "mask_decoder.output_upscaling.1", md["upscale_ln"])
+    n_hyper = 1 + max(int(m.group(1)) for k in md if (m := re.fullmatch(r"hyper_(\d+)_lin0", k)))
+    for m_i in range(n_hyper):
+        for li in range(3):
+            _linear(sd, f"mask_decoder.output_hypernetworks_mlps.{m_i}.layers.{li}", md[f"hyper_{m_i}_lin{li}"])
+    for li in range(3):
+        _linear(sd, f"mask_decoder.iou_prediction_head.layers.{li}", md[f"iou_lin{li}"])
+    return sd
 
 
 def _dense_stack(sd, prefix: str, layers: Sequence[Mapping]) -> None:

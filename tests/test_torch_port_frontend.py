@@ -242,6 +242,10 @@ def test_remove_matches_jax(session, kwargs):
 
 
 def test_remove_refuses_unported_sessions():
+    """Every session of the JAX registry is ported; a name outside it is
+    refused with ``ValueError``, as the JAX package's ``new_session`` does."""
     img = Image.fromarray(np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        matting.remove(img, session_name="isnet-anime")
+    with pytest.raises(ValueError, match="unknown session 'isnet-anime-v2'"):
+        matting.remove(img, session_name="isnet-anime-v2", device="cpu")
+    with pytest.raises(ValueError, match="unknown session"):
+        jmatting.remove(img, session_name="isnet-anime-v2")
