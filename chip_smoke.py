@@ -29,7 +29,10 @@ Phases (any failure raises and exits non-zero):
    161^3 lattice (snap_eps 0.2 and 0), on a ragged res = 37 lattice with a
    surface on its faces, on a res = 100 lattice whose 15 379 block counts
    span eight scan tiles and at an undersized capacity, and the
-   ``K7_split`` line.
+   ``K7_split`` line. K11 (``marching_tets_fwd``, in the same source)
+   entry-equal to its plain version on the asset's 161^3 lattice, the
+   ragged res = 37 lattice, the res = 100 lattice and at a third of the
+   asset's counts, and the ``K11_split`` line.
    Then each check is run on kernels rebuilt with a planted fault
    (``PLANTED_FAULTS``), and must fail every one of them. Then F1: one Lean
    and one SF3D encode with the encoders' weights stored in bf16 once,
@@ -115,12 +118,26 @@ Phases (any failure raises and exits non-zero):
    ``model.safetensors`` (and ``config.yaml`` where ``yaml`` imports),
    ``Fast3DGenerator().initiate_model(dir)`` timed, and one untextured
    asset equal to that of a model given the same weights directly.
-   Then SF3D's unused backbone modules (``dead_upstream_path`` lines): a
+   Then the packed SF3D extraction (``sf3d_packed_path``): one
+   ``SF3D._extract_packed_mesh`` on the asset's codes with K11's counter,
+   held to the wire extraction of the same codes at snap_eps 0 (counts,
+   positions within a u16 step at the same cut edge, triangles as sets),
+   and three timed assets of each (encode + extraction). Then SF3D's
+   unused backbone modules (``dead_upstream_path`` lines): a
    ``SingleStreamTransformer`` at its class defaults over 27 648 tokens
    (K1 at head dim 88, 32 launches) and ``TriplaneAttention`` full at res
    96 (K1) and masked at res 32 (plain), bf16, timed; narrow versions of
-   both card vs CPU in f32.
-10. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
+   both card vs CPU in f32. ``marching_cubes_host`` on the card (K10)
+   against the CPU on a ragged 37 x 45 x 50 level, at its default
+   capacities and at capacities it retries past.
+10. The Blender add-on (``addon_path``) with ``tests/fake_bpy.py``
+   installed as bpy: the panel's ``GenerationWorker`` run on the
+   full-width Lean and textured Pro generators (at the scenes'
+   thresholds), the kernels' counters read around each, the fake scene's
+   objects, color layer, UV layer and images checked, and the generation
+   and ``import_mesh`` seconds printed (``addon_path_sec``); bpy is
+   removed afterwards.
+11. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
    serving batch and K1's times summed over a Lean asset, as before the
    SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys, its
    head-dim-88 time at SingleStreamTransformer's shape under ``d88_*``
@@ -128,7 +145,8 @@ Phases (any failure raises and exits non-zero):
    launches counted on the untextured SF3D asset; K6's, K8's and K9's on
    the textured one; K3's and K4's on the TripoGenerator asset, K4's per
    path beside them; K10's on the packed asset; K7's on the untextured SF3D
-   asset, per path beside them), then the card line, then
+   asset, per path beside them; K11's on the packed SF3D extraction), then
+   the card line, then
    the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs one CUDA card and exits non-zero without one, printing no result.
@@ -340,6 +358,16 @@ PLANTED_FAULTS = (
      "int id = vbase[cb] + incl - cnt;", "int id = vbase[cb] - vbase[c * NB] + incl - cnt;"),
     ("K7's count reads its own block's halo again, not the next one's", "marching_tets",
      "if (bz + 1 < nb) load(bz + 1, next);", "if (bz + 1 < nb) load(bz, next);"),
+    # K11, in the same source: corner 7 (1, 1, 1) ends every tet's chain
+    ("K11's cube byte drops its last corner", "marching_tets",
+     "for (int c = 0; c < 8; ++c)\n            cube |=", "for (int c = 0; c < 7; ++c)\n            cube |="),
+    ("K11's face bases past the first scan tile are one off", "marching_tets",
+     "const int fb = fbase[blk];", "const int fb = fbase[blk] + (blk >= MS_TILE ? 1 : 0);"),
+    ("K11's face corners leave out their word's base", "marching_tets",
+     "corners[(size_t)c * mf + f0 + s] = word_base[w3] + __popc(",
+     "corners[(size_t)c * mf + f0 + s] = __popc("),
+    ("K11's edge end takes its start's offset", "marching_tets",
+     "c1 = deformed(idx1[a], offs[a], p1, inv_res);", "c1 = deformed(idx1[a], offs[a], p0, inv_res);"),
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
@@ -353,6 +381,7 @@ PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
                      "K1 takes its scale from the padded D": ("single-stream transformer", "ragged batched d88 f32"),
                      "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3"),
                      "K7's class base misses the earlier classes' totals": ("multi-tile res 100",),
+                     "K11's face bases past the first scan tile are one off": ("K11 multi-tile res 100",),
                      "K9's round-1 depth range is over all faces": ("layered sheets",),
                      "K9's pool prefix leaves out the earlier scan tiles": ("layered sheets",)}
 
@@ -1350,6 +1379,64 @@ def check_mt_wire(scene, timed=True):
     return result
 
 
+def check_marching_tets(scene, timed=True):
+    """K11 against its plain version, which it must equal in every
+    position, face and counter: on the full-width SF3D asset's 161^3
+    lattice (its sdf and raw offsets), on the ragged res = 37 lattice with
+    a surface on its faces, on a res = 100 lattice whose block counts span
+    several scan tiles (2 197 face counts over two, 15 379 class flags over
+    eight), and at a third of the asset's vertex and face counts
+    (overflow: exact counters, the leading rows kept). With ``timed``, the
+    asset's case also gets its time, the plain version's and its bound."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+
+    res = scene["mt_res"]
+    asset = scene["mt"]
+    sized = mt.marching_tets_plain(*asset, res, 1 << 21, 1 << 22)
+    nv, nf = int(sized.num_verts), int(sized.num_faces)
+    cases = [("SF3D asset 161^3", asset, res, 1 << 21, 1 << 22),
+             ("ragged res 37, surface on the faces", _ragged_border_mt(), 37, 1 << 17, 1 << 18),
+             ("multi-tile res 100", _ragged_border_mt(101), 100, 1 << 20, 1 << 21),
+             ("SF3D asset 161^3, a third of the capacities", asset, res, nv // 3, nf // 3)]
+    result, failures = None, []
+    for name, inputs, r, mv, mf in cases:
+        got = mt.marching_tets(*inputs, r, mv, mf)
+        torch.cuda.synchronize()
+        ref = mt.marching_tets_plain(*inputs, r, mv, mf)
+        differ = {k: int((getattr(got, k) != getattr(ref, k)).sum()) for k in mt.MTResult._fields}
+        counts = [int(c) for c in ref[6:]]
+        line = {"check": "K11", "case": name, "resolution": r, "capacities": [mv, mf], "counts": counts,
+                "differing": {k: v for k, v in differ.items() if v}, "limit": 0}
+        if any(differ.values()) or counts[0] == 0:
+            log(json.dumps({**line, "check_passed": False}))
+            failures.append(f"K11 {name}: {sum(differ.values())} entries differ, counts {counts}")
+            continue
+        if not (timed and name == "SF3D asset 161^3"):
+            log(json.dumps({**line, "check_passed": True}))
+            continue
+        # bytes: the f32 sdf and three offsets read once; 12 B per vertex and
+        # per face and the five counters written
+        N = r + 1
+        bound, by = bound_ms(0, 16 * N**3 + 12 * counts[0] + 12 * counts[1] + 20, PEAK_F32_FLOPS)
+        row = {"ms": cuda_ms(lambda: mt.marching_tets(*inputs, r, mv, mf), iters=10),
+               "plain_ms": cuda_ms(lambda: mt.marching_tets_plain(*inputs, r, mv, mf), iters=2, warmup=1, graph=False),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        log(json.dumps({**line, "check_passed": True, **row, "bound_share": bound / row["ms"]}))
+        result = row
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return result
+
+
+def k11_split(scene):
+    """One K11 call on the full-width SF3D asset's 161^3 lattice (the timed
+    case's capacities), split by kernel name (``device_split``)."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+
+    return device_split("K11_split", "one marching_tets call, SF3D asset 161^3",
+                        lambda: mt.marching_tets(*scene["mt"], scene["mt_res"], 1 << 21, 1 << 22))
+
+
 def randomize_modulations(sf3d, generator, share=0.1):
     """Nonzero AdaLN modulation weights (the module zero-initialises them,
     so a seeded model would never exercise the camera conditioning):
@@ -1621,6 +1708,225 @@ def sf3d_farm_path(sf3d, scene):
     return {"K7": k7}
 
 
+def _wire_to_packed(sdf, res):
+    """For each MT wire vertex (block-major order), the index of the same
+    cut edge among the packed mesh's vertices (class-major, raster
+    order)."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+
+    N = res + 1
+    Np = -(-N // 8) * 8
+    occ = torch.zeros((Np, Np, Np), dtype=torch.bool, device=sdf.device)
+    occ[:N, :N, :N] = sdf.reshape(N, N, N) > 0
+    masks = mt._cut_masks(occ, N)
+    edge_ids = torch.arange(masks.numel(), device=sdf.device).reshape(masks.shape)
+    wire_edges = mt._to_blocks(edge_ids)[mt._to_blocks(masks)]
+    return torch.searchsorted(torch.nonzero(masks.reshape(-1)).reshape(-1), wire_edges).cpu().numpy()
+
+
+def _triangle_set(faces):
+    """Faces as sorted rows, each rotated to start at its smallest id
+    (orientation kept)."""
+    f = np.asarray(faces, np.int64)
+    r = np.argmin(f, axis=1)
+    f = np.stack([f[np.arange(len(f)), (r + k) % 3] for k in range(3)], 1)
+    return f[np.lexsort(f.T[::-1])]
+
+
+def sf3d_packed_path(fast, scene):
+    """The packed SF3D extraction at full width: one
+    ``SF3D._extract_packed_mesh`` on the asset's codes with K11's counter
+    read around it, held to the wire extraction of the same codes at
+    snap_eps 0 (the same vertex and face counts, each vertex within one u16
+    step of the wire's at the same cut edge, the same triangles as sets);
+    then a warm-up and three timed assets of each (encode + extraction)."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+    from sculptmate_tpu_torch.geometry import mt_wire
+
+    sf3d = fast.model
+    code, threshold, res, r = scene["codes"][0], scene["threshold"], scene["mt_res"], sf3d.config.radius
+    mv, mf = 1 << 21, 1 << 22
+    torch.cuda.synchronize()
+    mt.marching_tets.launches = 0
+    verts, faces, counts = sf3d._extract_packed_mesh(code, threshold, mv, mf)
+    torch.cuda.synchronize()
+    launches = {"K11": mt.marching_tets.launches}
+    wire = sf3d._extract_wire(code, threshold, mv, 0.0).cpu().numpy()
+    wv, wf, wcounts = mt_wire.decode_wire(wire, res, mv)
+    nv, nf = int(counts[0]), int(counts[1])
+    same_counts = nv == len(wv) == int(wcounts[0]) and nf == len(wf) and nv <= mv and nf <= mf
+    pos_err = tri_equal = None
+    step = (1 + 2 / res) / 65535  # one u16 step of the wire, in lattice units
+    if same_counts:
+        match = _wire_to_packed(scene["mt"][0], res)
+        lattice = (verts.astype(np.float64) + r) / (2 * r)
+        pos_err = float(np.abs(lattice[match] - wv).max())
+        tri_equal = bool(np.array_equal(_triangle_set(faces), _triangle_set(match[wf])))
+    ok = bool(same_counts and pos_err <= step and tri_equal and faces.dtype == np.int32
+              and np.isfinite(verts).all() and faces.min() >= 0 and faces.max() < nv)
+    log(json.dumps({"sf3d_packed_path": "SF3D._extract_packed_mesh vs the wire at snap_eps 0", "launches": launches,
+                    "verts": [nv, len(wv)], "faces": [nf, len(wf)], "counters": counts.tolist(),
+                    "max_pos_err_lattice_units": pos_err, "limit": step, "triangles_equal": tri_equal,
+                    "passed": ok}))
+    if not ok:
+        raise AssertionError("the packed SF3D mesh disagrees with the wire mesh")
+    if launches["K11"] < 1:
+        raise AssertionError(f"the packed SF3D path missed K11: {launches}")
+
+    image = scene["image"][None]
+    runs = {"packed": [], "wire": []}
+    for it in range(4):  # 1 warm-up + 3 timed, the two in turns
+        for kind in ("packed", "wire"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mask, rgb = sf3d.prepare_image(torch.from_numpy(image).cuda())
+            codes, _ = sf3d.get_scene_codes(rgb)
+            if kind == "packed":
+                sf3d._extract_packed_mesh(codes[0], threshold, mv, mf)
+            else:
+                sf3d.extract_mesh(codes[0], threshold)
+            torch.cuda.synchronize()
+            if it:
+                runs[kind].append(time.perf_counter() - t0)
+    log(json.dumps({"sf3d_packed_path": "timed (encode + extraction)",
+                    "sf3d_packed_sec_per_asset": float(np.median(runs["packed"])),
+                    "sf3d_wire_extract_sec_per_asset": float(np.median(runs["wire"])),
+                    "runs_sec": {k: [round(t, 4) for t in v] for k, v in runs.items()}}))
+    return launches
+
+
+def marching_cubes_host_check():
+    """``marching_cubes_host`` on the card (K10) against the CPU (its plain
+    version) on a ragged 37 x 45 x 50 level (padded to multiples of 8 with
+    -1 inside), at its default capacities and at capacities it must retry
+    past: the same vertices and faces."""
+    from sculptmate_tpu_torch.geometry import marching_cubes_host
+
+    rng = np.random.default_rng(13)
+    g = np.meshgrid(*(np.linspace(-1, 1, n, dtype=np.float32) for n in (37, 45, 50)), indexing="ij")
+    level = (0.7 - np.sqrt(sum(x**2 for x in g)) + 0.2 * rng.standard_normal((37, 45, 50))).astype(np.float32)
+    failures = []
+    for caps in ((0, 0), (1000, 2000)):
+        v, f = marching_cubes_host(level, *caps)
+        cv, cf = marching_cubes_host(level, *caps, device="cpu")
+        ok = len(f) > 0 and np.array_equal(v, cv) and np.array_equal(f, cf)
+        log(json.dumps({"check": "marching_cubes_host card vs CPU", "shape": [37, 45, 50], "capacities": list(caps),
+                        "verts": [len(v), len(cv)], "faces": [len(f), len(cf)], "check_passed": ok}))
+        if not ok:
+            failures.append(f"capacities {caps}")
+    if failures:
+        raise AssertionError("marching_cubes_host differs between the card and the CPU at " + ", ".join(failures))
+
+
+class _AtThreshold:
+    """A generator whose ``generate_mesh`` gets a fixed iso-level: the
+    random weights never reach the configs' levels, and the panel passes
+    none."""
+
+    def __init__(self, gen, threshold):
+        self.gen, self.threshold = gen, threshold
+
+    def generate_mesh(self, image, **kw):
+        return self.gen.generate_mesh(image, threshold=self.threshold, **kw)
+
+
+def _fake_children(obj):
+    """The attribute names a fake-bpy recording object was given."""
+    return set(object.__getattribute__(obj, "_children"))
+
+
+def addon_path(gen, fast, lean, scene):
+    """The Blender add-on under ``tests/fake_bpy.py`` installed as bpy: the
+    panel's ``GenerationWorker`` run synchronously on a 512^2 numpy RGBA
+    image with the full-width Lean and Pro generators that ``main`` holds
+    (the Pro model textured at the panel's default detail), each at its
+    scene's threshold. The fake scene must hold one object per asset with
+    the generator's vertex and face counts, the Lean one a vertex-color
+    layer, the Pro one a UV layer and the albedo and bump images; the
+    kernels' counters are read around each run. Prints the generation and
+    ``import_mesh`` seconds per asset. bpy is removed again afterwards."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+    from sculptmate_tpu_torch.geometry import texture_bake as tb
+    from sculptmate_tpu_torch.geometry import uv_unwrap_device as ud
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+
+    counters = {"K1": flash_attention, "K2": dg.density_mlp, "K3": mc.mc_wire_device, "K4": dg.triplane_points,
+                "K5": dg.grid_multihead, "K6": dg.points_multihead, "K7": mt.mt_wire_device, "K8": tb.binned_winner,
+                "K9": ud.unwrap_core}
+    need = {"lean": ("K1", "K2", "K3", "K4"), "fast": ("K1", "K5", "K6", "K7", "K8", "K9")}
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    try:
+        import fake_bpy
+    finally:
+        sys.path.pop(0)
+    bpy = fake_bpy.install()
+    from sculptmate_tpu_torch.addon import blender_io
+
+    import_mesh = blender_io.import_mesh
+    try:
+        from sculptmate_tpu_torch.addon import panel
+
+        panel.register()
+        wm = bpy.context.window_manager
+        panel._generators["lean"] = _AtThreshold(gen, lean["threshold"])
+        panel._generators["fast"] = _AtThreshold(fast, scene["threshold"])
+        imported = []
+
+        def timed_import(verts, faces, **kw):
+            t0 = time.perf_counter()
+            obj = import_mesh(verts, faces, **kw)
+            imported.append({"verts": len(verts), "faces": len(faces), "sec": time.perf_counter() - t0, "obj": obj})
+            return obj
+
+        blender_io.import_mesh = timed_import
+        rgba_lean = np.concatenate([lean["image"], np.ones_like(lean["image"][..., :1])], -1)
+        lines, failures = {}, []
+        for model, image in (("lean", rgba_lean), ("fast", scene["image"])):
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            worker = panel.GenerationWorker(image, model, "high", True, f"{model}_asset")
+            t0 = time.perf_counter()
+            worker.run()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            got = imported[-1] if imported and imported[-1]["obj"].name == f"{model}_asset" else None
+            obj = got["obj"] if got else None
+            if obj is not None:
+                mesh = obj.data
+                layers = _fake_children(mesh.vertex_colors)
+                ok = (len(mesh.verts) == got["verts"] and len(mesh.faces) == got["faces"] and got["faces"] > 0
+                      and (f"[{model}_asset_VC]" in layers if model == "lean"
+                           else "active" in _fake_children(mesh.uv_layers)))
+            else:
+                ok = False
+            ok = ok and wm.sm_message.startswith("Done") and all(launches.get(k, 0) >= 1 for k in need[model])
+            lines[model] = {"message": wm.sm_message, "generation_sec": sec - (got["sec"] if got else 0.0),
+                            "import_mesh_sec": got["sec"] if got else None, "verts": got and got["verts"],
+                            "faces": got and got["faces"], "launches": launches, "passed": ok}
+            if not ok:
+                failures.append(model)
+        images = sorted(object.__getattribute__(img, "_name") for img in bpy.data.images.items)
+        objects = [o.name for o in bpy.context.linked_objects]
+        scene_ok = objects == ["lean_asset", "fast_asset"] and images == ["BaseColor", "Bump"]
+        log(json.dumps({"addon_path": "panel.GenerationWorker(...).run() under fake bpy",
+                        "lean": lines["lean"], "pro_textured_high": lines["fast"], "objects": objects,
+                        "images": images, "scene_ok": scene_ok}))
+        log(json.dumps({"addon_path_sec": {"lean_generation": lines["lean"]["generation_sec"],
+                                           "lean_import_mesh": lines["lean"]["import_mesh_sec"],
+                                           "pro_generation": lines["fast"]["generation_sec"],
+                                           "pro_import_mesh": lines["fast"]["import_mesh_sec"]}}))
+        if failures or not scene_ok:
+            raise AssertionError(f"the add-on path failed for {failures or 'the scene'}: {objects}")
+        panel.unregister()
+    finally:
+        blender_io.import_mesh = import_mesh
+        sys.modules.pop("bpy", None)
+
+
 def all_of(*checks):
     """Run every check, then raise one AssertionError naming each that
     failed."""
@@ -1662,7 +1968,8 @@ def planted_faults(g, tsr, sf3d, scene, lean):
                   "triplane_points": lambda: check_triplane_points(tsr, lean, timed=False),
                   "marching_cubes": lambda: all_of(lambda: check_mc_wire(lean, timed=False),
                                                    lambda: check_marching_cubes(lean, timed=False)),
-                  "marching_tets": lambda: check_mt_wire(scene, timed=False)}
+                  "marching_tets": lambda: all_of(lambda: check_mt_wire(scene, timed=False),
+                                                  lambda: check_marching_tets(scene, timed=False))}
         with kernels.sources_from(csrc):
             try:
                 checks[kernel]()
@@ -2541,6 +2848,8 @@ def main():
     k10_split(lean)
     k7 = check_mt_wire(scene)
     k7_split(scene)
+    k11 = check_marching_tets(scene)
+    k11_split(scene)
     planted_faults(g, gen.model, fast.model, scene, lean)
     f1_check(gen.model, fast.model, scene)
     small_model_check()
@@ -2564,7 +2873,10 @@ def main():
     sf3d_async_contract(fast.model, scene)
     farm_launches = sf3d_farm_path(fast.model, scene)
     sf3d_checkpoint_path(fast, scene)
+    sf3d_packed_launches = sf3d_packed_path(fast, scene)
     dead_upstream = dead_upstream_path()
+    marching_cubes_host_check()
+    addon_path(gen, fast, lean, scene)
 
     sf3d_k1 = {f"sf3d_{key}": value for key, value in k1["sf3d"].items()}
     kernels_line = {"kernels": [
@@ -2639,6 +2951,11 @@ def main():
          "max_abs_err": 0.0, "limit": "byte-equal wire (bits, u16 positions, counters)", "check": "pass",
          "ms": k7["ms"], "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": None},
+        {"name": "marching_tets", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_tets.cu",
+         "replaces": "sculptmate_tpu/geometry/marching_tets.py:454", "launches": sf3d_packed_launches["K11"],
+         "max_abs_err": 0.0, "limit": "equal positions, faces and counters", "check": "pass",
+         "ms": k11["ms"], "plain_ms": k11["plain_ms"], "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
+         "library_ms": None},
     ]}
     log("# kernel times per asset: K1's ms, plain_ms, bound_ms and library_ms sum its 44 Lean launches (16 attn1 +"
         " 16 attn2 + 12 ViT) and its launches are those of one 8-asset serving batch, as before the SF3D path;"
@@ -2660,7 +2977,8 @@ def main():
         " samples, relayout_ms its planes' channels-last copy (once per code) and weights_pack_ms its decoder's"
         " packing (once per model); K10 is the asset's 256^3 packed mesh, its launches those of"
         " the packed asset; K7 is the full-width SF3D asset's 161^3 wire at snap_eps 0.2, its launches the untextured"
-        " Fast3DGenerator asset's (per path beside them); K1's d88_* keys are one call at head dim 88 at"
+        " Fast3DGenerator asset's (per path beside them); K11 is the same lattice's packed mesh, its launches those of"
+        " one SF3D._extract_packed_mesh; K1's d88_* keys are one call at head dim 88 at"
         " SingleStreamTransformer's shape (1, 27648, 27648, 16, 88), and launches_by_path counts its 32 launches in"
         " one SingleStreamTransformer call and its 1 in one full TriplaneAttention at res 96")
     log(json.dumps({"session_zoo_ms_per_image": session_ms,

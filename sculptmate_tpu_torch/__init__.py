@@ -2,7 +2,9 @@
 package ``sculptmate_tpu``, which stays the reference.
 
 The package mirrors the JAX package's layout (``ops``, ``models``,
-``geometry``, ``systems``, ``runtime``, ``pipelines``, ``io``), imports no JAX
+``frontend``, ``geometry``, ``systems``, ``parallel``, ``runtime``,
+``pipelines``, ``io``, and the Blender add-on ``addon``), imports no JAX
 and nothing of the JAX package, and runs its kernels (``csrc/*.cu``) on the
-card. Importing it builds and starts nothing.
+card. Importing it builds and starts nothing; ``addon.panel`` and
+``addon.preferences`` import ``bpy``, so they import only inside Blender.
 """

@@ -1,4 +1,6 @@
 // K7: the marching-tets wire on the card, a count, a scan and an emit.
+// K11 (below K7): the packed marching-tets mesh, a classify, a scan, the
+// vertices and the faces.
 //
 // Replaces sculptmate_tpu/geometry/marching_tets.py:mt_wire_device (l.388,
 // with _mt_vertex_side_wire and _mt_positions): the SF3D extraction's wire.
@@ -52,6 +54,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "scan.cuh"
 
@@ -264,5 +268,287 @@ extern "C" int mt_wire_fwd(const void *sdf, const void *off_x, const void *off_y
     mt_emit<<<(int)((nwords + EMIT_THREADS - 1) / EMIT_THREADS), EMIT_THREADS, 0, st>>>(
         s, static_cast<const float *>(off_x), static_cast<const float *>(off_y), static_cast<const float *>(off_z), mk,
         base, counters, wb + occ_bytes, wb + occ_bytes + 6 * (size_t)mv, N, Np, mv, w);
+    return (int)cudaGetLastError();
+}
+
+// -- K11: the packed mesh --
+//
+// Replaces sculptmate_tpu/geometry/marching_tets.py:marching_tets (l.454,
+// with _mt_vertex_side and _mt_positions): vertices numbered class-major,
+// then in (x, y, z) raster order over the padded lattice, in [0, 1]
+// lattice units; faces block-major (8^3 blocks of cubes in (bx, by, bz)
+// order, cubes in (ox, oy, oz) order within a block), then by the cube's
+// six tets and their one or two triangles; five exact counters.
+//
+// Bound on the H100: bytes. At R = 160 it reads the sdf and three offsets
+// (66.8 MB) and writes 12 B per vertex and per face: ~0.02 ms plus ~0.004
+// ms per million vertices and faces at 3.35 TB/s. The TPU program's block
+// and cube capacities, row gathers and 12-slot expansion were workarounds
+// for fixed compaction buffers and slow gathers; here ids come from exact
+// prefixes and only rows under the capacities are written.
+//
+// Design (K10's, in marching_cubes.cu, with K7's halo for seven edge
+// classes), four launches:
+// (1) classify: one block per column of 8 x 8 (x, y) rows walking its 8^3
+//     blocks along z, each block's 9^3 halo kept as state bytes in shared
+//     memory (K7's count pass). Per point: its seven cut flags, gathered
+//     by warp ballots into each (class, x, y) row's 32-bit cut words along
+//     z (a word written once its four 8^3 blocks are seen), and the byte of
+//     the cube it anchors (bit c: corner (c & 1, c >> 1 & 1, c >> 2 & 1)
+//     inside; 0 for a cube past the real lattice), in block-major order.
+//     Per 8^3 block: its faces (from a 256-entry count table), its active
+//     cubes and which classes have a cut edge;
+// (2) one multi-block scan (scan.cuh's scan_segments) of the popcounts of
+//     the cut words (vertex ids), of the block face counts (face ids), of
+//     the active cubes and of the class flags; its last tiles write the
+//     five counters;
+// (3) one thread per cut word emits the positions of its cut edges;
+// (4) persistent blocks, each with the per-cube tables in shared memory
+//     once, walk the 8^3 blocks with faces: a cube's faces start at its
+//     block's scanned base plus an in-block scan, and each corner's id is
+//     its (class, x, y) row's word base plus a popcount within the word.
+//     The per-cube tables (mt_tables' per-tet tables folded over the six
+//     tets, built in geometry/marching_tets.py:cube_tables) give each
+//     triangle's corners as class * 8 + anchor corner.
+// Rounding follows the plain version as K7's does (every operation rounded
+// on its own, tanhf, a NaN t kept).
+
+namespace {
+
+constexpr int CUBE_TRIS = 12;                       // six tets, up to two triangles each
+constexpr int CUBE_TABLE = 256 + 256 * CUBE_TRIS * 3;  // counts, then triangles of edge codes
+constexpr int K11_VERT_THREADS = 256;               // cut words per block of the vertex pass
+
+// one block per column of 8 x 8 (x, y) rows, walking its 8^3 blocks along
+// z: each point's cut flags as (class, x, y) row words along z (cutbits[((c
+// Np + i) Np + j) nwords + w] bit b: the class-c edge from (i, j, 32 w + b)
+// is cut), each cube's corner byte (cases[blk 512 + t]) and per 8^3 block
+// its faces, its active cubes and its class flags (blocks: [faces NB]
+// [active cubes NB][class c's flag, 7 NB])
+__global__ void __launch_bounds__(CELLS) mt_classify(const float *__restrict__ sdf, const int *__restrict__ tables,
+                                                      unsigned *__restrict__ cutbits, uint8_t *__restrict__ cases,
+                                                      int *__restrict__ blocks, int N, int Np, int nwords) {
+    __shared__ int tcount[256];
+    __shared__ uint8_t state[2][HALO_PTS];               // by the parity of bz
+    __shared__ int warp_sums[2][MASK_WORDS][3];          // faces, active cubes, class flags; by the parity of bz
+    for (int e = threadIdx.x; e < 256; e += CELLS) tcount[e] = tables[e];
+    const int nb = Np / BS, NB = nb * nb * nb;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int ox = t >> 6, oy = (t >> 3) & 7, oz = t & 7;
+    const int bi = (blockIdx.x / nb) * BS, bj = (blockIdx.x % nb) * BS;
+    const int i = bi + ox, j = bj + oy;
+    auto load_halo = [&](int bz, float (&v)[HALO_LOADS]) {
+#pragma unroll
+        for (int r = 0; r < HALO_LOADS; ++r) {
+            const int e = t + r * CELLS;
+            int hi, hj, hk;
+            halo_point(e, bi, bj, bz * BS, hi, hj, hk);
+            v[r] = e < HALO_PTS && hi < N && hj < N && hk < N ? sdf[flat(hi, hj, hk, N)] : 0.f;
+        }
+    };
+    // the block's totals, by thread 0 once every warp has written them
+    auto block_totals = [&](int bz) {
+        const int (*ws)[3] = warp_sums[bz & 1];
+        int faces = 0, active = 0, cls = 0;
+#pragma unroll
+        for (int w = 0; w < MASK_WORDS; ++w) {
+            faces += ws[w][0];
+            active += ws[w][1];
+            cls |= ws[w][2];
+        }
+        const int blk = blockIdx.x * nb + bz;
+        blocks[blk] = faces;
+        blocks[NB + blk] = active;
+#pragma unroll
+        for (int c = 0; c < NCLS; ++c) blocks[(2 + c) * NB + blk] = (cls >> c) & 1;
+    };
+    const size_t nrows = (size_t)Np * Np;
+    unsigned word[NCLS] = {};  // this lane's rows' words so far (lanes with oz = 0 store them)
+    float ahead[HALO_LOADS];  // the sdf at this thread's halo points, one 8^3 block ahead
+    load_halo(0, ahead);
+    for (int bz = 0; bz < nb; ++bz) {
+        uint8_t *st = state[bz & 1];
+#pragma unroll
+        for (int r = 0; r < HALO_LOADS; ++r) {
+            const int e = t + r * CELLS;
+            int hi, hj, hk;
+            halo_point(e, bi, bj, bz * BS, hi, hj, hk);
+            if (e < HALO_PTS) st[e] = hi < N && hj < N && hk < N ? (ahead[r] > 0.f ? INSIDE : OUTSIDE) : PAST;
+        }
+        // one barrier per 8^3 block: the states and sums of the next block
+        // go to the other halves (the first also publishes the count table)
+        __syncthreads();
+        if (bz > 0 && t == 0) block_totals(bz - 1);
+        if (bz + 1 < nb) load_halo(bz + 1, ahead);
+        const uint8_t s0 = st[(ox * HALO + oy) * HALO + oz];
+        unsigned f = 0;
+#pragma unroll
+        for (int c = 0; c < NCLS; ++c) {
+            const int dx = (STEP_X >> c) & 1, dy = (STEP_Y >> c) & 1, dz = (STEP_Z >> c) & 1;
+            const uint8_t s1 = st[((ox + dx) * HALO + oy + dy) * HALO + oz + dz];
+            if (s0 != PAST && s1 != PAST && s1 != s0) f |= 1u << c;
+        }
+        // the cube's corner byte; a cube whose far corner is past the real
+        // lattice emits nothing
+        unsigned cube = 0u;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+            cube |= (unsigned)(st[((ox + (c & 1)) * HALO + oy + ((c >> 1) & 1)) * HALO + oz + (c >> 2)] == INSIDE) << c;
+        if (st[((ox + 1) * HALO + oy + 1) * HALO + oz + 1] == PAST) cube = 0u;
+        const int blk = blockIdx.x * nb + bz;
+        cases[(size_t)blk * CELLS + t] = (uint8_t)cube;
+        const int ntri = tcount[cube];  // tcount[0] = 0
+        // the 8 points (i, j, k0 .. k0 + 7) are lanes 8m .. 8m + 7 of one warp
+#pragma unroll
+        for (int c = 0; c < NCLS; ++c) {
+            const unsigned b = __ballot_sync(FULL, (f >> c) & 1u);
+            word[c] |= ((b >> (lane & 24)) & 0xFFu) << (8 * (bz & 3));
+        }
+        if ((bz & 3) == 3 || bz == nb - 1) {
+            if ((lane & 7) == 0)
+#pragma unroll
+                for (int c = 0; c < NCLS; ++c)
+                    cutbits[((size_t)c * nrows + (size_t)i * Np + j) * nwords + bz / 4] = word[c];
+#pragma unroll
+            for (int c = 0; c < NCLS; ++c) word[c] = 0u;
+        }
+        const int wf = __reduce_add_sync(FULL, ntri), wa = __popc(__ballot_sync(FULL, ntri > 0));
+        const unsigned wo = __reduce_or_sync(FULL, f);
+        if (lane == 0) {
+            warp_sums[bz & 1][warp][0] = wf;
+            warp_sums[bz & 1][warp][1] = wa;
+            warp_sums[bz & 1][warp][2] = (int)wo;
+        }
+    }
+    __syncthreads();
+    if (t == 0) block_totals(nb - 1);
+}
+
+// one thread per cut word (the words of a row consecutive, rows in (class,
+// x, y) order): the positions of its cut edges with ids under the capacity,
+// the first its word's scanned base
+__global__ void __launch_bounds__(K11_VERT_THREADS) mt_verts(const float *__restrict__ sdf,
+                                                             const float *__restrict__ offx,
+                                                             const float *__restrict__ offy,
+                                                             const float *__restrict__ offz,
+                                                             const unsigned *__restrict__ cutbits,
+                                                             const int *__restrict__ word_base, float *__restrict__ pos,
+                                                             int N, int Np, int nwords, int mv, float inv_res) {
+    const long long wi = (long long)blockIdx.x * K11_VERT_THREADS + threadIdx.x;
+    if (wi >= (long long)NCLS * Np * Np * nwords) return;
+    unsigned b = cutbits[wi];
+    int id = word_base[wi];
+    if (b == 0u || id >= mv) return;
+    const int row3 = (int)(wi / nwords), w = (int)(wi % nwords);
+    const int c = row3 / (Np * Np), row = row3 % (Np * Np), i = row / Np, j = row % Np;
+    const int dx = (STEP_X >> c) & 1, dy = (STEP_Y >> c) & 1, dz = (STEP_Z >> c) & 1;
+    const float *offs[3] = {offx, offy, offz};
+    for (; b != 0u && id < mv; b &= b - 1u, ++id) {
+        const int k = 32 * w + __ffs(b) - 1;
+        const int idx0[3] = {i, j, k}, idx1[3] = {i + dx, j + dy, k + dz};
+        // both ends lie in the real lattice (the classify pass's domain mask)
+        const size_t p0 = flat(i, j, k, N), p1 = flat(idx1[0], idx1[1], idx1[2], N);
+        const float s0 = sdf[p0], d = __fsub_rn(s0, sdf[p1]);
+        float t = __fdiv_rn(s0, d == 0.f ? 1.f : d);
+        if (!isnan(t)) t = fminf(fmaxf(t, 0.f), 1.f);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+            const float c0 = deformed(idx0[a], offs[a], p0, inv_res), c1 = deformed(idx1[a], offs[a], p1, inv_res);
+            pos[(size_t)a * mv + id] = __fadd_rn(c0, __fmul_rn(t, __fsub_rn(c1, c0)));
+        }
+    }
+}
+
+// persistent blocks walking the 8^3 blocks, the tables loaded once: the
+// faces of each block's cubes with ids under the capacity, from the corner
+// bytes and the scanned face bases
+__global__ void __launch_bounds__(CELLS) mt_faces(const uint8_t *__restrict__ cases, const int *__restrict__ tables,
+                                                   const unsigned *__restrict__ cutbits,
+                                                   const int *__restrict__ word_base, const int *__restrict__ fcount,
+                                                   const int *__restrict__ fbase, int *__restrict__ corners, int Np,
+                                                   int nwords, int mf) {
+    __shared__ int tab[CUBE_TABLE];
+    for (int e = threadIdx.x; e < CUBE_TABLE; e += CELLS) tab[e] = tables[e];
+    __syncthreads();
+    const int *tri = tab + 256;
+    const int nb = Np / BS, NB = nb * nb * nb, t = threadIdx.x;
+    for (int blk = blockIdx.x; blk < NB; blk += gridDim.x) {
+        const int fb = fbase[blk];
+        if (fcount[blk] == 0 || fb >= mf) continue;  // the same for the whole block
+        const int i = (blk / (nb * nb)) * BS + (t >> 6), j = ((blk / nb) % nb) * BS + ((t >> 3) & 7),
+                  k = (blk % nb) * BS + (t & 7);
+        const int cs = cases[(size_t)blk * CELLS + t], ntri = tab[cs];
+        int total;
+        const int f0 = fb + block_exclusive_scan(ntri, &total);
+        for (int s = 0; s < ntri && f0 + s < mf; ++s) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const int code = tri[(cs * CUBE_TRIS + s) * 3 + c], cls = code >> 3, a = code & 7;
+                const int ai = i + (a & 1), aj = j + ((a >> 1) & 1), ak = k + (a >> 2);
+                const size_t w3 = (((size_t)cls * Np + ai) * Np + aj) * nwords + (ak >> 5);
+                corners[(size_t)c * mf + f0 + s] = word_base[w3] + __popc(cutbits[w3] & ((1u << (ak & 31)) - 1u));
+            }
+        }
+    }
+}
+
+}  // namespace
+
+// K11: sdf and the three raw offsets, each (N, N, N) f32 x-major, and the
+// per-cube tables (int32 [count 256][triangles 256 x 12 x 3]) -> (3, mv) f32
+// positions and (3, mf) int32 face corners (both zeroed by the caller).
+// zeroed (zeroed by the caller): the 5 int32 counters (num_verts,
+// num_faces, active vertex blocks, face blocks, active cubes), the scan's
+// tile counter, 2 pad ints, then status_tiles u64 status words. Scratch,
+// Np = 8 ceil(N / 8), NB = (Np / 8)^3: cutbits and word_base 7 Np^2
+// ceil(Np / 32) ints each, cases Np^3 bytes, blocks 9 NB ints, fbase NB
+// ints. inv_res is f32(1 / res). Four launches: classify, one scan of every
+// count array (which writes the counters), the vertices, the faces.
+extern "C" int marching_tets_fwd(const void *sdf, const void *off_x, const void *off_y, const void *off_z,
+                                 const void *tables, void *pos, void *corners, void *zeroed, void *cutbits,
+                                 void *word_base, void *cases, void *blocks, void *fbase, int N, int mv, int mf,
+                                 int status_tiles, int num_sms, float inv_res, void *stream) {
+    if (N < 2 || mv < 1 || mf < 1) return (int)cudaErrorInvalidValue;
+    const int Np = (N + BS - 1) / BS * BS, nb = Np / BS, NB = nb * nb * nb, nwords = (Np + 31) / 32;
+    if ((long long)Np * Np * Np >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+    const float *s = static_cast<const float *>(sdf);
+    const int *tab = static_cast<const int *>(tables);
+    unsigned *bits = static_cast<unsigned *>(cutbits);
+    int *wb = static_cast<int *>(word_base), *bl = static_cast<int *>(blocks), *fb = static_cast<int *>(fbase);
+    int *counts = static_cast<int *>(zeroed);
+    const int nwords_all = NCLS * Np * Np * nwords;
+
+    ScanSegs sg = {};
+    auto seg = [&](int k, const int *in, int *base, int n, int popc, int *total, int *nonzero) {
+        sg.in[k] = in;
+        sg.base[k] = base;
+        sg.n[k] = n;
+        sg.popc[k] = popc;
+        sg.total[k] = total;
+        sg.nonzero[k] = nonzero;
+        sg.first_tile[k + 1] = sg.first_tile[k] + scan_tiles(n);
+    };
+    // counts = [num_verts, num_faces, active vertex blocks, face blocks, active cubes]
+    seg(0, reinterpret_cast<const int *>(bits), wb, nwords_all, 1, counts, nullptr);  // vertex ids
+    seg(1, bl, fb, NB, 0, counts + 1, counts + 3);                                    // face ids, face blocks
+    seg(2, bl + NB, nullptr, NB, 0, counts + 4, nullptr);                             // active cubes
+    seg(3, bl + 2 * NB, nullptr, NCLS * NB, 0, counts + 2, nullptr);                  // vertex blocks
+    sg.nsegs = 4;
+    const int tiles = sg.first_tile[4];
+    if (tiles > status_tiles) return (int)cudaErrorInvalidValue;
+
+    int fgrid = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fgrid, mt_faces, CELLS, 0);
+    if (e != cudaSuccess) return (int)e;
+    fgrid = std::max(1, std::min(NB, fgrid * num_sms));
+
+    mt_classify<<<nb * nb, CELLS, 0, st>>>(s, tab, bits, static_cast<uint8_t *>(cases), bl, N, Np, nwords);
+    scan_segments<<<tiles, MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counts + 8), counts + 5);
+    mt_verts<<<(nwords_all + K11_VERT_THREADS - 1) / K11_VERT_THREADS, K11_VERT_THREADS, 0, st>>>(
+        s, static_cast<const float *>(off_x), static_cast<const float *>(off_y), static_cast<const float *>(off_z),
+        bits, wb, static_cast<float *>(pos), N, Np, nwords, mv, inv_res);
+    mt_faces<<<fgrid, CELLS, 0, st>>>(static_cast<const uint8_t *>(cases), tab, bits, wb, bl, fb,
+                                      static_cast<int *>(corners), Np, nwords, mf);
     return (int)cudaGetLastError();
 }

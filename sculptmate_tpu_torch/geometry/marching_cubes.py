@@ -2,9 +2,11 @@
 face-emitting extraction (kernel K10).
 
 Counterpart of ``sculptmate_tpu/geometry/marching_cubes.py``:
-``mc_wire_device`` and ``marching_cubes``. Each routes to its kernel in
-``csrc/marching_cubes.cu`` on a CUDA tensor and to its plain version
-(``mc_wire_device_plain``, ``marching_cubes_plain``) on a CPU tensor.
+``mc_wire_device``, ``marching_cubes`` and ``marching_cubes_host`` (the
+packed mesh sliced to the host, on the card by default). Each device
+function routes to its kernel in ``csrc/marching_cubes.cu`` on a CUDA
+tensor and to its plain version (``mc_wire_device_plain``,
+``marching_cubes_plain``) on a CPU tensor.
 
 The wire. Faces are pure table logic on the occupancy field, so the device
 ships only what the host cannot rebuild, as one uint8 buffer (order
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 
 from sculptmate_tpu_torch.geometry.mc_tables import EDGE_AXIS, EDGE_OFFSET, build_tables
 from sculptmate_tpu_torch.runtime import kernels
+from sculptmate_tpu_torch.runtime.device import resolve_device
 
 BS = 8  # block side
 N_WIRE_COUNTS = 2  # num_verts, n_vblocks
@@ -380,3 +383,30 @@ def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int) -> MCRes
 
 
 marching_cubes.launches = 0
+
+
+def marching_cubes_host(level, max_verts: int = 0, max_faces: int = 0, device=None):
+    """Host wrapper: a (RX, RY, RZ) level (array or tensor, any sizes) ->
+    (verts (nv, 3) f32 lattice coords, faces (nf, 3) int32), sliced to the
+    exact counts. Each dim is padded with -1 (outside) to a multiple of 8.
+    ``device`` defaults to the card (K10); an overflow is retried with
+    doubled capacities, never truncated."""
+    dev = resolve_device(device)
+    level = torch.as_tensor(np.asarray(level, np.float32) if not torch.is_tensor(level) else level,
+                            dtype=torch.float32).to(dev)
+    pads = [(-int(s)) % BS for s in level.shape]
+    if any(pads):
+        level = F.pad(level, (0, pads[2], 0, pads[1], 0, pads[0]), value=-1.0)
+    R = int(max(level.shape))
+    if max_verts <= 0:
+        max_verts = 32 * R * R
+    if max_faces <= 0:
+        max_faces = 64 * R * R
+    while True:
+        res = marching_cubes(level, max_verts, max_faces)
+        nv, nf = int(res.num_verts), int(res.num_faces)
+        if nv <= max_verts and nf <= max_faces:
+            break
+        max_verts = max(2 * max_verts, nv)
+        max_faces = max(2 * max_faces, nf)
+    return res.verts[:nv].cpu().numpy(), res.faces[:nf].cpu().numpy()

@@ -9,9 +9,10 @@ Counterpart of ``sculptmate_tpu/geometry/mesh.py:Mesh`` (the reference's
   Gram-Schmidt against the normal;
 - ``unwrap_uv``: the cube-projection unwrap on the host (``uv_unwrap.py``)
   or on the device (``uv_unwrap_device.py``, kernel K9), then vertices
-  duplicated per face with flat UVs.
-
-The remeshing helpers are not ported: no ported path calls them.
+  duplicated per face with flat UVs;
+- ``triangle_remesh``: subdivide-if-upsampling + quadric decimation
+  (``decimate.py``), then optionally the isotropic remesher
+  (``remesh.py``): gpytoolbox's role at ``mesh.py:175-237``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def _scatter_add_rows(out: np.ndarray, idx: np.ndarray, vals: np.ndarray) -> Non
 
 
 class Mesh:
-    def __init__(self, v_pos: np.ndarray, t_pos_idx: np.ndarray):
+    def __init__(self, v_pos: np.ndarray, t_pos_idx: np.ndarray, **extras):
         self.v_pos = np.asarray(v_pos, np.float32)
         self.t_pos_idx = np.asarray(t_pos_idx, np.int64)
         self._v_nrm: Optional[np.ndarray] = None
@@ -39,6 +40,7 @@ class Mesh:
         self._v_tex: Optional[np.ndarray] = None
         self._edges: Optional[np.ndarray] = None
         self._dup_face_nrm: Optional[np.ndarray] = None
+        self.extras = dict(extras)
 
     # -- lazy attributes --------------------------------------------------
     @property
@@ -126,6 +128,65 @@ class Mesh:
         n = self.v_nrm
         tangents = tangents - (tangents * n).sum(-1, keepdims=True) * n
         return tangents / np.maximum(np.linalg.norm(tangents, axis=1, keepdims=True), 1e-12)
+
+    # -- remeshing --------------------------------------------------------
+    def subdivide(self, iters: int = 1) -> "Mesh":
+        """Loop-style midpoint subdivision (positions averaged, no smoothing):
+        the upsampling role of gpytoolbox.subdivide at ``mesh.py:187-191``."""
+        v, f = self.v_pos, self.t_pos_idx
+        for _ in range(iters):
+            e = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+            key = e[:, 0] * np.int64(len(v)) + e[:, 1]
+            _, first, inv = np.unique(key, return_index=True, return_inverse=True)
+            uniq = e[first]
+            mid = (v[uniq[:, 0]] + v[uniq[:, 1]]) / 2
+            mid_id = len(v) + inv.reshape(3, -1)  # (3, F) edge midpoint ids
+            a, b, c = f[:, 0], f[:, 1], f[:, 2]
+            mab, mbc, mca = mid_id[0], mid_id[1], mid_id[2]
+            v = np.concatenate([v, mid])
+            f = np.concatenate([
+                np.stack([a, mab, mca], 1),
+                np.stack([mab, b, mbc], 1),
+                np.stack([mca, mbc, c], 1),
+                np.stack([mab, mbc, mca], 1),
+            ])
+        return Mesh(v, f)
+
+    def triangle_remesh(
+        self,
+        triangle_vertex_count: int = -1,
+        triangle_average_edge_length_multiplier: Optional[float] = None,
+        triangle_remesh_steps: int = 10,
+        isotropic: bool = False,
+    ) -> "Mesh":
+        """Adjust the vertex budget by subdivision + quadric decimation, with
+        optional isotropic remeshing: the gpytoolbox decimate/remesh_botsch
+        path at ``sf3d/models/mesh.py:175-237``. ``isotropic=False`` skips the
+        remesh pass unless an edge-length multiplier is given."""
+        from sculptmate_tpu_torch.geometry.decimate import decimate
+
+        mesh = self
+        if triangle_vertex_count > 0:
+            reduction = triangle_vertex_count / mesh.v_pos.shape[0]
+            if reduction > 1.0:
+                mesh = mesh.subdivide(int(np.ceil(np.log(reduction) / np.log(4))))
+                reduction = triangle_vertex_count / mesh.v_pos.shape[0]
+            mesh = Mesh(*decimate(mesh.v_pos, mesh.t_pos_idx, target_ratio=reduction))
+        if isotropic or triangle_average_edge_length_multiplier is not None:
+            from sculptmate_tpu_torch.geometry.remesh import isotropic_remesh
+
+            h = None
+            if triangle_average_edge_length_multiplier is not None:
+                e = mesh.edges
+                h = float(np.linalg.norm(mesh.v_pos[e[:, 0]] - mesh.v_pos[e[:, 1]], axis=1).mean()
+                          * triangle_average_edge_length_multiplier)
+            mesh = Mesh(*isotropic_remesh(mesh.v_pos, mesh.t_pos_idx, h, triangle_remesh_steps))
+        return mesh
+
+    def quad_remesh(self, quad_vertex_count: int = -1, **_kwargs) -> "Mesh":
+        """Quad remeshing is stubbed in the reference too (pynim commented
+        out, ``sf3d/models/mesh.py:141-173``): the mesh unchanged."""
+        return Mesh(self.v_pos, self.t_pos_idx)
 
     # -- UVs --------------------------------------------------------------
     def unwrap_uv(self, island_padding: float = 0.02, backend: str = "host", device=None) -> "Mesh":

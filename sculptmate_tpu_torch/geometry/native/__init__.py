@@ -3,8 +3,9 @@
 Counterpart of ``sculptmate_tpu/geometry/native/__init__.py`` for the
 libraries the port's paths need, copies of the JAX package's sources: the
 wire decoders ``mc_wire.cpp`` (Lean) and ``mt_wire.cpp`` (SF3D), the
-quadric decimator ``quadric_decimate.cpp`` and the UV overlap painter
-``unwrap_overlap.cpp``. They are host code, not GPU kernels: each is built
+quadric decimator ``quadric_decimate.cpp``, the UV overlap painter
+``unwrap_overlap.cpp`` and the isotropic remesher ``isotropic_remesh.cpp``
+(``geometry/remesh.py``). They are host code, not GPU kernels: each is built
 with ``g++`` on first use into the package's ignored ``_build/`` directory,
 under a name that hashes its source, and loaded with ctypes.
 """

@@ -6,8 +6,9 @@ Counterparts of ``sculptmate_tpu/pipelines/generate.py``: ``TripoGenerator``
 ``generate_mesh`` with the same return codes (0 ok / 1 not initialized / 2
 error); ``initiate_model`` loads a checkpoint directory in the reference's
 layout. The model runs on the card unless ``device="cpu"`` is passed to
-``initiate_model``. The result is written as GLB (importing into Blender is
-not ported yet).
+``initiate_model``. Inside Blender (where ``bpy`` imports) ``generate_mesh``
+imports the result into the scene through ``addon/blender_io.py``;
+elsewhere it writes a GLB next to the input (or to ``output_path``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,15 @@ import traceback
 from typing import Optional
 
 import numpy as np
+
+
+def _in_blender() -> bool:
+    try:
+        import bpy  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
 
 
 class TripoGenerator:
@@ -82,7 +92,12 @@ class TripoGenerator:
             print(f"[SculptMate Logging] Generation took {time.time() - t0:.2f}s")
             if len(verts) == 0:
                 return 2
-            write_glb(output_path or f"{mesh_name}.glb", verts, faces, vertex_colors=colors)
+            if _in_blender():
+                from sculptmate_tpu_torch.addon.blender_io import import_mesh
+
+                import_mesh(verts, faces, vertex_colors=colors, name=mesh_name)
+            else:
+                write_glb(output_path or f"{mesh_name}.glb", verts, faces, vertex_colors=colors)
             return 0
         except Exception:
             print("[Generation Error]", traceback.format_exc())
@@ -132,7 +147,8 @@ class Fast3DGenerator:
     ) -> int:
         """image: (H, W, 4) RGBA (or 3 channels), uint8-range or [0, 1].
         Writes a GLB with normals and UVs and, with ``enable_texture``, the
-        three baked textures. ``threshold`` overrides the config's
+        three baked textures (in Blender: the mesh, its UV layer and the
+        albedo and bump images). ``threshold`` overrides the config's
         iso-level."""
         if self.model is None:
             return 1
@@ -155,8 +171,14 @@ class Fast3DGenerator:
             print(f"[SculptMate Logging] Generation took {time.time() - t0:.2f}s")
             if mesh is None or len(mesh["verts"]) == 0:
                 return 2
-            write_glb(output_path or f"{mesh_name}.glb", mesh["verts"], mesh["faces"], normals=mesh["normals"],
-                      uvs=mesh["uvs"], textures=mesh["texture_pngs"])
+            if _in_blender():
+                from sculptmate_tpu_torch.addon.blender_io import import_mesh
+
+                import_mesh(mesh["verts"], mesh["faces"], uvs=mesh.get("uvs"), textures=mesh.get("textures"),
+                            name=mesh_name)
+            else:
+                write_glb(output_path or f"{mesh_name}.glb", mesh["verts"], mesh["faces"], normals=mesh["normals"],
+                          uvs=mesh["uvs"], textures=mesh["texture_pngs"])
             return 0
         except Exception:
             print("[Generation Error]", traceback.format_exc())

@@ -2,11 +2,13 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library of
 its own with a plain C interface (no PyTorch headers, so a build takes
-seconds), which is loaded with ``ctypes``. Libraries land in ``_build/``
-next to the sources, named by a hash of the sources and flags, so an edited
-kernel never loads a stale binary. Nothing is built when a module is
-imported: the first launch builds what it needs, and ``build_all`` builds
-every kernel at once, one ``nvcc`` per source, all started together.
+seconds), which is loaded with ``ctypes``; a source may hold several
+kernels (``marching_cubes.cu``: K3 and K10; ``marching_tets.cu``: K7 and
+K11). Libraries land in ``_build/`` next to the sources, named by a hash of
+the sources and flags, so an edited kernel never loads a stale binary.
+Nothing is built when a module is imported: the first launch builds what it
+needs, and ``build_all`` builds every kernel at once, one ``nvcc`` per
+source, all started together.
 """
 
 from __future__ import annotations

@@ -34,6 +34,11 @@ Each stage runs inside a ``torch.profiler`` span named ``sf3d.<stage>``:
 ``encode``, ``extract`` (holding ``grid``, ``marching_tets``,
 ``wire_to_host`` and ``wire_decode``), ``decimate``, then ``unwrap_bake``
 (fused) or ``unwrap`` and ``bake``.
+
+Beside the wire, ``_extract_packed`` and ``_extract_packed_mesh`` give the
+packed mesh of the JAX package's ``_extract_jit`` and
+``_extract_packed_jit`` (kernel K11 on the card); no public mode reaches
+them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,7 +56,9 @@ from torch.profiler import record_function
 from sculptmate_tpu_torch.config import load_yaml_config
 from sculptmate_tpu_torch.geometry import mt_wire, texture_bake
 from sculptmate_tpu_torch.geometry.decimate import decimate, vertex_normals
-from sculptmate_tpu_torch.geometry.marching_tets import N_WIRE_COUNTS, lattice_size, mt_wire_device
+from sculptmate_tpu_torch.geometry.marching_tets import (
+    N_WIRE_COUNTS, MTResult, lattice_size, marching_tets, mt_wire_device,
+)
 from sculptmate_tpu_torch.geometry.mesh import Mesh
 from sculptmate_tpu_torch.geometry.uv_unwrap import _main_axis_rotation
 from sculptmate_tpu_torch.geometry.uv_unwrap_device import unwrap_core
@@ -400,6 +407,37 @@ class SF3D:
             sdf = torch.exp(grids["density"][0] - 1.0) - threshold
             dx, dy, dz = grids["vertex_offset"]
             return mt_wire_device(sdf, dx, dy, dz, self.config.isosurface_resolution, max_verts, snap_eps)
+
+    @torch.inference_mode()
+    def _extract_packed(self, scene_code, threshold: float, max_verts: int, max_faces: int) -> MTResult:
+        """The lattice query, the density head's bias and activation, the
+        threshold, then the packed marching tets (kernel K11 on the card):
+        ``_extract_jit`` in the JAX package. Positions in [0, 1] lattice
+        units; nothing here waits for the device."""
+        with record_function("sf3d.grid"):
+            grids = self.query_lattice(scene_code)
+        with record_function("sf3d.marching_tets"):
+            sdf = torch.exp(grids["density"][0] - 1.0) - threshold
+            dx, dy, dz = grids["vertex_offset"]
+            return marching_tets(sdf, dx, dy, dz, self.config.isosurface_resolution, max_verts, max_faces)
+
+    def _extract_packed_mesh(self, scene_code, threshold: float, max_verts: int, max_faces: int):
+        """``_extract_packed`` with the world positions (v 2r - r), the int32
+        faces and the five counters brought to the host in one copy
+        (``_extract_packed_jit`` in the JAX package) -> (verts (n, 3) f32,
+        faces (m, 3) int32, counters (5,) int64), n and m the counts cut to
+        the capacities: a caller compares the counters with them."""
+        mt = self._extract_packed(scene_code, threshold, max_verts, max_faces)
+        r = self.config.radius
+        pos = mt.verts * (2 * r) - r
+        with record_function("sf3d.packed_to_host"):
+            host = torch.cat([pos.reshape(-1).view(torch.int32), mt.faces.reshape(-1), torch.stack(mt[6:])]).cpu()
+        host = host.numpy()
+        counts = host[-5:].astype(np.int64)
+        nv, nf = min(int(counts[0]), max_verts), min(int(counts[1]), max_faces)
+        verts = host[: 3 * max_verts].view(np.float32).reshape(max_verts, 3)[:nv]
+        faces = host[3 * max_verts : 3 * (max_verts + max_faces)].reshape(max_faces, 3)[:nf]
+        return verts, faces, counts
 
     def _capacity(self, res: int) -> int:
         if self._mt_cap is None:

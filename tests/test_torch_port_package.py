@@ -25,8 +25,13 @@ SF3D_TINY = SF3DConfig(
     dinov2_intermediate_size=128, clip_width=64, clip_layers=2, clip_heads=4,
 )
 
+# the add-on's panel and preferences import bpy at module level, as the JAX
+# package's do: the walk runs with tests/fake_bpy.py installed as bpy
 ISOLATION = """
 import importlib, pkgutil, sys
+sys.path.insert(0, %r)
+import fake_bpy
+fake_bpy.install()
 import sculptmate_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -34,10 +39,11 @@ for name in names:
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "sculptmate_tpu.")) or m == "sculptmate_tpu")
 host_only = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2"))
 print(len(names), bad, host_only)
-assert len(names) >= 45, names
+assert len(names) >= 66, names
+assert "sculptmate_tpu_torch.addon.panel" in names and "sculptmate_tpu_torch.addon.preferences" in names, names
 assert not bad, bad
 assert not host_only, host_only
-"""
+""" % str(pathlib.Path(__file__).parent)
 
 
 def test_port_imports_no_jax():
@@ -101,9 +107,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_geometry_helpers_default_to_the_card(monkeypatch):
-    """The device unwrap, the host-array rasterizer and ``Mesh.unwrap_uv``'s
-    device and auto backends run on the card unless asked for the CPU:
+    """The device unwrap, the host-array rasterizer, ``Mesh.unwrap_uv``'s
+    device and auto backends, ``marching_cubes_host`` and
+    ``marching_tets_host`` run on the card unless asked for the CPU:
     without a CUDA device they raise."""
+    from sculptmate_tpu_torch.geometry import marching_cubes_host
+    from sculptmate_tpu_torch.geometry.marching_tets import marching_tets_host
     from sculptmate_tpu_torch.geometry.mesh import Mesh
     from sculptmate_tpu_torch.geometry.texture_bake import rasterize
     from sculptmate_tpu_torch.geometry.uv_unwrap_device import unwrap_device
@@ -112,15 +121,20 @@ def test_geometry_helpers_default_to_the_card(monkeypatch):
     verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
     faces = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]])
     uv = verts[:, :2]
+    g = np.arange(9, dtype=np.float32) - 4
+    sphere = 3 - np.sqrt(g[:, None, None] ** 2 + g[None, :, None] ** 2 + g[None, None, :] ** 2)
     for call in (lambda: unwrap_device(verts, faces), lambda: rasterize(uv, faces, 16),
                  lambda: Mesh(verts, faces).unwrap_uv(backend="device"),
-                 lambda: Mesh(verts, faces).unwrap_uv(backend="auto")):
+                 lambda: Mesh(verts, faces).unwrap_uv(backend="auto"),
+                 lambda: marching_cubes_host(sphere), lambda: marching_tets_host(sphere.ravel(), None, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     flat, _ = unwrap_device(verts, faces, return_flat=True, device="cpu")
     assert flat.shape == (4, 3, 2)
     assert rasterize(uv, faces, 16, device="cpu").shape == (4, 16, 16)
     assert Mesh(verts, faces).unwrap_uv(backend="auto", device="cpu").v_tex.shape == (12, 2)
+    assert len(marching_cubes_host(sphere, device="cpu")[1]) > 0
+    assert len(marching_tets_host(sphere.ravel(), None, 8, device="cpu")[1]) > 0
 
 
 @pytest.mark.parametrize("model", ["tsr", "sf3d"])
@@ -228,12 +242,16 @@ def test_sf3d_texture_branches_on_cpu():
     assert out["textures"]["albedo"].shape == (32, 32, 3) and 0 <= out["roughness"] <= 1
 
 
-def test_generator_writes_glb_on_cpu(tmp_path, rng):
+def test_generator_writes_glb_on_cpu(tmp_path, rng, monkeypatch):
     """TripoGenerator from a checkpoint directory (config.yaml + torch
     model.ckpt, the reference's layout): 0 and a GLB on success, 1 before
-    initiate_model, 2 when the mesh is empty."""
+    initiate_model, 2 when the mesh is empty. Outside Blender: a fake bpy
+    that another test file installed is removed for the test, or the
+    generator imports into its scene."""
     from sculptmate_tpu_torch.pipelines.generate import TripoGenerator
     from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
+
+    monkeypatch.delitem(sys.modules, "bpy", raising=False)
 
     (tmp_path / "config.yaml").write_text(
         "cond_image_size: 32\n"

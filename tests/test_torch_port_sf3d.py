@@ -8,6 +8,7 @@ relative to max |reference|: 1e-4 for f32 module outputs unless stated."""
 
 import dataclasses
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -238,11 +239,14 @@ def test_run_image_untextured_matches_jax(rng, jax_sf3d, port):
     assert got["textures"] is None and got["texture_pngs"] is None
 
 
-def test_fast3d_generator_writes_glb_on_cpu(tmp_path, rng, port, jax_sf3d):
+def test_fast3d_generator_writes_glb_on_cpu(tmp_path, rng, port, jax_sf3d, monkeypatch):
     """0 and a GLB with normals and UVs, untextured or (the default) with
     the three baked textures; 1 before initiate_model; 2 for an empty
-    mesh."""
+    mesh. Outside Blender: a fake bpy that another test file installed is
+    removed for the test, or the generator imports into its scene."""
     from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
+
+    monkeypatch.delitem(sys.modules, "bpy", raising=False)
 
     gen = Fast3DGenerator()
     img = (rng.random((56, 56, 4)) * 255).astype(np.uint8)
