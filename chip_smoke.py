@@ -362,12 +362,21 @@ PLANTED_FAULTS = (
     ("K11's cube byte drops its last corner", "marching_tets",
      "for (int c = 0; c < 8; ++c)\n            cube |=", "for (int c = 0; c < 7; ++c)\n            cube |="),
     ("K11's face bases past the first scan tile are one off", "marching_tets",
-     "const int fb = fbase[blk];", "const int fb = fbase[blk] + (blk >= MS_TILE ? 1 : 0);"),
+     "fb = fbase[next];", "fb = fbase[next] + (next >= MS_TILE ? 1 : 0);"),
     ("K11's face corners leave out their word's base", "marching_tets",
-     "corners[(size_t)c * mf + f0 + s] = word_base[w3] + __popc(",
-     "corners[(size_t)c * mf + f0 + s] = __popc("),
+     "= word_base[g] + __popc(cutbits[g]", "= __popc(cutbits[g]"),
     ("K11's edge end takes its start's offset", "marching_tets",
      "c1 = deformed(idx1[a], offs[a], p1, inv_res);", "c1 = deformed(idx1[a], offs[a], p0, inv_res);"),
+    # the z-split classify: a segment past the first starts from the first's halo
+    ("K11's z-segments load the first segment's halo", "marching_tets",
+     "k0 = bz0 * BS;", "k0 = 0;"),
+    ("K11's vertex walk ranks a lane one bit low in its word", "marching_tets",
+     "const int q = nth_bit(bj, v - ej);", "const int q = nth_bit(bj, max(v - ej - 1, 0));"),
+    # a cube without faces shares its first face with the next cube
+    ("K11's face search stops short of a cube's first face", "marching_tets",
+     "if (first[u + s] <= r) u += s;", "if (first[u + s] < r) u += s;"),
+    ("K11's face corners drop their x step", "marching_tets",
+     "const int i = bi + ox + (a & 1),", "const int i = bi + ox,"),
 )
 # Cases a planted fault must fail among the others: the last key tile is
 # 1/216 of the keys at SF3D's fuse-in, the shape where dropping it moves
@@ -375,13 +384,19 @@ PLANTED_FAULTS = (
 # kernels (a lattice of two scan tiles or fewer does not show it); K9's
 # round-1 depth range and its pool's scan tiles show on the layered sheets,
 # whose hidden faces span a tenth of the depth range and fill the pool over
-# five scan tiles
+# five scan tiles; each fault of K11's z-split classify, balanced vertex
+# walk, face search and corner addressing names one case where it shows
 PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
                      "K1's pad columns are not zeroed at D = 88": ("single-stream transformer",),
                      "K1 takes its scale from the padded D": ("single-stream transformer", "ragged batched d88 f32"),
                      "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3"),
                      "K7's class base misses the earlier classes' totals": ("multi-tile res 100",),
                      "K11's face bases past the first scan tile are one off": ("K11 multi-tile res 100",),
+                     "K11's z-segments load the first segment's halo": ("K11 SF3D asset 161^3:",),
+                     "K11's vertex walk ranks a lane one bit low in its word": ("K11 multi-tile res 100",),
+                     "K11's face search stops short of a cube's first face":
+                         ("K11 SF3D asset 161^3, a third of the capacities",),
+                     "K11's face corners drop their x step": ("K11 ragged res 37",),
                      "K9's round-1 depth range is over all faces": ("layered sheets",),
                      "K9's pool prefix leaves out the earlier scan tiles": ("layered sheets",)}
 

@@ -1,9 +1,8 @@
 """Kernels of one version of the port at the main paths' shapes, on one
 card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, K6,
-K7, K8 and K9 on the full-width SF3D asset, and K4's and K10's design
-variants.
+K7, K8, K9 and K11 on the full-width SF3D asset, and design variants.
 
-    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K8,K9,K10]
+    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K8,K9,K10,K11]
                                       [--csrc DIR] [--variants]
 
 Imports ``sculptmate_tpu_torch`` from ``--root`` (default: this checkout;
@@ -31,8 +30,9 @@ split by kernel name under torch.profiler (``chip_smoke.device_split``):
   launches), K7 (``check_mt_wire``, ``K7_split``: its 161^3 sdf and
   offsets), K8 (``check_raster``: the bake at 512^2, the two unwrap
   rasters at 1024^2 and a ragged 100^2; ``K8_split``: one bake raster)
-  and K9 (``check_unwrap``, ``K9_split``: one ``unwrap_core`` with every
-  launch and copy of the call) on the default ``SF3D``'s asset as
+  K9 (``check_unwrap``, ``K9_split``: one ``unwrap_core`` with every
+  launch and copy of the call) and K11 (``check_marching_tets``,
+  ``K11_split``: its 161^3 sdf and offsets) on the default ``SF3D``'s asset as
   ``chip_smoke.sf3d_scene`` makes it. A tree without K6's one-pass planes relayout is timed on its
   own two-pass relayout (``planes_relayout_shim``);
 - with ``--variants``, kernels rebuilt (``kernels.sources_from``) from
@@ -53,7 +53,10 @@ split by kernel name under torch.profiler (``chip_smoke.device_split``):
   (``K6_VARIANTS``: one side of its hand-over idle; at the scattered
   points and at the asset's texels) and one ``k7_variant`` line per
   variant of K7 (``K7_VARIANTS``: the count loading its halo two blocks
-  ahead).
+  ahead) and one ``k11_variant`` line per variant of K11 (``K11_VARIANTS``:
+  its face pass in blocks of 512, its classify at more resident blocks, and
+  the rows past the counts zeroed by two fills over the whole capacity in
+  place of its tail pass).
 
 ``--time-only`` times K5 alone whatever its output (``k5_time``), for a
 ``--csrc`` copy that is wrong by design: one side of the ring idle, the
@@ -195,6 +198,77 @@ K7_VARIANTS = [
              "            else load(bz + 2, ahead[0]);\n        }\n"),
     ]),
 ]
+# the staging of a K11 face block's words in shared memory: rows bi .. bi + 8
+# and bj .. bj + 8 of each class, and along z the word of bk and, where bk +
+# 8 starts the next one, that word
+STAGE_WORDS = """        unsigned bits[STAGE_LOADS];
+        int base[STAGE_LOADS];
+#pragma unroll
+        for (int q = 0; q < STAGE_LOADS; ++q) {
+            const int e = t + q * FACE_THREADS, r = e >> 1;
+            const int ly = r % HALO, lx = (r / HALO) % HALO, c = r / (HALO * HALO);
+            const int w = (bk >> 5) + (e & 1);
+            bits[q] = 0u;
+            base[q] = 0;
+            if (e < STAGED && bi + lx < Np && bj + ly < Np && w < nwords && ((e & 1) == 0 || (bk & 31) + BS == 32)) {
+                const int g = ((c * Np + bi + lx) * Np + bj + ly) * nwords + w;
+                bits[q] = cutbits[g];
+                base[q] = word_base[g];
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < STAGE_LOADS; ++q)
+            if (t + q * FACE_THREADS < STAGED) {
+                sbits[t + q * FACE_THREADS] = bits[q];
+                sbase[t + q * FACE_THREADS] = base[q];
+            }
+"""
+FIRST_FACES = "        // the cubes' first faces: a scan of the threads' triangle counts,\n"
+# K11's face pass in blocks of 512 threads (a cube each, as its first
+# version) and of 128, and staging its words in shared memory; its classify
+# and vertex passes at more resident blocks (32 registers); and its rows
+# past the counts zeroed by two fills over the whole capacity before the
+# launch (as the kernel's callers did before its tail pass) in place of the
+# tail pass: (variant, edits, fills)
+K11_VARIANTS = [
+    ("as it is", [], False),
+    ("face pass in blocks of 512 threads", [
+        text("marching_tets.cu", "constexpr int FACE_THREADS = 256;", "constexpr int FACE_THREADS = 512;"),
+    ], False),
+    ("face pass in blocks of 128 threads", [
+        text("marching_tets.cu", "constexpr int FACE_THREADS = 256;", "constexpr int FACE_THREADS = 128;"),
+    ], False),
+    ("classify at 4 blocks of 512 per SM (32 registers)", [
+        text("marching_tets.cu", "__global__ void __launch_bounds__(CELLS) mt_classify(",
+             "__global__ void __launch_bounds__(CELLS, 4) mt_classify("),
+    ], False),
+    ("vertex pass at 8 blocks of 256 per SM (32 registers)", [
+        text("marching_tets.cu", "__global__ void __launch_bounds__(K11_VERT_THREADS) mt_verts(",
+             "__global__ void __launch_bounds__(K11_VERT_THREADS, 8) mt_verts("),
+    ], False),
+    ("two fills over the whole capacity in place of the tail pass", [
+        text("marching_tets.cu", "    mt_tails<<<tgrid, TAIL_THREADS, 0, st>>>(",
+             "    if (0) mt_tails<<<tgrid, TAIL_THREADS, 0, st>>>("),
+    ], True),
+    ("face pass staging its corners' words in shared memory (7 x 9 x 9 rows)", [
+        text("marching_tets.cu", "    __shared__ int first[CELLS];",
+             "    constexpr int STAGED = NCLS * HALO * HALO * 2;\n"
+             "    constexpr int STAGE_LOADS = (STAGED + FACE_THREADS - 1) / FACE_THREADS;\n"
+             "    __shared__ unsigned sbits[STAGED];\n    __shared__ int sbase[STAGED];\n"
+             "    __shared__ int first[CELLS];"),
+        text("marching_tets.cu", FIRST_FACES, STAGE_WORDS + FIRST_FACES),
+        text("marching_tets.cu", "const int g = ((cls * Np + i) * Np + j) * nwords + (k >> 5);",
+             "const int g = ((cls * HALO + i - bi) * HALO + j - bj) * 2 + (k >> 5) - (bk >> 5);"),
+        text("marching_tets.cu", "= word_base[g] + __popc(cutbits[g]", "= sbase[g] + __popc(sbits[g]"),
+    ], False),
+    # wrong by design, for its time alone: the vertices without the offsets'
+    # tanh
+    ("vertex pass without the offsets' tanh (time only)", [
+        text("marching_tets.cu",
+             "const float c0 = deformed(idx0[a], offs[a], p0, inv_res), c1 = deformed(idx1[a], offs[a], p1, inv_res);",
+             "const float c0 = offs[a][p0], c1 = offs[a][p1];"),
+    ], False),
+]
 
 
 def edit_copy(csrc, edits, dst):
@@ -327,6 +401,48 @@ def k7_variants(smoke, scene):
               flush=True)
 
 
+def k11_variants(smoke, scene):
+    """K11 rebuilt from each of K11_VARIANTS: its time and split at the
+    asset's 161^3 lattice (the smoke's capacities), whether it equals the
+    plain version in every entry, and ptxas' registers and spills. A
+    variant with ``fills`` zeroes both outputs in full before each launch
+    (its time and split include them)."""
+    import torch
+
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+    from sculptmate_tpu_torch.runtime import kernels
+
+    inputs, res, mv, mf = scene["mt"], scene["mt_res"], 1 << 21, 1 << 22
+    ref = mt.marching_tets_plain(*inputs, res, mv, mf)
+    root = os.path.join(kernels.BUILD_DIR, "k11_variants")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (variant, edits, fills) in enumerate(K11_VARIANTS):
+        csrc = os.path.join(root, str(i))
+        edit_copy(kernels.CSRC, edits, csrc)
+
+        def run():
+            if fills:
+                torch.zeros((3, mv), dtype=torch.float32, device="cuda")
+                torch.zeros((3, mf), dtype=torch.int32, device="cuda")
+            return mt.marching_tets(*inputs, res, mv, mf)
+
+        with kernels.sources_from(csrc):
+            got = run()
+            # the fills zero other tensors than the outputs, whose rows past
+            # the counts a variant without the tail pass leaves as they were:
+            # the rows under the counts and the counters compare
+            live = {"v": int(ref.num_verts), "f": int(ref.num_faces)}
+            differ = sum(int((getattr(got, k)[: live[k[0]]] != getattr(ref, k)[: live[k[0]]]).sum()) if k[0] in live
+                         else int(getattr(got, k) != getattr(ref, k)) for k in mt.MTResult._fields)
+            ms = smoke.cuda_ms(run, iters=10)
+            split = smoke.device_split("k11_variant_split", variant, run)
+            report = kernels.ptxas_report("marching_tets").splitlines()
+        print(json.dumps({"k11_variant": variant, "ms": ms, "entries_differing": differ,
+                          "split_ms": split["kernels_ms"],
+                          "ptxas": [ln.strip() for ln in report if re.search(r"registers|[1-9]\d* bytes spill", ln)]}),
+              flush=True)
+
+
 def k5_time(smoke, sf3d):
     """K5 alone at 161^3 on ``check_grid_multihead``'s inputs, timed whatever
     its output, beside its error per channel and the check's limit: for
@@ -409,13 +525,14 @@ def planes_relayout_shim():
 
 
 KERNELS = {"K3": "marching_cubes", "K4": "triplane_points", "K5": "grid_multihead", "K6": "points_multihead",
-           "K7": "marching_tets", "K8": "raster_winner", "K9": "uv_unwrap", "K10": "marching_cubes"}
+           "K7": "marching_tets", "K8": "raster_winner", "K9": "uv_unwrap", "K10": "marching_cubes",
+           "K11": "marching_tets"}
 
 
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
-    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K8,K9,K10")
+    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K8,K9,K10,K11")
     p.add_argument("--csrc", default=None, help="build the kernels from these sources")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--time-only", action="store_true",
@@ -484,7 +601,7 @@ def main():
             else:
                 phases += [("K5", lambda: smoke.check_grid_multihead(g, fast.model)),
                            ("K5 split", lambda: smoke.k5_split(fast.model, codes))]
-        if {"K6", "K7", "K8", "K9"} & set(wanted):
+        if {"K6", "K7", "K8", "K9", "K11"} & set(wanted):
             from sculptmate_tpu_torch.pipelines.generate import Fast3DGenerator
 
             fast6 = Fast3DGenerator()
@@ -507,6 +624,9 @@ def main():
             if "K9" in wanted:
                 phases += [("K9", lambda: smoke.check_unwrap(sf3d_scene)),
                            ("K9 split", lambda: smoke.k9_split(sf3d_scene))]
+            if "K11" in wanted:
+                phases += [("K11", lambda: smoke.check_marching_tets(sf3d_scene)),
+                           ("K11 split", lambda: smoke.k11_split(sf3d_scene))]
         if args.variants and "K4" in wanted:
             phases += [("K4 steps", lambda: k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
                        ("K4 variants", lambda: k4_steps(
@@ -515,6 +635,8 @@ def main():
             phases.append(("K6 variants", lambda: k6_variants(smoke, fast6.model, sf3d_scene)))
         if args.variants and "K7" in wanted:
             phases.append(("K7 variants", lambda: k7_variants(smoke, sf3d_scene)))
+        if args.variants and "K11" in wanted:
+            phases.append(("K11 variants", lambda: k11_variants(smoke, sf3d_scene)))
         if args.variants and "K10" in wanted:
             phases.append(("K10 variants", lambda: k10_variants(smoke, lean)))
         for phase, fn in phases:

@@ -1,6 +1,6 @@
 // K7: the marching-tets wire on the card, a count, a scan and an emit.
 // K11 (below K7): the packed marching-tets mesh, a classify, a scan, the
-// vertices and the faces.
+// vertices, the faces and the rows past the counts.
 //
 // Replaces sculptmate_tpu/geometry/marching_tets.py:mt_wire_device (l.388,
 // with _mt_vertex_side_wire and _mt_positions): the SF3D extraction's wire.
@@ -287,146 +287,191 @@ extern "C" int mt_wire_fwd(const void *sdf, const void *off_x, const void *off_y
 // for fixed compaction buffers and slow gathers; here ids come from exact
 // prefixes and only rows under the capacities are written.
 //
-// Design (K10's, in marching_cubes.cu, with K7's halo for seven edge
-// classes), four launches:
-// (1) classify: one block per column of 8 x 8 (x, y) rows walking its 8^3
-//     blocks along z, each block's 9^3 halo kept as state bytes in shared
-//     memory (K7's count pass). Per point: its seven cut flags, gathered
-//     by warp ballots into each (class, x, y) row's 32-bit cut words along
-//     z (a word written once its four 8^3 blocks are seen), and the byte of
-//     the cube it anchors (bit c: corner (c & 1, c >> 1 & 1, c >> 2 & 1)
-//     inside; 0 for a cube past the real lattice), in block-major order.
-//     Per 8^3 block: its faces (from a 256-entry count table), its active
-//     cubes and which classes have a cut edge;
+// Design, five launches, each pass shaped so that the card holds several
+// waves of it and no thread waits on a neighbour's larger share:
+// (1) classify, split along z: one block per segment of four 8^3 blocks of
+//     a column of 8 x 8 (x, y) rows (four z-blocks are one 32-bit cut word
+//     along z, so each word has one writer), 2 646 blocks at R = 160. A
+//     segment loads its own halo (its blocks and the +1 points: 9 x 9 rows
+//     of 33 points along z) at once, a warp per row, and keeps each row as
+//     two bit rows: which points lie in the real lattice and which of
+//     those are inside (sdf > 0). A class's cut word of a row is then one
+//     expression of two such rows (both ends real, occupancy differing),
+//     and a cube's byte (bit c: corner (c & 1, c >> 1 & 1, c >> 2 & 1)
+//     inside; 0 for a cube whose far corner is past the real lattice)
+//     eight bits of four rows, written in block-major order. Per 8^3
+//     block: its faces (from a 256-entry count table), its active cubes
+//     and which classes have a cut edge. (A state byte per point in shared
+//     memory, as K7's count keeps it, took more instructions, and
+//     instructions bound this pass);
 // (2) one multi-block scan (scan.cuh's scan_segments) of the popcounts of
 //     the cut words (vertex ids), of the block face counts (face ids), of
 //     the active cubes and of the class flags; its last tiles write the
 //     five counters;
-// (3) one thread per cut word emits the positions of its cut edges;
-// (4) persistent blocks, each with the per-cube tables in shared memory
-//     once, walk the 8^3 blocks with faces: a cube's faces start at its
-//     block's scanned base plus an in-block scan, and each corner's id is
-//     its (class, x, y) row's word base plus a popcount within the word.
-//     The per-cube tables (mt_tables' per-tet tables folded over the six
-//     tets, built in geometry/marching_tets.py:cube_tables) give each
-//     triangle's corners as class * 8 + anchor corner.
+// (3) vertices, balanced within each warp (K8's walk, raster.cuh): a warp
+//     takes 32 consecutive cut words, scans their popcounts and walks its
+//     flat list of cut edges 32 at a time; each lane finds its word from a
+//     ballot over the prefix sums and the words that start in the window,
+//     its edge as the n-th set bit of that word, and its id as the warp's
+//     first word base plus its place in the list, so consecutive lanes
+//     write consecutive ids;
+// (4) faces, balanced within each 8^3 block: persistent blocks of 256
+//     threads, the per-cube tables in shared memory once, walk the 8^3
+//     blocks with faces, each block's face count, base and cube bytes
+//     loaded one block ahead. A block scans its cubes' triangle counts
+//     (two cubes a thread), and thread r takes the block's faces r, r +
+//     256, ...: its cube from a binary search over the 512 prefixes, its
+//     slot the difference, each corner's id its (class, x, y) row's word
+//     base plus a popcount within the word (read from device memory, where
+//     a block's faces share them in L1: staging the block's 7 x 9 x 9 rows
+//     in shared memory took longer than the faces' own reads). The
+//     per-cube tables (mt_tables' per-tet tables folded over the six tets,
+//     built in geometry/marching_tets.py:cube_tables) give each triangle's
+//     corners as class * 8 + anchor corner;
+// (5) the rows past the counts zeroed (the counters read on the device),
+//     last, so that its stores do not evict the sdf and offsets from L2
+//     before the vertices gather them.
 // Rounding follows the plain version as K7's does (every operation rounded
 // on its own, tanhf, a NaN t kept).
 
 namespace {
 
-constexpr int CUBE_TRIS = 12;                       // six tets, up to two triangles each
+constexpr int CUBE_TRIS = 12;                          // six tets, up to two triangles each
 constexpr int CUBE_TABLE = 256 + 256 * CUBE_TRIS * 3;  // counts, then triangles of edge codes
-constexpr int K11_VERT_THREADS = 256;               // cut words per block of the vertex pass
+constexpr int SEG_BLOCKS = 4;                          // 8^3 blocks of a classify segment: one cut word along z
+constexpr int ROW_LOADS = (HALO * HALO + MASK_WORDS - 1) / MASK_WORDS;  // halo rows per warp (16) of the classify
+constexpr int K11_VERT_THREADS = 256;                  // 8 warps of 32 cut words
+constexpr int FACE_THREADS = 256;                      // threads of a face block
+constexpr int FACE_CUBES = CELLS / FACE_THREADS;       // consecutive cubes a thread of the face pass scans
+constexpr int TAIL_THREADS = 256;
 
-// one block per column of 8 x 8 (x, y) rows, walking its 8^3 blocks along
-// z: each point's cut flags as (class, x, y) row words along z (cutbits[((c
-// Np + i) Np + j) nwords + w] bit b: the class-c edge from (i, j, 32 w + b)
-// is cut), each cube's corner byte (cases[blk 512 + t]) and per 8^3 block
-// its faces, its active cubes and its class flags (blocks: [faces NB]
-// [active cubes NB][class c's flag, 7 NB])
+// one block per segment of SEG_BLOCKS 8^3 blocks along z of a column of 8 x
+// 8 (x, y) rows: each point's cut flags as (class, x, y) row words along z
+// (cutbits[((c Np + i) Np + j) nwords + w] bit b: the class-c edge from (i,
+// j, 32 w + b) is cut), each cube's corner byte (cases[blk 512 + t]) and per
+// 8^3 block its faces, its active cubes and its class flags (blocks: [faces
+// NB][active cubes NB][class c's flag, 7 NB]). The segment's halo (its
+// blocks and the +1 points: 9 x 9 rows of 33 points along z) is loaded at
+// once, a warp per row, and kept as two bit rows each: which points lie in
+// the real lattice and which of those are inside (sdf > 0). A cut word is
+// then one expression of two rows, and a cube's byte eight bits of four.
 __global__ void __launch_bounds__(CELLS) mt_classify(const float *__restrict__ sdf, const int *__restrict__ tables,
                                                       unsigned *__restrict__ cutbits, uint8_t *__restrict__ cases,
                                                       int *__restrict__ blocks, int N, int Np, int nwords) {
     __shared__ int tcount[256];
-    __shared__ uint8_t state[2][HALO_PTS];               // by the parity of bz
-    __shared__ int warp_sums[2][MASK_WORDS][3];          // faces, active cubes, class flags; by the parity of bz
+    // bit z of halo row (hx, hy): point (bi + hx, bj + hy, k0 + z), z <= 32,
+    // lies in the real lattice / is inside
+    __shared__ unsigned long long real[HALO * HALO], ins[HALO * HALO];
+    __shared__ int warp_sums[SEG_BLOCKS][MASK_WORDS][2];  // faces, active cubes
+    __shared__ unsigned cut_any[2 * NCLS];                 // bit lz: a cut edge of the warp's class in block lz
     for (int e = threadIdx.x; e < 256; e += CELLS) tcount[e] = tables[e];
     const int nb = Np / BS, NB = nb * nb * nb;
+    const int col = blockIdx.x / nwords, seg = blockIdx.x % nwords;
+    const int bz0 = seg * SEG_BLOCKS, nz = min(SEG_BLOCKS, nb - bz0);
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int bi = (col / nb) * BS, bj = (col % nb) * BS, k0 = bz0 * BS;
+    // the halo's rows, warp w taking rows w, w + 16, ...: lane l point k0 +
+    // l, lane 0 point k0 + 32 too; every load in flight before the first use
+    float v[ROW_LOADS], v32[ROW_LOADS];
+#pragma unroll
+    for (int q = 0; q < ROW_LOADS; ++q) {
+        const int row = warp + q * MASK_WORDS, hi = bi + row / HALO, hj = bj + row % HALO;
+        const int p = (hi * N + hj) * N + k0;  // N^3 < 2^31
+        const bool in_row = row < HALO * HALO && hi < N && hj < N;
+        v[q] = in_row && k0 + lane < N ? sdf[p + lane] : 0.f;
+        v32[q] = lane == 0 && in_row && k0 + 32 < N ? sdf[p + 32] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < ROW_LOADS; ++q) {
+        const int row = warp + q * MASK_WORDS, hi = bi + row / HALO, hj = bj + row % HALO;
+        if (row < HALO * HALO) {  // the same for the whole warp
+            const bool in_row = hi < N && hj < N, re = in_row && k0 + lane < N, re32 = in_row && k0 + 32 < N;
+            const unsigned r = __ballot_sync(FULL, re), in = __ballot_sync(FULL, re && v[q] > 0.f);
+            if (lane == 0) {
+                real[row] = r | (unsigned long long)re32 << 32;
+                ins[row] = in | (unsigned long long)(re32 && v32[q] > 0.f) << 32;
+            }
+        }
+    }
+    __syncthreads();  // (also publishes the count table)
+    // the cut words: thread c * 64 + 8 ax + ay takes class c's word of row
+    // (bi + ax, bj + ay); an edge is cut where both ends lie in the real
+    // lattice and their occupancy differs
+    if (t < NCLS * BS * BS) {  // warps 0-13
+        const int c = t >> 6, ax = (t >> 3) & 7, ay = t & 7;
+        const int dx = (STEP_X >> c) & 1, dy = (STEP_Y >> c) & 1, dz = (STEP_Z >> c) & 1;
+        const int a = ax * HALO + ay, e = (ax + dx) * HALO + ay + dy;
+        const unsigned w = (unsigned)(real[a] & (real[e] >> dz) & (ins[a] ^ (ins[e] >> dz)));
+        cutbits[(((size_t)c * Np + bi + ax) * Np + bj + ay) * nwords + seg] = w;
+        unsigned any = 0u;
+#pragma unroll
+        for (int lz = 0; lz < SEG_BLOCKS; ++lz) any |= (unsigned)(((w >> (BS * lz)) & 0xFFu) != 0u) << lz;
+        any = __reduce_or_sync(FULL, any);
+        if (lane == 0) cut_any[warp] = any;
+    }
+    // the cubes: thread t the cube (ox, oy, oz) of each 8^3 block; its
+    // corners (c & 1, c >> 1 & 1, c >> 2 & 1) lie on four rows, taken from
+    // z = oz on (bit 8 lz: the cube's z in 8^3 block lz, bit 8 lz + 1 the
+    // next point)
     const int ox = t >> 6, oy = (t >> 3) & 7, oz = t & 7;
-    const int bi = (blockIdx.x / nb) * BS, bj = (blockIdx.x % nb) * BS;
-    const int i = bi + ox, j = bj + oy;
-    auto load_halo = [&](int bz, float (&v)[HALO_LOADS]) {
+    const unsigned rows[4] = {(unsigned)(ins[ox * HALO + oy] >> oz), (unsigned)(ins[(ox + 1) * HALO + oy] >> oz),
+                              (unsigned)(ins[ox * HALO + oy + 1] >> oz),
+                              (unsigned)(ins[(ox + 1) * HALO + oy + 1] >> oz)};
+    const unsigned far = (unsigned)(real[(ox + 1) * HALO + oy + 1] >> (oz + 1));
 #pragma unroll
-        for (int r = 0; r < HALO_LOADS; ++r) {
-            const int e = t + r * CELLS;
-            int hi, hj, hk;
-            halo_point(e, bi, bj, bz * BS, hi, hj, hk);
-            v[r] = e < HALO_PTS && hi < N && hj < N && hk < N ? sdf[flat(hi, hj, hk, N)] : 0.f;
-        }
-    };
-    // the block's totals, by thread 0 once every warp has written them
-    auto block_totals = [&](int bz) {
-        const int (*ws)[3] = warp_sums[bz & 1];
-        int faces = 0, active = 0, cls = 0;
-#pragma unroll
-        for (int w = 0; w < MASK_WORDS; ++w) {
-            faces += ws[w][0];
-            active += ws[w][1];
-            cls |= ws[w][2];
-        }
-        const int blk = blockIdx.x * nb + bz;
-        blocks[blk] = faces;
-        blocks[NB + blk] = active;
-#pragma unroll
-        for (int c = 0; c < NCLS; ++c) blocks[(2 + c) * NB + blk] = (cls >> c) & 1;
-    };
-    const size_t nrows = (size_t)Np * Np;
-    unsigned word[NCLS] = {};  // this lane's rows' words so far (lanes with oz = 0 store them)
-    float ahead[HALO_LOADS];  // the sdf at this thread's halo points, one 8^3 block ahead
-    load_halo(0, ahead);
-    for (int bz = 0; bz < nb; ++bz) {
-        uint8_t *st = state[bz & 1];
-#pragma unroll
-        for (int r = 0; r < HALO_LOADS; ++r) {
-            const int e = t + r * CELLS;
-            int hi, hj, hk;
-            halo_point(e, bi, bj, bz * BS, hi, hj, hk);
-            if (e < HALO_PTS) st[e] = hi < N && hj < N && hk < N ? (ahead[r] > 0.f ? INSIDE : OUTSIDE) : PAST;
-        }
-        // one barrier per 8^3 block: the states and sums of the next block
-        // go to the other halves (the first also publishes the count table)
-        __syncthreads();
-        if (bz > 0 && t == 0) block_totals(bz - 1);
-        if (bz + 1 < nb) load_halo(bz + 1, ahead);
-        const uint8_t s0 = st[(ox * HALO + oy) * HALO + oz];
-        unsigned f = 0;
-#pragma unroll
-        for (int c = 0; c < NCLS; ++c) {
-            const int dx = (STEP_X >> c) & 1, dy = (STEP_Y >> c) & 1, dz = (STEP_Z >> c) & 1;
-            const uint8_t s1 = st[((ox + dx) * HALO + oy + dy) * HALO + oz + dz];
-            if (s0 != PAST && s1 != PAST && s1 != s0) f |= 1u << c;
-        }
+    for (int lz = 0; lz < SEG_BLOCKS; ++lz) {
+        if (lz >= nz) break;  // the same for the whole block
         // the cube's corner byte; a cube whose far corner is past the real
         // lattice emits nothing
         unsigned cube = 0u;
 #pragma unroll
         for (int c = 0; c < 8; ++c)
-            cube |= (unsigned)(st[((ox + (c & 1)) * HALO + oy + ((c >> 1) & 1)) * HALO + oz + (c >> 2)] == INSIDE) << c;
-        if (st[((ox + 1) * HALO + oy + 1) * HALO + oz + 1] == PAST) cube = 0u;
-        const int blk = blockIdx.x * nb + bz;
+            cube |= ((rows[c & 3] >> (BS * lz + (c >> 2))) & 1u) << c;
+        if (((far >> (BS * lz)) & 1u) == 0u) cube = 0u;
+        const int blk = col * nb + bz0 + lz;
         cases[(size_t)blk * CELLS + t] = (uint8_t)cube;
         const int ntri = tcount[cube];  // tcount[0] = 0
-        // the 8 points (i, j, k0 .. k0 + 7) are lanes 8m .. 8m + 7 of one warp
-#pragma unroll
-        for (int c = 0; c < NCLS; ++c) {
-            const unsigned b = __ballot_sync(FULL, (f >> c) & 1u);
-            word[c] |= ((b >> (lane & 24)) & 0xFFu) << (8 * (bz & 3));
-        }
-        if ((bz & 3) == 3 || bz == nb - 1) {
-            if ((lane & 7) == 0)
-#pragma unroll
-                for (int c = 0; c < NCLS; ++c)
-                    cutbits[((size_t)c * nrows + (size_t)i * Np + j) * nwords + bz / 4] = word[c];
-#pragma unroll
-            for (int c = 0; c < NCLS; ++c) word[c] = 0u;
-        }
         const int wf = __reduce_add_sync(FULL, ntri), wa = __popc(__ballot_sync(FULL, ntri > 0));
-        const unsigned wo = __reduce_or_sync(FULL, f);
         if (lane == 0) {
-            warp_sums[bz & 1][warp][0] = wf;
-            warp_sums[bz & 1][warp][1] = wa;
-            warp_sums[bz & 1][warp][2] = (int)wo;
+            warp_sums[lz][warp][0] = wf;
+            warp_sums[lz][warp][1] = wa;
         }
     }
     __syncthreads();
-    if (t == 0) block_totals(nb - 1);
+    // the totals of 8^3 block bz0 + t, one thread each
+    if (t < nz) {
+        int faces = 0, active = 0;
+#pragma unroll
+        for (int w = 0; w < MASK_WORDS; ++w) {
+            faces += warp_sums[t][w][0];
+            active += warp_sums[t][w][1];
+        }
+        const int blk = col * nb + bz0 + t;
+        blocks[blk] = faces;
+        blocks[NB + blk] = active;
+#pragma unroll
+        for (int c = 0; c < NCLS; ++c) blocks[(2 + c) * NB + blk] = ((cut_any[2 * c] | cut_any[2 * c + 1]) >> t) & 1u;
+    }
 }
 
-// one thread per cut word (the words of a row consecutive, rows in (class,
-// x, y) order): the positions of its cut edges with ids under the capacity,
-// the first its word's scanned base
+// the place of the r-th (from 0) set bit of b
+__device__ __forceinline__ int nth_bit(unsigned b, int r) {
+    int at = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        const int n = __popc(b & ((1u << s) - 1u));
+        if (r >= n) {
+            r -= n;
+            b >>= s;
+            at += s;
+        }
+    }
+    return at;
+}
+
+// one warp per 32 consecutive cut words (the words of a row consecutive,
+// rows in (class, x, y) order), walking their cut edges 32 at a time: the
+// positions of those with ids under the capacity
 __global__ void __launch_bounds__(K11_VERT_THREADS) mt_verts(const float *__restrict__ sdf,
                                                              const float *__restrict__ offx,
                                                              const float *__restrict__ offy,
@@ -434,20 +479,46 @@ __global__ void __launch_bounds__(K11_VERT_THREADS) mt_verts(const float *__rest
                                                              const unsigned *__restrict__ cutbits,
                                                              const int *__restrict__ word_base, float *__restrict__ pos,
                                                              int N, int Np, int nwords, int mv, float inv_res) {
-    const long long wi = (long long)blockIdx.x * K11_VERT_THREADS + threadIdx.x;
-    if (wi >= (long long)NCLS * Np * Np * nwords) return;
-    unsigned b = cutbits[wi];
-    int id = word_base[wi];
-    if (b == 0u || id >= mv) return;
-    const int row3 = (int)(wi / nwords), w = (int)(wi % nwords);
-    const int c = row3 / (Np * Np), row = row3 % (Np * Np), i = row / Np, j = row % Np;
-    const int dx = (STEP_X >> c) & 1, dy = (STEP_Y >> c) & 1, dz = (STEP_Z >> c) & 1;
+    const int lane = threadIdx.x & 31;
+    const int nall = NCLS * Np * Np * nwords;
+    const int w0 = blockIdx.x * K11_VERT_THREADS + (threadIdx.x & ~31);  // the warp's first word
+    if (w0 >= nall) return;  // the whole warp
+    const unsigned b = w0 + lane < nall ? cutbits[w0 + lane] : 0u;
+    // the warp's edges have consecutive ids from its first word's base
+    // (loaded with the words, whether or not the warp has an edge)
+    const int base0 = lane == 0 ? word_base[w0] : 0;
+    const int cnt = __popc(b);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+    }
+    const int excl = incl - cnt, total = __shfl_sync(FULL, incl, 31);
+    if (total == 0) return;  // the whole warp: no cut edge
+    const int base = __shfl_sync(FULL, base0, 0);
+    const unsigned nonzero = __ballot_sync(FULL, cnt > 0);
     const float *offs[3] = {offx, offy, offz};
-    for (; b != 0u && id < mv; b &= b - 1u, ++id) {
-        const int k = 32 * w + __ffs(b) - 1;
-        const int idx0[3] = {i, j, k}, idx1[3] = {i + dx, j + dy, k + dz};
+    for (int v0 = 0; v0 < total && base + v0 < mv; v0 += 32) {
+        // edge v = v0 + lane lies in the word j with excl_j <= v < incl_j:
+        // the word open at v0 (the words wholly before it, counted), or the
+        // k-th word that starts in (v0, v], k the words starting up to v
+        const int open = __popc(__ballot_sync(FULL, incl <= v0));
+        const bool starts = cnt > 0 && excl > v0 && excl < v0 + 32;
+        const unsigned at = __reduce_or_sync(FULL, starts ? 1u << (excl - v0) : 0u);
+        const int k = __popc(at & ((2u << lane) - 1u));
+        const int jw = k == 0 ? open : nth_bit(nonzero & (0xFFFFFFFEu << open), k - 1);
+        const int ej = __shfl_sync(FULL, excl, jw);
+        const unsigned bj = __shfl_sync(FULL, b, jw);
+        const int v = v0 + lane, id = base + v;
+        if (v >= total || id >= mv) continue;  // past the capacity: dropped
+        const int q = nth_bit(bj, v - ej);  // the lane's rank in its word
+        const int wi = w0 + jw, row3 = wi / nwords, w = wi % nwords;
+        const int c = row3 / (Np * Np), row = row3 % (Np * Np), i = row / Np, j = row % Np, kz = 32 * w + q;
+        const int dx = (STEP_X >> c) & 1, dy = (STEP_Y >> c) & 1, dz = (STEP_Z >> c) & 1;
+        const int idx0[3] = {i, j, kz}, idx1[3] = {i + dx, j + dy, kz + dz};
         // both ends lie in the real lattice (the classify pass's domain mask)
-        const size_t p0 = flat(i, j, k, N), p1 = flat(idx1[0], idx1[1], idx1[2], N);
+        const size_t p0 = flat(i, j, kz, N), p1 = flat(idx1[0], idx1[1], idx1[2], N);
         const float s0 = sdf[p0], d = __fsub_rn(s0, sdf[p1]);
         float t = __fdiv_rn(s0, d == 0.f ? 1.f : d);
         if (!isnan(t)) t = fminf(fmaxf(t, 0.f), 1.f);
@@ -460,50 +531,119 @@ __global__ void __launch_bounds__(K11_VERT_THREADS) mt_verts(const float *__rest
 }
 
 // persistent blocks walking the 8^3 blocks, the tables loaded once: the
-// faces of each block's cubes with ids under the capacity, from the corner
-// bytes and the scanned face bases
-__global__ void __launch_bounds__(CELLS) mt_faces(const uint8_t *__restrict__ cases, const int *__restrict__ tables,
-                                                   const unsigned *__restrict__ cutbits,
-                                                   const int *__restrict__ word_base, const int *__restrict__ fcount,
-                                                   const int *__restrict__ fbase, int *__restrict__ corners, int Np,
-                                                   int nwords, int mf) {
-    __shared__ int tab[CUBE_TABLE];
-    for (int e = threadIdx.x; e < CUBE_TABLE; e += CELLS) tab[e] = tables[e];
+// faces of each block's cubes with ids under the capacity, thread r taking
+// the block's faces r, r + FACE_THREADS, ...
+__global__ void __launch_bounds__(FACE_THREADS) mt_faces(const uint8_t *__restrict__ cases,
+                                                         const int *__restrict__ tables,
+                                                         const unsigned *__restrict__ cutbits,
+                                                         const int *__restrict__ word_base,
+                                                         const int *__restrict__ fcount, const int *__restrict__ fbase,
+                                                         int *__restrict__ corners, int Np, int nwords, int mf) {
+    __shared__ uint8_t tcount[256];
+    __shared__ uint8_t tri[256 * CUBE_TRIS * 3];  // edge codes class * 8 + corner (< 56)
+    __shared__ int first[CELLS];                   // each cube's first face in the block
+    __shared__ uint8_t scase[CELLS];
+    // (the table's -1 past a cube's count kept as code 0: a face that a
+    // wrong search sends past its cube's count still reads in bounds)
+    for (int e = threadIdx.x; e < CUBE_TABLE; e += FACE_THREADS) {
+        const int v = tables[e];
+        if (e < 256) tcount[e] = (uint8_t)v;
+        else tri[e - 256] = (uint8_t)max(v, 0);
+    }
     __syncthreads();
-    const int *tri = tab + 256;
     const int nb = Np / BS, NB = nb * nb * nb, t = threadIdx.x;
+    // each 8^3 block's face count, face base and this thread's FACE_CUBES
+    // consecutive cube bytes, loaded one block ahead
+    int nf = 0, fb = 0;
+    unsigned cs = 0u;
+    auto load_cases = [&](int b) {
+        cs = 0u;
+#pragma unroll
+        for (int h = 0; h < FACE_CUBES; ++h) cs |= (unsigned)cases[(size_t)b * CELLS + FACE_CUBES * t + h] << (8 * h);
+    };
+    if ((int)blockIdx.x < NB) {
+        nf = fcount[blockIdx.x];
+        fb = fbase[blockIdx.x];
+        load_cases(blockIdx.x);
+    }
     for (int blk = blockIdx.x; blk < NB; blk += gridDim.x) {
-        const int fb = fbase[blk];
-        if (fcount[blk] == 0 || fb >= mf) continue;  // the same for the whole block
-        const int i = (blk / (nb * nb)) * BS + (t >> 6), j = ((blk / nb) % nb) * BS + ((t >> 3) & 7),
-                  k = (blk % nb) * BS + (t & 7);
-        const int cs = cases[(size_t)blk * CELLS + t], ntri = tab[cs];
+        const int nf_here = nf, fb_here = fb, next = blk + gridDim.x;
+        const unsigned cs_here = cs;
+        if (next < NB) {
+            nf = fcount[next];
+            fb = fbase[next];
+            load_cases(next);
+        }
+        if (nf_here == 0 || fb_here >= mf) continue;  // the same for the whole block
+        const int bi = (blk / (nb * nb)) * BS, bj = ((blk / nb) % nb) * BS, bk = (blk % nb) * BS;
+        // the cubes' first faces: a scan of the threads' triangle counts,
+        // then each thread's cubes in order
+        int n = 0;
+#pragma unroll
+        for (int h = 0; h < FACE_CUBES; ++h) n += tcount[(cs_here >> (8 * h)) & 0xFFu];
         int total;
-        const int f0 = fb + block_exclusive_scan(ntri, &total);
-        for (int s = 0; s < ntri && f0 + s < mf; ++s) {
+        int f0 = block_exclusive_scan(n, &total);
+#pragma unroll
+        for (int h = 0; h < FACE_CUBES; ++h) {
+            const unsigned cu = (cs_here >> (8 * h)) & 0xFFu;
+            first[FACE_CUBES * t + h] = f0;
+            scase[FACE_CUBES * t + h] = (uint8_t)cu;
+            f0 += tcount[cu];
+        }
+        __syncthreads();
+        for (int r = t; r < total && fb_here + r < mf; r += FACE_THREADS) {
+            // the cube u with first_u <= r < first_u + its count: the last
+            // cube whose first face is at most r (a cube without faces shares
+            // its first with the next one)
+            int u = 0;
+#pragma unroll
+            for (int s = CELLS / 2; s > 0; s >>= 1)
+                if (first[u + s] <= r) u += s;
+            const int slot = r - first[u], cu = scase[u];
+            const int ox = u >> 6, oy = (u >> 3) & 7, oz = u & 7;
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-                const int code = tri[(cs * CUBE_TRIS + s) * 3 + c], cls = code >> 3, a = code & 7;
-                const int ai = i + (a & 1), aj = j + ((a >> 1) & 1), ak = k + (a >> 2);
-                const size_t w3 = (((size_t)cls * Np + ai) * Np + aj) * nwords + (ak >> 5);
-                corners[(size_t)c * mf + f0 + s] = word_base[w3] + __popc(cutbits[w3] & ((1u << (ak & 31)) - 1u));
+                const int code = tri[(cu * CUBE_TRIS + slot) * 3 + c], cls = code >> 3, a = code & 7;
+                const int i = bi + ox + (a & 1), j = bj + oy + ((a >> 1) & 1), k = bk + oz + (a >> 2);
+                const int g = ((cls * Np + i) * Np + j) * nwords + (k >> 5);  // the corner's cut word
+                corners[(size_t)c * mf + fb_here + r] = word_base[g] + __popc(cutbits[g] & ((1u << (k & 31)) - 1u));
             }
         }
+        __syncthreads();  // the next block rewrites first and scase
     }
+}
+
+// the rows past the counts zeroed: blockIdx.y 0-2 the positions' rows from
+// min(num_verts, mv), 3-5 the corners' rows from min(num_faces, mf); a row
+// at the 16-byte boundaries in 16-byte stores
+__global__ void __launch_bounds__(TAIL_THREADS) mt_tails(const int *__restrict__ counts, float *__restrict__ pos,
+                                                         int *__restrict__ corners, int mv, int mf) {
+    const int row = blockIdx.y, cap = row < 3 ? mv : mf;
+    unsigned *p = row < 3 ? reinterpret_cast<unsigned *>(pos) + (size_t)row * mv
+                          : reinterpret_cast<unsigned *>(corners) + (size_t)(row - 3) * mf;
+    const int lo = min(counts[row < 3 ? 0 : 1], cap);
+    const int head = min(cap, lo + (int)(((16 - (reinterpret_cast<uintptr_t>(p + lo) & 15)) & 15) >> 2));
+    const int nvec = (cap - head) >> 2, tail = head + 4 * nvec;
+    const int t0 = blockIdx.x * TAIL_THREADS + threadIdx.x, stride = gridDim.x * TAIL_THREADS;
+    if (t0 < head - lo) p[lo + t0] = 0u;
+    uint4 *q = reinterpret_cast<uint4 *>(p + head);
+    for (int e = t0; e < nvec; e += stride) q[e] = make_uint4(0u, 0u, 0u, 0u);
+    if (t0 < cap - tail) p[tail + t0] = 0u;
 }
 
 }  // namespace
 
 // K11: sdf and the three raw offsets, each (N, N, N) f32 x-major, and the
 // per-cube tables (int32 [count 256][triangles 256 x 12 x 3]) -> (3, mv) f32
-// positions and (3, mf) int32 face corners (both zeroed by the caller).
+// positions and (3, mf) int32 face corners, every row past the counts 0.
 // zeroed (zeroed by the caller): the 5 int32 counters (num_verts,
 // num_faces, active vertex blocks, face blocks, active cubes), the scan's
 // tile counter, 2 pad ints, then status_tiles u64 status words. Scratch,
 // Np = 8 ceil(N / 8), NB = (Np / 8)^3: cutbits and word_base 7 Np^2
 // ceil(Np / 32) ints each, cases Np^3 bytes, blocks 9 NB ints, fbase NB
-// ints. inv_res is f32(1 / res). Four launches: classify, one scan of every
-// count array (which writes the counters), the vertices, the faces.
+// ints. inv_res is f32(1 / res). Five launches: classify, one scan of every
+// count array (which writes the counters), the vertices, the faces, the
+// rows past the counts.
 extern "C" int marching_tets_fwd(const void *sdf, const void *off_x, const void *off_y, const void *off_z,
                                  const void *tables, void *pos, void *corners, void *zeroed, void *cutbits,
                                  void *word_base, void *cases, void *blocks, void *fbase, int N, int mv, int mf,
@@ -539,16 +679,20 @@ extern "C" int marching_tets_fwd(const void *sdf, const void *off_x, const void 
     if (tiles > status_tiles) return (int)cudaErrorInvalidValue;
 
     int fgrid = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fgrid, mt_faces, CELLS, 0);
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fgrid, mt_faces, FACE_THREADS, 0);
     if (e != cudaSuccess) return (int)e;
     fgrid = std::max(1, std::min(NB, fgrid * num_sms));
+    const dim3 tgrid(std::max(1, std::min((std::max(mv, mf) + 4 * TAIL_THREADS - 1) / (4 * TAIL_THREADS),
+                                          2 * num_sms)), 6);
 
-    mt_classify<<<nb * nb, CELLS, 0, st>>>(s, tab, bits, static_cast<uint8_t *>(cases), bl, N, Np, nwords);
+    mt_classify<<<nb * nb * nwords, CELLS, 0, st>>>(s, tab, bits, static_cast<uint8_t *>(cases), bl, N, Np, nwords);
     scan_segments<<<tiles, MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counts + 8), counts + 5);
     mt_verts<<<(nwords_all + K11_VERT_THREADS - 1) / K11_VERT_THREADS, K11_VERT_THREADS, 0, st>>>(
         s, static_cast<const float *>(off_x), static_cast<const float *>(off_y), static_cast<const float *>(off_z),
         bits, wb, static_cast<float *>(pos), N, Np, nwords, mv, inv_res);
-    mt_faces<<<fgrid, CELLS, 0, st>>>(static_cast<const uint8_t *>(cases), tab, bits, wb, bl, fb,
-                                      static_cast<int *>(corners), Np, nwords, mf);
+    mt_faces<<<fgrid, FACE_THREADS, 0, st>>>(static_cast<const uint8_t *>(cases), tab, bits, wb, bl, fb,
+                                             static_cast<int *>(corners), Np, nwords, mf);
+    // last: its stores would evict the sdf and offsets the vertices gather
+    mt_tails<<<tgrid, TAIL_THREADS, 0, st>>>(counts, static_cast<float *>(pos), static_cast<int *>(corners), mv, mf);
     return (int)cudaGetLastError();
 }

@@ -446,8 +446,9 @@ def marching_tets(
                              f"{tuple(t.shape)} on {t.device}")
         inputs.append(t.reshape(-1).contiguous())  # scalar loads only: a view is read as it lies
     dev = sdf.device
-    pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev)
-    corners = torch.zeros((3, max_faces), dtype=torch.int32, device=dev)
+    # the kernel writes every row: the live ones, then zeros past the counts
+    pos = torch.empty((3, max_verts), dtype=torch.float32, device=dev)
+    corners = torch.empty((3, max_faces), dtype=torch.int32, device=dev)
     size = k11_scratch(N)
     # the counters, the scan's tile counter and status words, zeroed on the stream
     zeroed = torch.zeros(size["zeroed"], dtype=torch.int32, device=dev)

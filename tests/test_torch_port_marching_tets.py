@@ -118,6 +118,132 @@ def test_cube_tables_give_the_plain_faces(kind):
     assert np.array_equal(faces, ref.faces[: len(faces)].numpy())
 
 
+def _nth_bit(b, r):
+    """K11's ``nth_bit``: the place of the r-th (from 0) set bit of each
+    32-bit b, by its five halving steps."""
+    b, r, at = b.astype(np.int64), r.astype(np.int64), np.zeros(np.shape(r), np.int64)
+    for s in (16, 8, 4, 2, 1):
+        n = np.bitwise_count(b & ((1 << s) - 1)).astype(np.int64)
+        up = r >= n
+        r, b, at = np.where(up, r - n, r), np.where(up, b >> s, b), np.where(up, at + s, at)
+    return at
+
+
+def _vertex_walk(words):
+    """K11's vertex pass on the flat cut words, warp by warp: 32 words, the
+    inclusive scan of their popcounts, then windows of 32 cut edges, each
+    lane's word from the ballots (the word open at the window's start, or
+    the k-th nonzero word after it, k the words starting up to the lane's
+    edge) and its bit from its rank in that word. Returns each vertex id's
+    flat word index and bit, in id order."""
+    nw = -(-len(words) // 32)
+    w = np.zeros(nw * 32, np.int64)
+    w[: len(words)] = words
+    w = w.reshape(nw, 32)
+    cnt = np.bitwise_count(w).astype(np.int64)
+    incl = np.cumsum(cnt, axis=1)
+    excl, total = incl - cnt, incl[:, -1]
+    lane = np.arange(32)
+    word_of, bit_of = [], []
+    for q in np.nonzero(total)[0]:
+        nonzero = int(((cnt[q] > 0).astype(np.int64) << lane).sum())
+        for v0 in range(0, int(total[q]), 32):
+            open_ = int((incl[q] <= v0).sum())
+            starts = (cnt[q] > 0) & (excl[q] > v0) & (excl[q] < v0 + 32)
+            at = int((np.ones(32, np.int64)[starts] << (excl[q][starts] - v0)).sum())
+            k = np.bitwise_count(at & ((2 << lane) - 1))
+            jw = np.where(k == 0, open_, _nth_bit(np.full(32, nonzero & (0xFFFFFFFE << open_) & 0xFFFFFFFF), k - 1))
+            v = v0 + lane
+            live = v < total[q]
+            jw, v = jw[live], v[live]
+            word_of.append(32 * q + jw)
+            bit_of.append(_nth_bit(w[q][jw], v - excl[q][jw]))
+    return np.concatenate(word_of), np.concatenate(bit_of)
+
+
+def _face_walk(cube, words, word_base, Np):
+    """K11's face pass: block by block, the cubes' triangle counts and
+    their exclusive prefixes, and face r's cube by the binary search over
+    the 512 prefixes, its slot the difference, each corner's id its (class,
+    x, y) row's word base plus a popcount within the word."""
+    count, tris = mt.cube_tables()
+    nb, nwords = Np // 8, -(-Np // 32)
+    w4, b4 = words.reshape(7, Np, Np, nwords).astype(np.int64), word_base.reshape(7, Np, Np, nwords)
+    faces = []
+    for blk in range(nb**3):
+        bi, bj, bk = 8 * (blk // nb**2), 8 * (blk // nb % nb), 8 * (blk % nb)
+        cs = cube[bi : bi + 8, bj : bj + 8, bk : bk + 8].reshape(512)
+        n = count[cs].astype(np.int64)
+        first, total = np.cumsum(n) - n, int(n.sum())
+        if total == 0:
+            continue
+        r = np.arange(total)
+        u = np.zeros(total, np.int64)
+        for s in (256, 128, 64, 32, 16, 8, 4, 2, 1):
+            u = np.where(first[u + s] <= r, u + s, u)
+        code = tris[cs[u], r - first[u]]  # (faces, 3)
+        cls, a = code >> 3, code & 7
+        i, j = bi + (u >> 6)[:, None] + (a & 1), bj + ((u >> 3) & 7)[:, None] + ((a >> 1) & 1)
+        k = bk + (u & 7)[:, None] + (a >> 2)
+        word = (cls, i, j, k >> 5)
+        faces.append(b4[word] + np.bitwise_count(w4[word] & ((1 << (k & 31)) - 1)))
+    return np.concatenate(faces).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind, res", [("noise", 37), ("deformed sphere", 100)])
+def test_kernel_walks_give_the_plain_mesh(kind, res):
+    """K11's index math in numpy: the cut words along z, their scanned
+    bases, the warp-balanced vertex walk and the block-balanced face walk
+    rebuild the plain version's positions and faces entry for entry, at a
+    ragged lattice (res 37: Np = 40, two words per row, z-blocks whose
+    corners reach the next word) and at one whose 2 197 block counts span
+    two scan tiles (res 100)."""
+    sdf, offs = _lattice(kind, res=res, seed=5)
+    N = res + 1
+    Np = -(-N // 8) * 8
+    ref = mt.marching_tets_plain(_torch(sdf), *map(_torch, offs), res, 7 * N**3, 12 * N**3)
+    nv, nf = int(ref.num_verts), int(ref.num_faces)
+    occ = np.zeros((Np + 1,) * 3, bool)
+    occ[:N, :N, :N] = sdf.reshape(N, N, N) > 0
+    cut = mt._cut_masks(torch.from_numpy(occ[:Np, :Np, :Np]), N).numpy()  # (7, Np, Np, Np)
+    nwords = -(-Np // 32)
+    z = np.zeros((7, Np, Np, 32 * nwords), np.int64)
+    z[..., :Np] = cut
+    words = (z.reshape(7, Np, Np, nwords, 32) << np.arange(32)).sum(-1).reshape(-1)
+    cnt = np.bitwise_count(words).astype(np.int64)
+    word_base = np.cumsum(cnt) - cnt  # the scan's first segment
+
+    word, bit = _vertex_walk(words)
+    assert len(word) == nv > 0
+    c, rest = np.divmod(word, Np * Np * nwords)
+    i, rest = np.divmod(rest, Np * nwords)
+    j, zw = np.divmod(rest, nwords)
+    k = 32 * zw + bit
+    d = mt.EDGE_DIRS.astype(np.int64)[c]
+    a0, a1 = (i * Np + j) * Np + k, ((i + d[:, 0]) * Np + j + d[:, 1]) * Np + k + d[:, 2]
+    # the plain version's arithmetic at each walked edge
+    s3 = torch.full((Np, Np, Np), -1.0)
+    s3[:N, :N, :N] = torch.from_numpy(sdf).reshape(N, N, N)
+    s0, s1 = s3.reshape(-1)[a0], s3.reshape(-1)[a1]
+    denom = s0 - s1
+    t = (s0 / torch.where(denom == 0, 1.0, denom)).clamp(0.0, 1.0)
+    ax = torch.arange(Np, dtype=torch.float32) * (1.0 / res)
+    for axis, (idx0, key) in enumerate(((i, "vx"), (j, "vy"), (k, "vz"))):
+        off = torch.zeros((Np, Np, Np))
+        off[:N, :N, :N] = torch.from_numpy(offs[axis]).reshape(N, N, N)
+        dflat = ((1.0 / res) * torch.tanh(off)).reshape(-1)
+        c0 = ax[idx0] + dflat[a0]
+        c1 = ax[idx0 + d[:, axis]] + dflat[a1]
+        assert torch.equal(c0 + t * (c1 - c0), getattr(ref, key)[:nv]), key
+
+    cube = sum(occ[(q & 1) : (q & 1) + Np, (q >> 1 & 1) : (q >> 1 & 1) + Np, (q >> 2) : (q >> 2) + Np].astype(int) << q
+               for q in range(8))
+    cube[N - 1 :], cube[:, N - 1 :], cube[:, :, N - 1 :] = 0, 0, 0
+    faces = _face_walk(cube, words, word_base, Np)
+    assert len(faces) == nf > 0
+    assert np.array_equal(faces, ref.faces[:nf].numpy())
+
+
 @pytest.mark.parametrize("kind", ["sphere", "deformed sphere", "empty"])
 def test_marching_tets_host_matches_jax(kind):
     """``marching_tets_host`` (on the CPU) against the JAX one: the same

@@ -326,7 +326,8 @@ def _compare_script():
     return module
 
 
-@pytest.mark.parametrize("table", ["K4_STEPS", "K4_VARIANTS", "K10_VARIANTS", "K6_VARIANTS", "K7_VARIANTS"])
+@pytest.mark.parametrize("table", ["K4_STEPS", "K4_VARIANTS", "K10_VARIANTS", "K6_VARIANTS", "K7_VARIANTS",
+                                   "K11_VARIANTS"])
 def test_compare_edits_apply_to_the_sources(table, tmp_path):
     """Every edit of ``scripts/kernel_compare.py``'s design steps and
     variants still finds its text once in the kernel sources, in the order
