@@ -130,14 +130,27 @@ Phases (any failure raises and exits non-zero):
    both card vs CPU in f32. ``marching_cubes_host`` on the card (K10)
    against the CPU on a ragged 37 x 45 x 50 level, at its default
    capacities and at capacities it retries past.
-10. The Blender add-on (``addon_path``) with ``tests/fake_bpy.py``
+10. The multi-device paths (``multi_device_path``) on a mesh of four
+   shards, ``cuda:0`` four times on one card (one card each where there
+   are four): the Lean asset's code extracted at 512^3 over sp = 4 x-slabs
+   (``sharded_extract``: K2 and K10 four launches each, held to K2 and K10
+   on the whole lattice by JAX's criteria: counts, edge statistics, cut
+   edges, positions), its wire form (K3 four launches, the same mesh), and
+   ``sharded_density_grid`` against the whole lattice's density, each
+   timed with its peak bytes; K3 and K10 at a shard's padded slab equal to
+   their plain versions and timed; ``AssetFarm`` over (dp 2, tp 2) on four
+   raw RGBA images with matting and colors (K1 = 4 x (12 + 32 x 2)), its
+   codes against the one-device farm's and an f32 encode over the tp
+   group against the unsplit one; ``SF3DFarm`` over (dp 2, tp 2) on two
+   textured assets (K7 twice), its codes against the unsplit encode.
+11. The Blender add-on (``addon_path``) with ``tests/fake_bpy.py``
    installed as bpy: the panel's ``GenerationWorker`` run on the
    full-width Lean and textured Pro generators (at the scenes'
    thresholds), the kernels' counters read around each, the fake scene's
    objects, color layer, UV layer and images checked, and the generation
    and ``import_mesh`` seconds printed (``addon_path_sec``); bpy is
    removed afterwards.
-11. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
+12. One ``{"kernels": [...]}`` line (K1's and K2's launches counted on the
    serving batch and K1's times summed over a Lean asset, as before the
    SF3D path; K1's SF3D launches and sums under ``sf3d_*`` keys, its
    head-dim-88 time at SingleStreamTransformer's shape under ``d88_*``
@@ -256,7 +269,10 @@ PLANTED_FAULTS = (
      "const float scale = (float)(1.0 / sqrt((double)D));",
      "const float scale = (float)(1.0 / sqrt((double)((D + 15) / 16 * 16)));"),
     ("K2 reads B[i, k] for B[k, i]", "density_grid",
-     "sb[2] = {rowb, planeb}", "sb[2] = {planeb, rowb}"),
+     "sb[2] = {rowb, (cuuint64_t)RX * ROW_BYTES}", "sb[2] = {(cuuint64_t)RX * ROW_BYTES, rowb}"),
+    # B is (R, RX, 64): the lattice's row stride R reads other slabs' rows
+    ("K2 reads B with the lattice's stride R, not the slab's RX", "density_grid",
+     "sb[2] = {rowb, (cuuint64_t)RX * ROW_BYTES}", "sb[2] = {rowb, planeb}"),
     ("K2 drops the first layer (h1 = 0)", "density_grid",
      "a[kc][half * 2 + rr] = silu_of_half(*reinterpret_cast<uint32_t *>(&hv));", "a[kc][half * 2 + rr] = 0u;"),
     ("K2 takes the next layer's weight stage", "density_grid",
@@ -339,6 +355,12 @@ PLANTED_FAULTS = (
      "const int le = tri[(cs * maxtri + s) * 3 + c];", "const int le = tri[(cs * maxtri + s) * 3 + (3 - c) % 3];"),
     ("K10's face corners leave out their word's base", "marching_cubes",
      "int id = word_base[w3];", "int id = 0;"),
+    # the x limit of a slab (the sharded extraction): the halo row's cells
+    # and x-cut edges must emit nothing
+    ("K10's x limit is off by one (<=)", "marching_cubes",
+     "const bool xc = xi && i < xlimit;", "const bool xc = xi && i <= xlimit;"),
+    ("K3's x-cut mask ignores the x limit", "marching_cubes",
+     "const bool xcut = xi && i < xlimit;", "const bool xcut = xi;"),
     # in scan.cuh: the multi-block scan, which K3, K7 and K10 launch (held
     # to K3's and K10's checks)
     ("K10's scan looks back past its predecessor", "marching_cubes",
@@ -387,6 +409,10 @@ PLANTED_FAULTS = (
 # five scan tiles; each fault of K11's z-split classify, balanced vertex
 # walk, face search and corner addressing names one case where it shows
 PLANTED_MUST_FAIL = {"K1 skips the last key tile": ("sf3d fuse-in",),
+                     "K2 reads B with the lattice's stride R, not the slab's RX":
+                         ("density grid slab 129x512x512", "density grid slab 33x64x64"),
+                     "K10's x limit is off by one (<=)": ("K10 Lean slab 136x256x256, x limit 128",),
+                     "K3's x-cut mask ignores the x limit": ("K3 Lean slab 136x256x256, x limit 128",),
                      "K1's pad columns are not zeroed at D = 88": ("single-stream transformer",),
                      "K1 takes its scale from the padded D": ("single-stream transformer", "ragged batched d88 f32"),
                      "K10's scan looks back past its predecessor": ("K3 Lean asset 256^3", "K10 Lean asset 256^3"),
@@ -471,8 +497,10 @@ def phase_environment():
 
 def check_attention(g, timed=True):
     """K1 at the three attention shapes of the Lean path and the six of the
-    SF3D path in bf16, a ragged batched case, and once in f32, against the
-    plain version (each shape's limit from its reference, as set out
+    SF3D path in bf16, a ragged batched case, at 8 heads at the six
+    backbone shapes that the tp = 2 farms split (Lean attn1 and attn2, SF3D
+    fuse-in, fuse-out, latent self and cross), and once in f32, against
+    the plain version (each shape's limit from its reference, as set out
     above); at head dim 88 at SingleStreamTransformer's shape (16 heads over
     3 x 96^2 tokens), at the ragged batched shape, and in f32. Every case is
     checked and printed before a failure raises. With ``timed``, each
@@ -497,6 +525,13 @@ def check_attention(g, timed=True):
         ("sf3d dinov2-large", 1, 1297, 1297, 16, 0, 24, torch.bfloat16, 1.0),
         ("sf3d clip vit-b/32", 1, 50, 50, 12, 0, 12, torch.bfloat16, 0.5),
         ("ragged batched", 2, 129, 77, 3, 0, 0, torch.bfloat16, 0.5),
+        # one tp shard of the (dp 2, tp 2) farms (8 of the 16 heads) at each
+        # backbone shape they split: checked, not timed (their launches are
+        # multi_device_path's)
+        *((f"{name}, tp shard (8 heads)", 1, Nq, Nk, 8, 0, 0, torch.bfloat16, 1.0) for name, Nq, Nk in (
+            ("backbone attn1", 3072, 3072), ("backbone attn2", 3072, 1025),
+            ("sf3d fuse-in", 3089, 27648), ("sf3d fuse-out", 27648, 3089),
+            ("sf3d latent self-attention", 3089, 3089), ("sf3d latent cross-attention", 3089, 1297))),
         ("backbone attn2 f32", 1, 3072, 1025, 16, 0, 0, torch.float32, 1.0),
         (SST_CASE, 1, 27648, 27648, 16, 0, 0, torch.bfloat16, 1.0, 88),
         ("ragged batched d88", 2, 129, 77, 3, 0, 0, torch.bfloat16, 0.5, 88),
@@ -526,7 +561,7 @@ def check_attention(g, timed=True):
             continue
         if dt == torch.bfloat16:
             worst, worst_share = max(worst, err), max(worst_share, err / limit)
-        if not timed:
+        if not timed or "tp shard" in name:
             log(json.dumps({**line, "check_passed": True}))
             continue
         esize = 2 if dt == torch.bfloat16 else 4
@@ -565,20 +600,31 @@ def sm_clock_hz():
 
 def check_density(g, tsr, timed=True):
     """K2 at R = 256 (the main path's grid), 64 (the threshold grid) and 100
-    (a ragged k tail) with the main path's decoder (fan-in normal weights,
-    zero biases, as ``TSRModule.reset_parameters`` makes them) on random
-    unit-scale codes, held on d before the exp (see K2_SPREAD_SHARE). Every
-    case is checked and printed before a failure raises; with ``timed``,
-    R = 256 also gets its time, the plain version's, its bound and floors."""
+    (a ragged k tail), and on x-slabs: 129 x 512 x 512 (a shard of the
+    512^3 extraction over sp = 4, the last one, its halo row clamped) and a
+    ragged 33 x 64 x 64, each slab's B held at the front of a
+    whole-lattice-sized buffer, so that a kernel reading B with the
+    lattice's row stride reads wrong rows, not past the allocation. With
+    the main path's decoder (fan-in normal weights, zero biases, as
+    ``TSRModule.reset_parameters`` makes them) on random unit-scale codes,
+    held on d before the exp (see K2_SPREAD_SHARE). Every case is checked
+    and printed before a failure raises; with ``timed``, R = 256 also gets
+    its time, the plain version's, its bound and floors."""
     from sculptmate_tpu_torch.ops import density_grid as dg
 
     weights = tsr.decoder_weights()
     L = len(weights) - 2
     result, failures = None, []
-    for R in (256, 64, 100):
+    for R, RX in ((256, 256), (64, 64), (100, 100), (512, 129), (64, 33)):
         spec = tsr.grid_spec(R, torch.bfloat16)
         codes = torch.randn(3, tsr.config.upsample_out_channels, 64, 64, device="cuda", generator=g)
-        A, B, C = dg.first_layer_partials(codes.to(torch.bfloat16), weights, spec)
+        cx = None
+        if RX != R:  # the last shard's rows, its halo clamped to the lattice's last row
+            rows = torch.clamp(R - RX + 1 + torch.arange(RX, device="cuda"), max=R - 1)
+            cx = 2.0 * rows.float() / (R - 1) - 1.0
+        A, B, C = dg.first_layer_partials(codes.to(torch.bfloat16), weights, spec, cx)
+        if RX != R:
+            B = torch.empty(R * R * 64, dtype=B.dtype, device="cuda")[: B.numel()].view(B.shape).copy_(B)
         out = dg.density_mlp(A, B, C, weights, spec)
         torch.cuda.synchronize()
         ref = dg.density_mlp_plain(A, B, C, weights, spec)
@@ -586,23 +632,25 @@ def check_density(g, tsr, timed=True):
         err = (d - d_ref).abs().max().item()
         spread = (d_ref - d_ref.mean()).abs().max().item()
         limit = K2_SPREAD_SHARE * spread
-        line = {"check": "K2", "case": f"density grid R={R}", "dtype": "bfloat16", "max_abs_err": err,
+        name = f"density grid R={R}" if RX == R else f"density grid slab {RX}x{R}x{R}"
+        line = {"check": "K2", "case": name, "dtype": "bfloat16", "max_abs_err": err,
                 "limit": limit, "d_spread": spread, "activated_max_abs_err": (out - ref).abs().max().item()}
         if not (torch.isfinite(out).all() and err <= limit):
             log(json.dumps({**line, "check_passed": False}))
-            failures.append(f"R={R}: max_abs_err of d {err} > {limit}")
+            failures.append(f"{name}: max_abs_err of d {err} > {limit}")
             continue
-        if R != 256 or not timed:
+        if (R, RX) not in ((256, 256), (512, 129)) or not timed:
             log(json.dumps({**line, "check_passed": True}))
             result = result or (err, limit, None, None)
             continue
-        flops = R**3 * (L * 2 * 64 * 64 + 2 * 64)  # hidden layers + output channel 0
-        nbytes = 3 * R * R * 64 * 2 + L * 64 * 64 * 2 + R**3 * 4
+        points = RX * R * R
+        flops = points * (L * 2 * 64 * 64 + 2 * 64)  # hidden layers + output channel 0
+        nbytes = (RX * R + R * RX + R * R) * 64 * 2 + L * 64 * 64 * 2 + points * 4
         bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         # SiLUs: the first layer and each hidden layer, 64 channels per point;
         # one tanh.approx.bf16x2 per two, at 16 SFU results per clock per SM
-        sfu_floor = 1e3 * R**3 * 64 * (L + 1) / 2 / (16 * torch.cuda.get_device_properties(0).multi_processor_count
-                                                    * sm_clock_hz())
+        sfu_floor = 1e3 * points * 64 * (L + 1) / 2 / (16 * torch.cuda.get_device_properties(0).multi_processor_count
+                                                      * sm_clock_hz())
         row = {
             "ms": cuda_ms(lambda: dg.density_mlp(A, B, C, weights, spec), iters=10),
             "plain_ms": cuda_ms(lambda: dg.density_mlp_plain(A, B, C, weights, spec), iters=3, graph=False),
@@ -611,9 +659,15 @@ def check_density(g, tsr, timed=True):
         }
         log(json.dumps({**line, "check_passed": True, **row, "bound_by": by, "sfu_floor_ms": sfu_floor,
                         "bound_share": bound / row["ms"], "launches_per_asset": 1}))
-        result = (err, limit, row, by)
+        if RX == R:
+            result = (err, limit, row, by)
+        else:
+            slab = {"slab_shape": [RX, R, R], **{f"slab_{k}": row[k] for k in ("ms", "plain_ms", "bound_ms")},
+                    "slab_bound_by": by}
     if failures:
         raise AssertionError("K2 " + "; ".join(failures))
+    if timed:
+        result[2].update(slab)
     return result
 
 
@@ -1123,23 +1177,34 @@ def _ragged_level(shape=(64, 72, 80)):
     return torch.nn.functional.interpolate(coarse, size=shape, mode="trilinear")[0, 0].cuda().contiguous()
 
 
+def _padded_slab(level, rows=129):
+    """An x-slab as the sharded extraction makes one: the level's first
+    ``rows`` x rows (a shard's own and its halo), padded with -1 (outside)
+    to a multiple of 8 rows."""
+    return torch.nn.functional.pad(level[:rows], (0, 0, 0, 0, 0, (-rows) % 8), value=-1.0).contiguous()
+
+
 def check_mc_wire(scene, timed=True):
     """K3 against its plain version, which it must equal byte for byte
     (and in the vertex positions it hands the color query): on the Lean
     asset's 256^3 level, on a ragged 64 x 72 x 80 lattice, on a 72 x 80 x
     96 lattice whose 3 NB = 3 240 block counts fill one of the scan's
-    2 048-count tiles and end in a partial one, and at half the asset's
-    vertex count (overflow: exact counters, the leading ids kept).
+    2 048-count tiles and end in a partial one, at half the asset's
+    vertex count (overflow: exact counters, the leading ids kept), and on
+    a padded x-slab of the asset's level at x limits 128 and 127.
     With ``timed``, the asset's case also gets its time (the wire alone),
     the plain version's and its bound."""
     from sculptmate_tpu_torch.geometry import marching_cubes as mc
 
     level, nv = scene["level"], scene["nv"]
-    cases = [("Lean asset 256^3", level, 1 << 20), ("ragged 64x72x80", _ragged_level(), 1 << 18),
-             ("scan-ragged 72x80x96", _ragged_level((72, 80, 96)), 1 << 18),
-             ("Lean asset 256^3, half the vertex capacity", level, nv // 2)]
+    slab = _padded_slab(level)
+    cases = [("Lean asset 256^3", level, 1 << 20, -1), ("ragged 64x72x80", _ragged_level(), 1 << 18, -1),
+             ("scan-ragged 72x80x96", _ragged_level((72, 80, 96)), 1 << 18, -1),
+             ("Lean asset 256^3, half the vertex capacity", level, nv // 2, -1),
+             ("Lean slab 136x256x256, x limit 128", slab, 1 << 19, 128),
+             ("Lean slab 136x256x256, x limit 127", slab, 1 << 19, 127)]
     result, failures = None, []
-    for name, lev, mv in cases:
+    for name, lev, mv, limit in cases:
         rec = {}
 
         def colors(tag):
@@ -1148,14 +1213,14 @@ def check_mc_wire(scene, timed=True):
                 return vx * 0, vy * 0, vz * 0
             return fn
 
-        got, _ = mc.mc_wire_device(lev, mv, colors("kernel"))
+        got, _ = mc.mc_wire_device(lev, mv, colors("kernel"), valid_x_limit=limit)
         torch.cuda.synchronize()
-        ref, _ = mc.mc_wire_device_plain(lev, mv, colors("plain"))
+        ref, _ = mc.mc_wire_device_plain(lev, mv, colors("plain"), valid_x_limit=limit)
         differ = int((got != ref).sum())
         pos_differ = int((rec["kernel"] != rec["plain"]).sum())
         count = int.from_bytes(ref[-8:-4].cpu().numpy().tobytes(), "little")
         line = {"check": "K3", "case": name, "shape": list(lev.shape), "max_verts": mv, "num_verts": count,
-                "bytes_differing": differ, "positions_differing": pos_differ, "limit": 0}
+                "valid_x_limit": limit, "bytes_differing": differ, "positions_differing": pos_differ, "limit": 0}
         if differ or pos_differ:
             log(json.dumps({**line, "check_passed": False}))
             failures.append(f"{name}: {differ} wire bytes and {pos_differ} positions differ")
@@ -1180,23 +1245,28 @@ def check_mc_wire(scene, timed=True):
 def check_marching_cubes(scene, timed=True):
     """K10 against its plain version, which it must equal in every
     position, face and counter: on the Lean asset's 256^3 level, on the
-    ragged 64 x 72 x 80 lattice, and at half the asset's vertex and face
-    counts. With ``timed``, the asset's case also gets its time, the plain
+    ragged 64 x 72 x 80 lattice, at half the asset's vertex and face
+    counts, and on a padded x-slab of the asset's level at x limits 128
+    and 127. With ``timed``, the asset's case also gets its time, the plain
     version's and its bound."""
     from sculptmate_tpu_torch.geometry import marching_cubes as mc
 
     level, nv = scene["level"], scene["nv"]
-    cases = [("Lean asset 256^3", level, 1 << 20, 1 << 21), ("ragged 64x72x80", _ragged_level(), 1 << 18, 1 << 19),
-             ("Lean asset 256^3, half the capacities", level, nv // 2, nv)]
+    slab = _padded_slab(level)
+    cases = [("Lean asset 256^3", level, 1 << 20, 1 << 21, -1),
+             ("ragged 64x72x80", _ragged_level(), 1 << 18, 1 << 19, -1),
+             ("Lean asset 256^3, half the capacities", level, nv // 2, nv, -1),
+             ("Lean slab 136x256x256, x limit 128", slab, 1 << 19, 1 << 20, 128),
+             ("Lean slab 136x256x256, x limit 127", slab, 1 << 19, 1 << 20, 127)]
     result, failures = None, []
-    for name, lev, mv, mf in cases:
-        got = mc.marching_cubes(lev, mv, mf)
+    for name, lev, mv, mf, limit in cases:
+        got = mc.marching_cubes(lev, mv, mf, valid_x_limit=limit)
         torch.cuda.synchronize()
-        ref = mc.marching_cubes_plain(lev, mv, mf)
+        ref = mc.marching_cubes_plain(lev, mv, mf, valid_x_limit=limit)
         differ = {k: int((getattr(got, k) != getattr(ref, k)).sum()) for k in mc.MCResult._fields}
         counts = [int(c) for c in ref[6:]]
         line = {"check": "K10", "case": name, "shape": list(lev.shape), "capacities": [mv, mf], "counts": counts,
-                "differing": {k: v for k, v in differ.items() if v}, "limit": 0}
+                "valid_x_limit": limit, "differing": {k: v for k, v in differ.items() if v}, "limit": 0}
         if any(differ.values()):
             log(json.dumps({**line, "check_passed": False}))
             failures.append(f"{name}: {sum(differ.values())} entries differ")
@@ -1940,6 +2010,387 @@ def addon_path(gen, fast, lean, scene):
     finally:
         blender_io.import_mesh = import_mesh
         sys.modules.pop("bpy", None)
+
+
+# The tensor-parallel codes of the multi-device phase. In f32 (a full-width
+# TSR with the served model's weights, TF32 off) the split only reorders
+# sums, so the tp codes are held to CARD_CPU_SHARE of max |codes|, the
+# smoke's card-against-CPU codes limit. In bf16, as served, each row-split
+# projection's partials are rounded to bf16 before they are summed (in
+# f32), one bf16 rounding more than the unsplit product's, 48 of them per
+# Lean encode (44 per SF3D): about sqrt(48) x 2^-9 of max |codes| if they
+# add up at random, ~19 % if every one adds up the same way. A dropped head
+# or partial moves codes by a large share of max |codes|. The bf16 codes
+# are held within TP_BF16_SHARE of it
+TP_BF16_SHARE = 0.05
+MULTI_R = 512  # the high-resolution extraction's lattice (BASELINE config 4)
+MULTI_SP = 4
+
+
+def mesh_devices(n=MULTI_SP):
+    """n shards over the visible cards: one card n times, or one card each
+    (round robin)."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def edge_stats(faces):
+    """(directed edges, directed edges whose reverse is missing): a failed
+    seam weld leaves duplicated vertices and so unpaired edges
+    (``tests/test_parallel.py``'s ``edge_stats``, its sorts on the card,
+    not on its shared host: a directed edge is paired when its undirected
+    key appears twice among the distinct directed edges)."""
+    f = torch.from_numpy(np.asarray(faces, np.int64)).cuda()
+    n = int(f.max()) + 1
+    e = torch.cat([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+    fwd = torch.unique(e[:, 0] * n + e[:, 1])
+    a, b = fwd // n, fwd % n
+    und = torch.sort(torch.minimum(a, b) * n + torch.maximum(a, b)).values
+    single = torch.ones_like(und, dtype=torch.bool)
+    twin = und[1:] == und[:-1]
+    single[1:] &= ~twin
+    single[:-1] &= ~twin
+    return len(fwd), int(single.sum()) - int((a == b).sum())  # (a, a) is its own reverse
+
+
+def _edge_keyed(v):
+    fr = v - np.floor(v)
+    axis = np.argmax(fr, axis=1)
+    base = np.floor(v + 1e-6).astype(np.int64)
+    key = ((axis * 1000 + base[:, 0]) * 1000 + base[:, 1]) * 1000 + base[:, 2]
+    order = np.argsort(key, kind="stable")
+    return key[order], v[order]
+
+
+def same_mesh(a, b):
+    """``tests/test_parallel.py``'s criteria for two meshes of one lattice:
+    equal vertex and face counts, equal edge statistics, the same cut
+    lattice edges, every vertex within 1.0 of its edge's and the 99th
+    percentile within 1e-2 -> (ok, the numbers)."""
+    (av, af), (bv, bf) = a, b
+    stats = {"verts": [len(av), len(bv)], "faces": [len(af), len(bf)], "edge_stats": [edge_stats(af), edge_stats(bf)]}
+    if len(av) != len(bv) or len(af) != len(bf) or stats["edge_stats"][0] != stats["edge_stats"][1]:
+        return False, stats
+    ka, va = _edge_keyed(av)
+    kb, vb = _edge_keyed(bv)
+    if not np.array_equal(ka, kb):
+        return False, {**stats, "edge_keys_equal": False}
+    d = np.abs(va - vb).max(axis=1)
+    stats.update(edge_keys_equal=True, max_vertex_dist=float(d.max()), p99_vertex_dist=float(np.quantile(d, 0.99)))
+    return bool(d.max() <= 1.0 and np.quantile(d, 0.99) < 1e-2), stats
+
+
+def _triangle_hash_sum(faces):
+    """A multiset hash of the triangles: each rotated to start at its least
+    vertex (the winding kept), mixed to 64 bits (splitmix64's finalizer),
+    summed with wraparound."""
+    f = np.asarray(faces, np.uint64)
+    k = np.argmin(f, axis=1)
+    rows = np.arange(len(f))
+    h = np.zeros(len(f), np.uint64)
+    with np.errstate(over="ignore"):
+        for i in range(3):
+            h = (h ^ f[rows, (k + i) % 3]) * np.uint64(0x9E3779B97F4A7C15)
+            h ^= h >> np.uint64(31)
+        return int(h.sum(dtype=np.uint64))
+
+
+def wire_matches_packed(wire_mesh, packed_mesh):
+    """The wire extraction against the packed one, both welded (their
+    vertices in (x, y, z) order): equal counts; each wire vertex within
+    2e-4 lattice units (u16 t steps) of its packed one, row for row, or,
+    where a quantized t swapped two rows' order, of its nearest among the
+    rows out of step (a one-to-one map, scipy's ``cKDTree``); and the same
+    triangles under that map (a multiset hash) -> (ok, the numbers)."""
+    from scipy.spatial import cKDTree
+
+    (wv, wf), (pv, pf) = wire_mesh, packed_mesh
+    stats = {"verts": [len(wv), len(pv)], "faces": [len(wf), len(pf)]}
+    if len(wv) != len(pv) or len(wf) != len(pf):
+        return False, stats
+    perm = np.arange(len(wv))
+    out = np.nonzero(np.abs(wv - pv).max(axis=1) >= 2e-4)[0]
+    if len(out):
+        _, near = cKDTree(pv[out]).query(wv[out])
+        perm[out] = out[near]
+    dist = np.abs(wv - pv[perm]).max(axis=1)
+    stats.update(rows_out_of_step=len(out), max_vertex_dist=float(dist.max()),
+                 one_to_one=bool(len(np.unique(perm[out])) == len(out)))
+    stats["triangles_equal"] = bool(stats["one_to_one"]
+                                    and _triangle_hash_sum(perm[wf]) == _triangle_hash_sum(pf))
+    return stats["triangles_equal"] and stats["max_vertex_dist"] < 2e-4, stats
+
+
+def _timed(fn):
+    """``fn()`` after a device sync -> (its result, seconds to the end of
+    its device work, peak bytes allocated during it, the peak above the
+    bytes allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return out, sec, peak, peak - start
+
+
+def sharded_extraction_path(tsr, lean):
+    """The Lean asset's code extracted at 512^3 over sp = 4 x-slabs
+    (``sharded_extract``, K2 and K10 four launches each) against K2 and K10
+    on the whole lattice on the card by JAX's criteria (``same_mesh``), the
+    wire form (``sharded_extract_wire``, K3 four launches) against it, and
+    ``sharded_density_grid`` bit-equal to the whole lattice's density; each
+    call once counted, once timed, with its peak bytes; at the Lean
+    threshold itself, the sharded mesh against the whole lattice's welded
+    by the same exact match; then K3 and K10 at one shard's padded slab
+    (136 x 512 x 512, x limit 128), equal to their plain versions and
+    timed."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.parallel import farm as farm_mod
+    from sculptmate_tpu_torch.parallel.mesh import gather, make_mesh
+
+    R, n = MULTI_R, MULTI_SP
+    mesh = make_mesh((n,), ("sp",), devices=mesh_devices(n))
+    code, w = lean["codes"][0], tsr.decoder_weights()
+    spec = tsr.grid_spec(R, tsr.extract_dtype)
+    # The equality check against the whole lattice's mesh as it comes, and
+    # the wire form and the timed calls beside it, cut at the Lean
+    # threshold moved to the middle of the gap between the two densities
+    # of the 512^3 lattice around it, and nothing else does. K2's
+    # densities take few distinct values (exp of a bf16 d), and where the
+    # level is exactly 0 at a lattice point, the cut edges from it put
+    # their vertices at one position, which the exact-duplicate weld
+    # merges (as the JAX package's does) and the whole lattice's mesh does
+    # not (ROADMAP 3). At the Lean threshold itself the sharded mesh is
+    # held to the whole lattice's mesh welded the same way
+    dens = dg.query_density_grid(code, w, spec)
+    vals = torch.unique(dens[(dens - lean["threshold"]).abs() <= 0.05 * abs(lean["threshold"])])
+    i = int(torch.searchsorted(vals, torch.tensor(lean["threshold"], device=vals.device)))
+    i = min(max(i, 1), len(vals) - 1)
+    thr, margin = float((vals[i - 1] + vals[i]) / 2), float((vals[i] - vals[i - 1]) / 2)
+    del dens, vals
+
+    def counted(key, fn):
+        """``fn`` once, its launches counted, timed and its peak bytes read."""
+        dg.density_mlp.launches = mc.marching_cubes.launches = mc.mc_wire_device.launches = 0
+        result, sec, peak, above = _timed(fn)
+        launches[key] = {"K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
+                         "K10": mc.marching_cubes.launches}
+        out[key] = {"sec": sec, "peak_bytes": peak, "peak_above_start_bytes": above}
+        return result
+
+    mv_whole = 32 * R * R
+
+    def whole(thr=thr):
+        res = mc.marching_cubes(dg.query_density_grid(code, w, spec) - thr, mv_whole, 2 * mv_whole)
+        nv, nf = int(res.num_verts), int(res.num_faces)
+        if nv > mv_whole or nf > 2 * mv_whole:
+            raise AssertionError(f"whole-lattice extraction overflowed: {nv} vertices, {nf} faces")
+        verts, faces = res.verts[:nv].cpu().numpy(), res.faces[:nf].cpu().numpy().astype(np.int64)
+        used = np.zeros(nv, bool)
+        used[faces.ravel()] = True
+        return verts[used], (np.cumsum(used) - 1)[faces]
+
+    def sharded():
+        return farm_mod.sharded_extract(mesh, code, w, spec, thr)
+
+    def wire():
+        return farm_mod.sharded_extract_wire(mesh, code, w, spec, thr)
+
+    t0, out, launches = time.perf_counter(), {}, {}
+    sm = counted("sharded_extract", sharded)
+    ref = counted("whole_lattice", whole)
+    ok_mesh, stats = same_mesh(sm, ref)
+    wm = counted("sharded_extract_wire", wire)
+    wire_ok, wire_stats = wire_matches_packed(wm, sm)
+    slabs = counted("sharded_density_grid", lambda: farm_mod.sharded_density_grid(mesh, code, w, spec))
+    dens = dg.query_density_grid(code, w, spec)
+    # the design takes each slab's rows of the whole lattice's partials, so
+    # the slabs are bit-equal to the whole lattice's density (limit 0): a
+    # slab evaluated apart put the mesh 20 faces off at 8.4e-5
+    joined = gather(slabs, "cuda")
+    dens_equal, dens_err = bool(torch.equal(joined, dens)), (joined - dens).abs().max().item()
+    del slabs, dens, joined
+    at_lean, whole_lean = farm_mod.sharded_extract(mesh, code, w, spec, lean["threshold"]), whole(lean["threshold"])
+    lean_ok, lean_stats = same_mesh(at_lean, farm_mod._weld([whole_lean[0]], [whole_lean[1]]))
+    lean_stats["vertices_merged"] = len(whole_lean[0]) - len(at_lean[0])
+    del at_lean, whole_lean
+    log(json.dumps({"multi_device_path": f"sharded extraction {R}^3 over sp = {n}",
+                    "devices": [str(d) for d in mesh.devices.ravel()], "threshold": thr, "threshold_margin": margin,
+                    "launches": launches, **out,
+                    "packed_vs_whole_lattice": {"passed": ok_mesh, **stats},
+                    "wire_vs_packed": {"passed": wire_ok, **wire_stats},
+                    "at_lean_threshold": {"threshold": lean["threshold"],
+                                          "packed_vs_whole_lattice_welded": {"passed": lean_ok, **lean_stats}},
+                    "sharded_density_grid_bit_equal": dens_equal, "sharded_density_grid_max_abs_err": dens_err,
+                    "sharded_density_grid_limit": 0,
+                    "phase_sec": time.perf_counter() - t0}))
+    if not ok_mesh:
+        raise AssertionError(f"the sharded extraction differs from the whole lattice's: {stats}")
+    if not wire_ok:
+        raise AssertionError(f"the sharded wire extraction differs from the packed one: {wire_stats}")
+    if not lean_ok:
+        raise AssertionError(f"at the Lean threshold the sharded extraction differs from the whole lattice's "
+                             f"welded mesh: {lean_stats}")
+    if not dens_equal:
+        raise AssertionError(f"sharded_density_grid is not bit-equal to the whole lattice's density: {dens_err}")
+    for key, want in (("sharded_extract", {"K2": n, "K10": n}), ("sharded_extract_wire", {"K2": n, "K3": n}),
+                      ("sharded_density_grid", {"K2": n})):
+        if any(launches[key][k] != v for k, v in want.items()):
+            raise AssertionError(f"{key} launched {launches[key]}, not {want}")
+
+    # K3 and K10 at a shard's slab shape, against their plain versions
+    slab = R // n
+    level = farm_mod._slab_level(code, w, spec, thr, 1, slab, slab + 1 + (-(slab + 1)) % 8, torch.device("cuda"), {})
+    mv, mf = 16 * R * R // n + 65536, 2 * (16 * R * R // n + 65536)
+    times = {}
+    k10, k10_ref = (f(level, mv, mf, valid_x_limit=slab) for f in (mc.marching_cubes, mc.marching_cubes_plain))
+    k3, k3_ref = (f(level, mv, valid_x_limit=slab) for f in (mc.mc_wire_device, mc.mc_wire_device_plain))
+    differ = sum(int((getattr(k10, k) != getattr(k10_ref, k)).sum()) for k in mc.MCResult._fields)
+    wire_differ = int((k3 != k3_ref).sum())
+    nv10, nf10 = int(k10_ref.num_verts), int(k10_ref.num_faces)
+    nv3 = int.from_bytes(k3_ref[-8:-4].cpu().numpy().tobytes(), "little")
+    n3 = level.numel()
+    for name, fn, plain, nbytes in (
+            ("K10", lambda: mc.marching_cubes(level, mv, mf, valid_x_limit=slab),
+             lambda: mc.marching_cubes_plain(level, mv, mf, valid_x_limit=slab), 4 * n3 + 12 * (nv10 + nf10) + 16),
+            ("K3", lambda: mc.mc_wire_device(level, mv, valid_x_limit=slab),
+             lambda: mc.mc_wire_device_plain(level, mv, valid_x_limit=slab), 4 * n3 + n3 // 8 + 2 * nv3 + 8)):
+        bound, by = bound_ms(0, nbytes, PEAK_F32_FLOPS)
+        times[name] = {"slab_shape": list(level.shape), "slab_valid_x_limit": slab,
+                       "slab_ms": cuda_ms(fn, iters=10),
+                       "slab_plain_ms": cuda_ms(plain, iters=1, warmup=1, graph=False),
+                       "slab_bound_ms": bound, "slab_bound_by": by}
+    log(json.dumps({"check": "K3 and K10 at a 512^3 shard's slab", "phase_sec": time.perf_counter() - t0,
+                    "shape": list(level.shape),
+                    "valid_x_limit": slab, "K10_entries_differing": differ, "K3_bytes_differing": wire_differ,
+                    "counts": [nv10, nf10], **{k: v for k, v in times.items()}, "limit": 0}))
+    if differ or wire_differ:
+        raise AssertionError(f"K10 ({differ} entries) or K3 ({wire_differ} bytes) differ at a 512^3 shard's slab")
+    return launches, times, out
+
+
+def tp_farm_path(tsr, matting, threshold):
+    """``AssetFarm`` over a (dp 2, tp 2) mesh on the full-width Lean model:
+    four raw 512^2 RGBA images through ``generate_batch_rgba`` with
+    full-u2net matting, colors and chunks of 2 (each chunk one image per dp
+    shard), counted (K1 = 4 x (12 + 32 x 2): four encodes, the backbone's
+    32 attentions each split over 2 shards) and timed; every mesh checked as
+    the serving path checks its meshes. The four images' codes against
+    the one-device farm's (TP_BF16_SHARE of max |codes|), and one encode of
+    an f32 copy of the model over the tp group against its unsplit encode
+    (CARD_CPU_SHARE)."""
+    from sculptmate_tpu_torch.geometry import marching_cubes as mc
+    from sculptmate_tpu_torch.ops import density_grid as dg
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+    from sculptmate_tpu_torch.parallel.farm import AssetFarm
+    from sculptmate_tpu_torch.parallel.mesh import make_mesh
+    from sculptmate_tpu_torch.systems.tsr import TSR, upload
+
+    t0 = time.perf_counter()
+    mesh = make_mesh((2, 2), ("dp", "tp"), devices=mesh_devices(4))
+    farm, one = AssetFarm(tsr, mesh, tp_axis="tp"), AssetFarm(tsr)
+    rgba = np.random.default_rng(11).random((4, 512, 512, 4))
+
+    def run():
+        return farm.generate_batch_rgba(rgba, matting=matting, ratio=0.75, resolution=256, threshold=threshold,
+                                        has_vertex_color=True, chunk=2)
+
+    torch.cuda.synchronize()
+    flash_attention.launches = dg.density_mlp.launches = mc.mc_wire_device.launches = dg.triplane_points.launches = 0
+    meshes = run()
+    torch.cuda.synchronize()
+    launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
+                "K4": dg.triplane_points.launches}
+    _, sec, _, _ = _timed(run)
+    x = upload(rgba, farm.device)
+    got, ref = [], []
+    for s in range(0, 4, 2):
+        got += [farm._front(p, matting, 0.75, farm._tp[i]).to(x.device) for i, p in farm._split(x[s : s + 2])]
+        ref.append(one._front(x[s : s + 2], matting, 0.75))
+    got, ref = torch.cat(got).float(), torch.cat(ref).float()
+    err, limit = (got - ref).abs().max().item(), TP_BF16_SHARE * ref.abs().max().item()
+    tsr32 = TSR(tsr.config, state_dict=tsr.module.state_dict(), dtype=torch.float32, device="cuda")
+    cond = one._prep_cond(x[:1], matting, 0.75)
+    a32, b32 = tsr32.scene_codes(cond, mesh.groups("dp", "tp")[0]), tsr32.scene_codes(cond)
+    err32, limit32 = (a32 - b32).abs().max().item(), CARD_CPU_SHARE * b32.abs().max().item()
+    del tsr32
+    bad = [i for i, m in enumerate(meshes) if not mesh_ok(*m, tsr.config.radius)]
+    want_k1 = 4 * (12 + 32 * 2)
+    log(json.dumps({"multi_device_path": "AssetFarm over (dp 2, tp 2): generate_batch_rgba, 4 images, chunk 2",
+                    "devices": [str(d) for d in mesh.devices.ravel()], "launches": launches, "K1_expected": want_k1,
+                    "tp_farm_sec_per_asset": sec / 4, "verts": [len(m[0]) for m in meshes],
+                    "codes_bf16_max_abs_err": err, "codes_bf16_limit": limit,
+                    "codes_f32_max_abs_err": err32, "codes_f32_limit": limit32, "meshes_failing_checks": bad,
+                    "phase_sec": time.perf_counter() - t0}))
+    if launches["K1"] != want_k1 or min(launches["K2"], launches["K3"], launches["K4"]) < 4:
+        raise AssertionError(f"the (2, 2) farm missed a kernel: {launches}")
+    if err > limit or err32 > limit32:
+        raise AssertionError(f"tp codes disagree: bf16 {err} > {limit} or f32 {err32} > {limit32}")
+    if bad or len(meshes) != 4:
+        raise AssertionError(f"(2, 2) farm meshes {bad} failed their checks")
+    return launches
+
+
+def sf3d_tp_farm_path(sf3d, scene):
+    """``SF3DFarm`` over a (dp 2, tp 2) mesh: two textured assets at full
+    width (the scene's image and one of other colors), counted (K1 = 2 x
+    (24 + 12 + 32 x 2), K7 = 2), every mesh and map checked; one encode
+    over the tp group against the unsplit one (TP_BF16_SHARE), and the
+    same with an f32 copy of the model (CARD_CPU_SHARE)."""
+    from sculptmate_tpu_torch.geometry import marching_tets as mt
+    from sculptmate_tpu_torch.ops.attention import flash_attention
+    from sculptmate_tpu_torch.parallel.mesh import make_mesh
+    from sculptmate_tpu_torch.parallel.sf3d_farm import SF3DFarm
+    from sculptmate_tpu_torch.systems.sf3d import SF3D
+    from sculptmate_tpu_torch.systems.tsr import upload
+
+    t0 = time.perf_counter()
+    mesh = make_mesh((2, 2), ("dp", "tp"), devices=mesh_devices(4))
+    farm = SF3DFarm(sf3d, mesh, tp_axis="tp")
+    images = np.repeat(scene["image"][None], 2, axis=0)
+    images[1, ..., :3] = np.random.default_rng(12).random((512, 512, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    flash_attention.launches = mt.mt_wire_device.launches = 0
+    meshes, sec, _, _ = _timed(lambda: farm.generate_batch(images, threshold=scene["threshold"]))
+    launches = {"K1": flash_attention.launches, "K7": mt.mt_wire_device.launches}
+    _, rgb = sf3d.prepare_image(upload(images[:1], sf3d.device))
+    group = mesh.groups("dp", "tp")[0]
+    a, b = (sf3d.get_scene_codes(rgb, tp)[0].float() for tp in (group, None))
+    err, limit = (a - b).abs().max().item(), TP_BF16_SHARE * b.abs().max().item()
+    del a, b
+    sf32 = SF3D(sf3d.config, state_dict=sf3d.module.state_dict(), dtype=torch.float32, device="cuda")
+    a32, b32 = (sf32.get_scene_codes(rgb, tp)[0] for tp in (group, None))
+    err32, limit32 = (a32 - b32).abs().max().item(), CARD_CPU_SHARE * b32.abs().max().item()
+    del sf32, a32, b32
+    torch.cuda.empty_cache()
+    checks = [textures_ok(m, 512) if m is not None else (False, 0.0) for m in meshes]
+    bad = [i for i, m in enumerate(meshes) if m is None or not sf3d_mesh_ok(m, sf3d) or not checks[i][0]]
+    want_k1 = 2 * (24 + 12 + 32 * 2)
+    log(json.dumps({"multi_device_path": "SF3DFarm over (dp 2, tp 2): generate_batch, 2 textured assets",
+                    "launches": launches, "K1_expected": want_k1, "batch_sec_first_call": sec,
+                    "faces": [len(m["faces"]) for m in meshes if m], "codes_bf16_max_abs_err": err,
+                    "codes_bf16_limit": limit, "codes_f32_max_abs_err": err32, "codes_f32_limit": limit32,
+                    "meshes_failing_checks": bad, "phase_sec": time.perf_counter() - t0}))
+    if launches["K1"] != want_k1 or launches["K7"] != 2:
+        raise AssertionError(f"the (2, 2) SF3D farm missed a kernel: {launches}")
+    if err > limit or err32 > limit32:
+        raise AssertionError(f"SF3D tp codes disagree: bf16 {err} > {limit} or f32 {err32} > {limit32}")
+    if bad or len(meshes) != 2:
+        raise AssertionError(f"(2, 2) SF3D farm meshes {bad} failed their checks")
+    return launches
+
+
+def multi_device_path(tsr, sf3d, lean, scene, matting, threshold):
+    """The multi-device paths on a mesh of four shards (``mesh_devices``):
+    the 512^3 sharded extraction, then the Lean and SF3D farms over (dp 2,
+    tp 2). Returns the launches and the slab-shape times."""
+    launches, times, extraction = sharded_extraction_path(tsr, lean)
+    return {"extraction": launches, "slab_times": times, "extraction_sec": extraction,
+            "lean_farm": tp_farm_path(tsr, matting, threshold), "sf3d_farm": sf3d_tp_farm_path(sf3d, scene)}
 
 
 def all_of(*checks):
@@ -2887,6 +3338,7 @@ def main():
     tex_launches = sf3d_textured_path(fast, scene)
     sf3d_async_contract(fast.model, scene)
     farm_launches = sf3d_farm_path(fast.model, scene)
+    multi = multi_device_path(gen.model, fast.model, lean, scene, matting, threshold)
     sf3d_checkpoint_path(fast, scene)
     sf3d_packed_launches = sf3d_packed_path(fast, scene)
     dead_upstream = dead_upstream_path()
@@ -2899,6 +3351,8 @@ def main():
          "replaces": "sculptmate_tpu/ops/attention.py:30", "launches": launches["K1"],
          "launches_by_path": {"tripo_generator": lean_launches["K1"], "serving_batch_of_8": launches["K1"],
                               "fast3d_generator": sf3d_launches["K1"],
+                              "asset_farm_dp2_tp2_batch_of_4": multi["lean_farm"]["K1"],
+                              "sf3d_farm_dp2_tp2_batch_of_2": multi["sf3d_farm"]["K1"],
                               **{key: v["K1_launches"] for key, v in dead_upstream.items() if v["K1_launches"]}},
          "max_abs_err": k1_err[0], "limit": f"min({K1_BF16_LIMIT}, {K1_BF16_ULP} x max |ref|) per shape",
          "max_err_over_limit": k1_err[1], "check": "pass",
@@ -2912,7 +3366,11 @@ def main():
          "replaces": "sculptmate_tpu/ops/density_grid.py:129", "launches": launches["K2"], "max_abs_err": k2_err,
          "limit": k2_limit, "check": "pass",
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"], "bound_by": k2_by,
-         "library_ms": None},
+         "library_ms": None, **{key: v for key, v in k2.items() if key.startswith("slab")},
+         "launches_by_path": {"serving_batch_of_8": launches["K2"],
+                              "asset_farm_dp2_tp2_batch_of_4": multi["lean_farm"]["K2"],
+                              **{f"{key}_{MULTI_R}_sp{MULTI_SP}": v["K2"] for key, v in multi["extraction"].items()
+                                 if key != "whole_lattice"}}},
         {"name": "grid_multihead_mlp", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/grid_multihead.cu",
          "replaces": "sculptmate_tpu/ops/density_grid.py:231", "launches": sf3d_launches["K5"],
          "max_abs_err": k5_err, "limit": f"{K5_SPREAD_SHARE} of each channel's spread", "check": "pass",
@@ -2938,7 +3396,11 @@ def main():
          "library_ms": None, "device_ops_per_call": k9_launches},
         {"name": "mc_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
          "replaces": "sculptmate_tpu/geometry/marching_cubes.py:454", "launches": lean_launches["K3"],
-         "launches_by_path": {"tripo_generator": lean_launches["K3"], "serving_batch_of_8": launches["K3"]},
+         "launches_by_path": {"tripo_generator": lean_launches["K3"], "serving_batch_of_8": launches["K3"],
+                              "asset_farm_dp2_tp2_batch_of_4": multi["lean_farm"]["K3"],
+                              f"sharded_extract_wire_{MULTI_R}_sp{MULTI_SP}":
+                                  multi["extraction"]["sharded_extract_wire"]["K3"]},
+         **multi["slab_times"]["K3"],
          "max_abs_err": 0.0, "limit": "byte-equal wire and equal positions", "check": "pass",
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None},
@@ -2956,13 +3418,17 @@ def main():
             ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "marching_cubes", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
          "replaces": "sculptmate_tpu/geometry/marching_cubes.py:538", "launches": packed_launches["K10"],
+         "launches_by_path": {"packed_asset": packed_launches["K10"],
+                              f"sharded_extract_{MULTI_R}_sp{MULTI_SP}": multi["extraction"]["sharded_extract"]["K10"]},
+         **multi["slab_times"]["K10"],
          "max_abs_err": 0.0, "limit": "equal positions, faces and counters", "check": "pass",
          "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
          "library_ms": None},
         {"name": "mt_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_tets.cu",
          "replaces": "sculptmate_tpu/geometry/marching_tets.py:388", "launches": sf3d_launches["K7"],
          "launches_by_path": {"fast3d_generator": sf3d_launches["K7"], "fast3d_generator_textured": tex_launches["K7"],
-                              "sf3d_farm_batch_of_4": farm_launches["K7"]},
+                              "sf3d_farm_batch_of_4": farm_launches["K7"],
+                              "sf3d_farm_dp2_tp2_batch_of_2": multi["sf3d_farm"]["K7"]},
          "max_abs_err": 0.0, "limit": "byte-equal wire (bits, u16 positions, counters)", "check": "pass",
          "ms": k7["ms"], "plain_ms": k7["plain_ms"], "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
          "library_ms": None},
@@ -2995,7 +3461,10 @@ def main():
         " Fast3DGenerator asset's (per path beside them); K11 is the same lattice's packed mesh, its launches those of"
         " one SF3D._extract_packed_mesh; K1's d88_* keys are one call at head dim 88 at"
         " SingleStreamTransformer's shape (1, 27648, 27648, 16, 88), and launches_by_path counts its 32 launches in"
-        " one SingleStreamTransformer call and its 1 in one full TriplaneAttention at res 96")
+        " one SingleStreamTransformer call and its 1 in one full TriplaneAttention at res 96; each launches_by_path"
+        " also counts the multi-device phase (the (dp 2, tp 2) farms' batches, K1 split over 2 tp shards, and one"
+        " call of each 512^3 sharded function over sp = 4); K2's slab_* keys time it at a shard's 129 x 512 x 512"
+        " slab, K3's and K10's at a shard's padded 136 x 512 x 512 level, x limit 128")
     log(json.dumps({"session_zoo_ms_per_image": session_ms,
                     "dead_upstream_ms": {key: v["ms"] for key, v in dead_upstream.items()}}))
     print(json.dumps(kernels_line))

@@ -12,7 +12,9 @@ cond image at 256^3 with vertex colors, times:
 - pipelined: ``scene_codes`` + ``extract_mesh_async`` with three assets in
   flight, the oldest waited on (``extract_mesh_wait``) after each dispatch,
   as ``bench.py:bench_lean`` drives the JAX package (seconds per asset over
-  the steady loop).
+  the steady loop);
+- packed: ``scene_codes`` -> ``extract_mesh(mode="packed")``, one asset
+  after another (median seconds per asset).
 
 The threshold is the 99th percentile of the image's 64^3 grid. Prints the
 card line and one JSON line. Needs a CUDA card.
@@ -71,9 +73,17 @@ def main():
     pipelined = (time.perf_counter() - t0) / args.assets
     for h in inflight:
         tsr.extract_mesh_wait(h)
+    tsr.extract_mesh(tsr.scene_codes(image), mode="packed", **kw)  # warm-up, learns the capacities
+    packed = []
+    for _ in range(args.assets):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tsr.extract_mesh(tsr.scene_codes(image), mode="packed", **kw)
+        packed.append(time.perf_counter() - t0)
     print(card)
     print(json.dumps({"root": args.root, "verts": verts, "serial_sec_per_asset": float(np.median(serial)),
-                      "serial_runs": [round(t, 4) for t in serial], "pipelined_sec_per_asset": pipelined}))
+                      "serial_runs": [round(t, 4) for t in serial], "pipelined_sec_per_asset": pipelined,
+                      "packed_sec_per_asset": float(np.median(packed)), "packed_runs": [round(t, 4) for t in packed]}))
     return 0
 
 

@@ -1,4 +1,5 @@
-// K2: fused triplane density MLP over the full R^3 marching-cubes lattice.
+// K2: fused triplane density MLP over the R^3 marching-cubes lattice, or
+// over an (RX, R, R) x-slab of it (the sharded extraction's, RX = slab + 1).
 //
 // Replaces: sculptmate_tpu/ops/density_grid.py:query_density_grid, the
 // z-slab lax.map program that runs the NeRF decoder's hidden layers over
@@ -8,7 +9,10 @@
 // from the three factorized first-layer partial sums (small matmuls done in
 // torch; A already holds the first-layer bias), runs the L hidden 64x64 SiLU
 // layers, keeps output channel 0 of the 64->4 output layer, and writes
-// exp(d + density_bias) as f32 in [x, y, z] order.
+// exp(d + density_bias) as f32 in [x, y, z] order. A is (RX, R, 64), B
+// (R, RX, 64), C (R, R, 64); RX is a loop bound and B's row stride, and a
+// point's arithmetic does not depend on where it sits in the slab, so a
+// lattice row gives the same bits in either of the two slabs that hold it.
 //
 // Bound on the H100: operations. At R = 256 the lattice is 16.8 M points x
 // ~66 K tensor-core flops each (1.1 TFLOP, 1.11 ms at 989 TFLOP/s) against a
@@ -63,6 +67,7 @@ struct Tile {
     bool valid;
 };
 
+// tiles (i, j, k-run) over RX x R x ceil(R / 64), i outermost
 __device__ __forceinline__ Tile tile_of(long long t, long long ntiles, int R, int KB) {
     Tile tl;
     tl.valid = t < ntiles;
@@ -125,7 +130,7 @@ density_mlp_bf16(const __grid_constant__ CUtensorMap tmb, const __grid_constant_
                  const __nv_bfloat16 *__restrict__ A,
                  const uint4 *__restrict__ Wp,     // (L*64 + 8) swizzled rows of 64 bf16
                  const float *__restrict__ bias,   // (L*64 + 1): halved b_l, then b_out[0]
-                 float density_bias, float *__restrict__ out, int R) {
+                 float density_bias, float *__restrict__ out, int R, int RX) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char *base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
     unsigned char *bufs = base;                                  // WGS pair buffers
@@ -147,7 +152,7 @@ density_mlp_bf16(const __grid_constant__ CUtensorMap tmb, const __grid_constant_
     const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32, g = lane >> 2, c = (lane & 3) * 2;
     const int KB = (R + TK - 1) / TK;
-    const long long ntiles = (long long)R * R * KB, npairs = (ntiles + 1) / 2;
+    const long long ntiles = (long long)RX * R * KB, npairs = (ntiles + 1) / 2;
     const long long G = (long long)gridDim.x * WGS;
     const float bout = bs[L * HW];
     auto layer_desc = [&](int l) { return desc_sw128(sw + l * W_LAYER_BYTES); };
@@ -219,33 +224,28 @@ static size_t density_smem_bytes() {
 }
 
 extern "C" int density_mlp_fwd(const void *A, const void *B, const void *C, const void *Wp,
-                               const void *bias, float density_bias, void *out, int R, int layers,
+                               const void *bias, float density_bias, void *out, int R, int RX, int layers,
                                int num_sms, void *stream) {
-    if (layers != L) return (int)cudaErrorInvalidValue;
-    // B (R_k, R_i, 64) and C (R_k, R_j, 64) as (channel, i|j, k): a box is
+    if (layers != L || RX < 1 || R < 1) return (int)cudaErrorInvalidValue;
+    // B (R_k, RX, 64) and C (R_k, R_j, 64) as (channel, i|j, k): a box is
     // the 64 rows k0.. at one i (or j)
     CUtensorMap tmb, tmc;
-    const cuuint64_t dims[3] = {HW, (cuuint64_t)R, (cuuint64_t)R};
+    const cuuint64_t dimb[3] = {HW, (cuuint64_t)RX, (cuuint64_t)R}, dimc[3] = {HW, (cuuint64_t)R, (cuuint64_t)R};
     const cuuint64_t rowb = ROW_BYTES, planeb = (cuuint64_t)R * ROW_BYTES;
-    const cuuint64_t sb[2] = {rowb, planeb}, sc[2] = {rowb, planeb};
+    const cuuint64_t sb[2] = {rowb, (cuuint64_t)RX * ROW_BYTES}, sc[2] = {rowb, planeb};
     const cuuint32_t box[3] = {HW, 1, TK};
-    int err = encode_bf16_map(&tmb, B, 3, dims, sb, box);
-    if (!err) err = encode_bf16_map(&tmc, C, 3, dims, sc, box);
+    int err = encode_bf16_map(&tmb, B, 3, dimb, sb, box);
+    if (!err) err = encode_bf16_map(&tmc, C, 3, dimc, sc, box);
     if (err) return err;
     const size_t smem = density_smem_bytes();
-    static bool smem_set = false;  // once per process
-    if (!smem_set) {
-        cudaError_t e = cudaFuncSetAttribute(density_mlp_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        smem_set = true;
-    }
+    static bool smem_set[MAX_DEVICES] = {};  // once per device
+    if (int e = allow_smem(density_mlp_bf16, (int)smem, smem_set)) return e;
     // persistent: at most one block per SM, each warpgroup taking pairs of tiles
-    const long long npairs = ((long long)R * R * ((R + TK - 1) / TK) + 1) / 2;
+    const long long npairs = ((long long)RX * R * ((R + TK - 1) / TK) + 1) / 2;
     const int grid = (int)std::min<long long>(num_sms, (npairs + WGS - 1) / WGS);
     density_mlp_bf16<<<grid, WGS * 128, smem, reinterpret_cast<cudaStream_t>(stream)>>>(
         tmb, tmc, static_cast<const __nv_bfloat16 *>(A), static_cast<const uint4 *>(Wp),
-        static_cast<const float *>(bias), density_bias, static_cast<float *>(out), R);
+        static_cast<const float *>(bias), density_bias, static_cast<float *>(out), R, RX);
     return (int)cudaGetLastError();
 }
 

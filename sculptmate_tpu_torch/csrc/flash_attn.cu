@@ -403,13 +403,8 @@ int launch_bf16(const void *q, const void *k, const void *v, void *o, int B, int
     if (!err) err = encode_bf16_map(&tk, k, 4, dk, sk, box);
     if (!err) err = encode_bf16_map(&tv, v, 4, dk, sk, box);
     if (err) return err;
-    static bool smem_set = false;  // once per process: it costs host time per call
-    if (!smem_set) {
-        cudaError_t e = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             T::SMEM_BYTES);
-        if (e != cudaSuccess) return (int)e;
-        smem_set = true;
-    }
+    static bool smem_set[MAX_DEVICES] = {};  // once per device: it costs host time per call
+    if (int e = allow_smem(flash_fwd_bf16<D>, T::SMEM_BYTES, smem_set)) return e;
     dim3 grid((Nq + BQ - 1) / BQ, B * H);
     flash_fwd_bf16<D><<<grid, 384, T::SMEM_BYTES, st>>>(tq, tk, tv, static_cast<__nv_bfloat16 *>(o), Nq, Nk,
                                                          H, scale_log2);

@@ -342,13 +342,8 @@ extern "C" int grid_multihead_fwd(const void *A, const void *B, const void *C, c
     if (!err) err = encode_bf16_map(&tmc, C, 3, dims, strides, box);
     if (err) return err;
     const size_t smem = multihead_smem_bytes();
-    static bool smem_set = false;  // once per process
-    if (!smem_set) {
-        cudaError_t e = cudaFuncSetAttribute(grid_multihead_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        smem_set = true;
-    }
+    static bool smem_set[MAX_DEVICES] = {};  // once per device
+    if (int e = allow_smem(grid_multihead_bf16, (int)smem, smem_set)) return e;
     // persistent: at most one block per SM, each taking tile blocks in turn
     const int grid = (int)std::min<long long>(num_sms, nblocks);
     grid_multihead_bf16<<<grid, THREADS, smem, reinterpret_cast<cudaStream_t>(stream)>>>(

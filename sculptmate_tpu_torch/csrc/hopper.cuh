@@ -297,3 +297,24 @@ static inline int encode_bf16_map(CUtensorMap *map, const void *base, int rank,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
+
+// ---- host: dynamic shared memory ---------------------------------------------
+// cudaFuncSetAttribute acts on the current device only: a kernel's dynamic
+// shared memory limit is raised once per device (``done``: a flag per
+// device index, kept by the caller for that kernel), not once per process,
+// so a launch on a second card of a device mesh is not refused.
+constexpr int MAX_DEVICES = 64;
+
+template <typename Kernel>
+static inline int allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (!done[dev]) {
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) return (int)e;
+        done[dev] = true;
+    }
+    return 0;
+}

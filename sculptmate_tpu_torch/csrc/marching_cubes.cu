@@ -48,6 +48,13 @@
 //   its cut word's base plus a popcount within the word.
 // Rounding follows the plain versions: every operation rounded on its own,
 // t's u16 to nearest even.
+//
+// The x limit (``xlimit``, RX - 1 for a whole lattice): an x-slab of the
+// sharded extraction holds its neighbour's first row as a halo, plus
+// padding rows. Cells and x-cut edges at x >= xlimit emit nothing; y and z
+// cut edges are never x-masked (a cell's +x face uses them). It is one
+// compare in each count pass: K3's and K10's later passes read only what
+// those passes wrote.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,13 +90,14 @@ constexpr int EMIT_THREADS = 256;        // mask words per block of the emit pas
 // neighbour is cut) and its per-axis counts (vcnt[a NB + blk])
 __global__ void __launch_bounds__(CELLS) wire_count(const float *__restrict__ lv, uint8_t *__restrict__ occ,
                                                      unsigned *__restrict__ masks, int *__restrict__ vcnt, int RX,
-                                                     int RY, int RZ) {
+                                                     int RY, int RZ, int xlimit) {
     __shared__ int warp_cnt[2][3][MASK_WORDS];  // by the parity of bz
     const int nby = RY / BS, nbz = RZ / BS, NB = (RX / BS) * nby * nbz;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     const int i = (blockIdx.x / nby) * BS + (t >> 6), j = (blockIdx.x % nby) * BS + ((t >> 3) & 7);
     const size_t sx = (size_t)RY * RZ, sy = RZ;
     const bool xi = i + 1 < RX, yj = j + 1 < RY;
+    const bool xcut = xi && i < xlimit;  // x-cut edges from this row count
     // the level at this thread's point of 8^3 block bz and at its +x, +y
     // and +z neighbours (0 past the lattice, where no edge is cut); loaded
     // one 8^3 block ahead
@@ -107,7 +115,7 @@ __global__ void __launch_bounds__(CELLS) wire_count(const float *__restrict__ lv
         const int k = bz * BS + (t & 7), blk = blockIdx.x * nbz + bz;
         const size_t p = ((size_t)i * RY + j) * RZ + k;
         const bool in = next[0] > 0.f;
-        const bool fx = xi && (next[1] > 0.f) != in, fy = yj && (next[2] > 0.f) != in,
+        const bool fx = xcut && (next[1] > 0.f) != in, fy = yj && (next[2] > 0.f) != in,
                    fz = k + 1 < RZ && (next[3] > 0.f) != in;
         if (bz + 1 < nbz) load(bz + 1, next);
         // the 8 points (i, j, k0 .. k0 + 7) are lanes 8m .. 8m + 7 of one
@@ -190,7 +198,8 @@ __global__ void __launch_bounds__(EMIT_THREADS) wire_emit(const float *__restric
 // [faces NB][active cells NB][axis flags 3 NB])
 __global__ void __launch_bounds__(CELLS) mc_classify(const float *__restrict__ lv, const int *__restrict__ tri_count,
                                                       unsigned *__restrict__ cutbits, uint8_t *__restrict__ cases,
-                                                      int *__restrict__ blocks, int RX, int RY, int RZ, int nwords) {
+                                                      int *__restrict__ blocks, int RX, int RY, int RZ, int nwords,
+                                                      int xlimit) {
     __shared__ int tcount[256];
     __shared__ int warp_sums[2][CELLS / 32][3];  // faces, active cells, axis flags; by the parity of bz
     for (int e = threadIdx.x; e < 256; e += CELLS) tcount[e] = tri_count[e];
@@ -200,6 +209,7 @@ __global__ void __launch_bounds__(CELLS) mc_classify(const float *__restrict__ l
     const int i = (blockIdx.x / nby) * BS + (t >> 6), j = (blockIdx.x % nby) * BS + ((t >> 3) & 7);
     const size_t sx = (size_t)RY * RZ, sy = RZ;
     const bool xi = i + 1 < RX, yj = j + 1 < RY;
+    const bool xc = xi && i < xlimit;  // this row's cells and x-cut edges count
     const size_t nrows = (size_t)RX * RY;
     unsigned word[3] = {0u, 0u, 0u};  // this lane's row's word so far (lanes with oz = 0 store it)
     // the level at the 8 corners of this thread's cell in 8^3 block bz,
@@ -222,13 +232,13 @@ __global__ void __launch_bounds__(CELLS) mc_classify(const float *__restrict__ l
     corners(0, next);
     for (int bz = 0; bz < nbz; ++bz) {
         const int k = bz * BS + (t & 7), blk = blockIdx.x * nbz + bz;
-        const bool zk = k + 1 < RZ, cell = xi && yj && zk;
+        const bool zk = k + 1 < RZ, cell = xc && yj && zk;
         unsigned in = 0u;
 #pragma unroll
         for (int c = 0; c < 8; ++c) in |= (unsigned)(next[c] > 0.f) << c;
         if (bz + 1 < nbz) corners(bz + 1, next);
         const unsigned in0 = in & 1u;
-        const unsigned f = (xi && ((in >> 1) & 1u) != in0 ? 1u : 0u) | (yj && ((in >> 2) & 1u) != in0 ? 2u : 0u) |
+        const unsigned f = (xc && ((in >> 1) & 1u) != in0 ? 1u : 0u) | (yj && ((in >> 2) & 1u) != in0 ? 2u : 0u) |
                            (zk && ((in >> 4) & 1u) != in0 ? 4u : 0u);
         const int cs = cell ? (int)in : 0;
         cases[(size_t)blk * CELLS + t] = (uint8_t)cs;
@@ -345,15 +355,16 @@ bool bad_shape(int RX, int RY, int RZ) {
 
 }  // namespace
 
-// K3: level (RX, RY, RZ) f32 -> the wire (zeroed by the caller: n3/8 + 2 mv
+// K3: level (RX, RY, RZ) f32, x limit xlimit (<= RX - 1) -> the wire (zeroed by the caller: n3/8 + 2 mv
 // + 8 bytes) and, when pos is not null, the (3, mv) f32 lattice positions
 // (zeroed by the caller). Scratch: masks 48 NB u32, vcnt and vbase 3 NB
 // ints; zeroed (zeroed by the caller): the 2 counters, the scan's tile
 // counter, 1 pad int, then status_tiles u64 status words. Three launches:
 // count, the scan of the 3 NB counts (which gives the counters), emit.
 extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *masks, void *vcnt, void *vbase,
-                           void *zeroed, int RX, int RY, int RZ, int mv, int status_tiles, void *stream) {
-    if (bad_shape(RX, RY, RZ) || mv < 1) return (int)cudaErrorInvalidValue;
+                           void *zeroed, int RX, int RY, int RZ, int xlimit, int mv, int status_tiles,
+                           void *stream) {
+    if (bad_shape(RX, RY, RZ) || mv < 1 || xlimit < 0 || xlimit > RX - 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int NB = (RX / BS) * (RY / BS) * (RZ / BS);
     const size_t n3 = (size_t)RX * RY * RZ;
@@ -371,7 +382,7 @@ extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *masks
     sg.nsegs = 1;
     if (sg.first_tile[1] > status_tiles) return (int)cudaErrorInvalidValue;
     const long long nwords = 3ll * NB * MASK_WORDS;
-    wire_count<<<(RX / BS) * (RY / BS), CELLS, 0, st>>>(lv, w, mk, cnt, RX, RY, RZ);
+    wire_count<<<(RX / BS) * (RY / BS), CELLS, 0, st>>>(lv, w, mk, cnt, RX, RY, RZ, xlimit);
     scan_segments<<<sg.first_tile[1], MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counters + 4),
                                                             counters + 2);
     wire_emit<<<(int)((nwords + EMIT_THREADS - 1) / EMIT_THREADS), EMIT_THREADS, 0, st>>>(
@@ -380,7 +391,7 @@ extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *masks
     return (int)cudaGetLastError();
 }
 
-// K10: level (RX, RY, RZ) f32 -> (3, mv) f32 positions and (3, mf) int32
+// K10: level (RX, RY, RZ) f32, x limit xlimit (<= RX - 1) -> (3, mv) f32 positions and (3, mf) int32
 // face corners (both zeroed by the caller). zeroed (zeroed by the caller):
 // the 4 int32 counters, the scan's tile counter, 3 pad ints, then
 // status_tiles u64 status words. Scratch: cutbits and word_base 3 RX RY
@@ -389,9 +400,10 @@ extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *masks
 // writes the counters), the vertices, the faces.
 extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *pos, void *corners, void *zeroed,
                                   void *cutbits, void *word_base, void *cases, void *blocks, void *fbase, int RX,
-                                  int RY, int RZ, int mv, int mf, int maxtri, int status_tiles, int num_sms,
-                                  void *stream) {
-    if (bad_shape(RX, RY, RZ) || mv < 1 || mf < 1 || maxtri < 1) return (int)cudaErrorInvalidValue;
+                                  int RY, int RZ, int xlimit, int mv, int mf, int maxtri, int status_tiles,
+                                  int num_sms, void *stream) {
+    if (bad_shape(RX, RY, RZ) || mv < 1 || mf < 1 || maxtri < 1 || xlimit < 0 || xlimit > RX - 1)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
     const int NB = (RX / BS) * (RY / BS) * (RZ / BS), nrows = RX * RY, nwords = (RZ + 31) / 32;
     const float *lv = static_cast<const float *>(level);
@@ -426,7 +438,7 @@ extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *p
     fgrid = std::max(1, std::min(NB, fgrid * num_sms));
 
     mc_classify<<<(RX / BS) * (RY / BS), CELLS, 0, st>>>(lv, tab, bits, static_cast<uint8_t *>(cases), bl, RX, RY,
-                                                         RZ, nwords);
+                                                         RZ, nwords, xlimit);
     scan_segments<<<tiles, MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counts + 8),
                                                  counts + 4);
     mc_verts<<<(3 * nrows * nwords + VERT_THREADS - 1) / VERT_THREADS, VERT_THREADS, 0, st>>>(

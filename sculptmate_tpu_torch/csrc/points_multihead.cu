@@ -373,13 +373,8 @@ extern "C" int points_multihead_fwd(const void *planes, const void *px, const vo
     if (K < 1 || K > MAX_OUT || N < 0 || H < 2 || W < 2) return (int)cudaErrorInvalidValue;
     if (N == 0) return 0;
     const size_t smem = points_smem_bytes();
-    static bool smem_set = false;  // once per process
-    if (!smem_set) {
-        cudaError_t e =
-            cudaFuncSetAttribute(points_multihead_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        smem_set = true;
-    }
+    static bool smem_set[MAX_DEVICES] = {};  // once per device
+    if (int e = allow_smem(points_multihead_kernel, (int)smem, smem_set)) return e;
     // persistent: at most one block per SM, each walking pairs of tiles
     const long long npairs = ((long long)N + PAIR - 1) / PAIR;
     const int grid = (int)std::min<long long>(npairs, num_sms);

@@ -360,13 +360,8 @@ static int launch(const void *planes, const void *px, const void *py, const void
                   const void *bias, void *out, int N, int H, int W, float radius, float density_bias,
                   int align_corners, int num_sms, cudaStream_t st) {
     const size_t smem = triplane_smem_bytes();
-    static bool smem_set = false;  // once per process and tap type
-    if (!smem_set) {
-        cudaError_t e =
-            cudaFuncSetAttribute(triplane_points_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-        smem_set = true;
-    }
+    static bool smem_set[MAX_DEVICES] = {};  // once per device and tap type
+    if (int e = allow_smem(triplane_points_kernel<T>, (int)smem, smem_set)) return e;
     // persistent: at most one block per SM, each walking pairs of tiles
     const long long npairs = ((long long)N + PAIR - 1) / PAIR;
     const int grid = (int)std::min<long long>(npairs, num_sms);

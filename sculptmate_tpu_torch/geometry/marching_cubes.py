@@ -34,6 +34,13 @@ within a block, then the table's triangles). At most ``max_verts`` and
 ``max_faces`` rows are written, the rest are zero, and the four counters are
 exact. ``level > 0`` is inside; positions are lattice index coords; faces
 are wound so normals point away from the inside.
+
+The x limit (``valid_x_limit``, default -1 meaning RX - 1): cells and
+x-cut edges at x >= the limit emit nothing, y and z cut edges are never
+x-masked (a cell's +x face uses them). It is the JAX package's ``valid_x``
+mask for the prefix ``arange(RX) < limit`` that its every caller passes:
+an x-slab of the sharded extraction (``parallel/farm.py``) holds its
+neighbour's first row as a halo, whose cells the neighbour emits.
 """
 
 from __future__ import annotations
@@ -83,11 +90,22 @@ def _check_shape(level: torch.Tensor) -> None:
         raise ValueError(f"lattice {tuple(level.shape)} must be a multiple of {BS} per axis")
 
 
-def _cut_masks(inside: torch.Tensor) -> torch.Tensor:
+def _x_limit(level: torch.Tensor, valid_x_limit: int) -> int:
+    RX = level.shape[0]
+    limit = RX - 1 if valid_x_limit < 0 else valid_x_limit
+    if limit > RX - 1:
+        raise ValueError(f"valid_x_limit {valid_x_limit} past the last cell row {RX - 2} of {RX} rows")
+    return limit
+
+
+def _cut_masks(inside: torch.Tensor, limit: Optional[int] = None) -> torch.Tensor:
     """(3, RX, RY, RZ) per-axis cut-edge masks: edge (a, i, j, k) joins
-    lattice point (i, j, k) to its +a neighbour."""
+    lattice point (i, j, k) to its +a neighbour; x-cut edges at i >= limit
+    (default RX - 1) are dropped."""
+    if limit is None:
+        limit = inside.shape[0] - 1
     m = torch.zeros((3,) + inside.shape, dtype=torch.bool, device=inside.device)
-    m[0, :-1] = inside[:-1] != inside[1:]
+    m[0, :limit] = inside[:limit] != inside[1 : limit + 1]
     m[1, :, :-1] = inside[:, :-1] != inside[:, 1:]
     m[2, :, :, :-1] = inside[:, :, :-1] != inside[:, :, 1:]
     return m
@@ -127,17 +145,19 @@ def _quantize_colors(color_fn, vx, vy, vz) -> torch.Tensor:
     return torch.cat(rgb)
 
 
-def mc_wire_device_plain(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None):
+def mc_wire_device_plain(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None,
+                         valid_x_limit: int = -1):
     """Plain version of kernel K3; ``mc_wire_device``'s arguments and
     result."""
     _check_shape(level)
+    limit = _x_limit(level, valid_x_limit)
     RX, RY, RZ = level.shape
     dev = level.device
     nby, nbz = RY // BS, RZ // BS
     NB = (RX // BS) * nby * nbz
 
     inside = level > 0
-    rows = _to_blocks(_cut_masks(inside))  # (3 NB, 512)
+    rows = _to_blocks(_cut_masks(inside, limit))  # (3 NB, 512)
     rows_i = rows.to(torch.int32)
     vcnt = rows_i.sum(dim=1, dtype=torch.int32)  # cut edges per block row
     vbase = torch.cumsum(vcnt, dim=0, dtype=torch.int32) - vcnt
@@ -211,19 +231,21 @@ def k3_scratch(RX: int, RY: int, RZ: int) -> dict:
     return {"masks": 48 * NB, "vcnt": 3 * NB, "vbase": 3 * NB, "status_tiles": tiles, "zeroed": 4 + 2 * tiles}
 
 
-def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None):
+def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Callable] = None,
+                   valid_x_limit: int = -1):
     """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of 8
     -> the (W,) uint8 wire, or ``(wire, colors (3 * max_verts,) uint8)``
     with ``color_fn``. Kernel K3 on a CUDA tensor, its plain version on a
-    CPU tensor.
+    CPU tensor. ``valid_x_limit``: see the module docstring.
 
     ``color_fn(vx, vy, vz) -> (r, g, b)``: color query at the (max_verts,)
     vertex positions in lattice index coords (unused slots sit at the
     origin); returns rows in [0, 1], quantized here to uint8.
     """
     if not level.is_cuda:
-        return mc_wire_device_plain(level, max_verts, color_fn)
+        return mc_wire_device_plain(level, max_verts, color_fn, valid_x_limit)
     level = _check_level(level, "wire marching cubes")
+    limit = _x_limit(level, valid_x_limit)
     if max_verts < 1:
         raise ValueError(f"max_verts must be positive, got {max_verts}")
     RX, RY, RZ = level.shape
@@ -235,9 +257,10 @@ def mc_wire_device(level: torch.Tensor, max_verts: int, color_fn: Optional[Calla
     # the counters, the scan's tile counter and status words, zeroed on the stream
     zeroed = torch.zeros(size["zeroed"], dtype=torch.int32, device=dev)
     scratch = [torch.empty(size[name], dtype=torch.int32, device=dev) for name in ("masks", "vcnt", "vbase")]
-    err = _mc_lib("mc_wire_fwd", 7, 5)(
+    err = _mc_lib("mc_wire_fwd", 7, 6)(
         level.data_ptr(), wire.data_ptr(), None if pos is None else pos.data_ptr(), *(t.data_ptr() for t in scratch),
-        zeroed.data_ptr(), RX, RY, RZ, max_verts, size["status_tiles"], torch.cuda.current_stream(dev).cuda_stream,
+        zeroed.data_ptr(), RX, RY, RZ, limit, max_verts, size["status_tiles"],
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "mc_wire_fwd")
     mc_wire_device.launches += 1
@@ -260,17 +283,18 @@ def _tables_torch(device):
     return as_t(tri), as_t(cnt), maxtri, as_t(EDGE_AXIS), as_t(EDGE_OFFSET)
 
 
-def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int) -> MCResult:
+def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_limit: int = -1) -> MCResult:
     """Plain version of kernel K10: the packed mesh's semantics (see the
     module docstring), written as torch over the whole lattice."""
     _check_shape(level)
+    limit = _x_limit(level, valid_x_limit)
     RX, RY, RZ = level.shape
     dev = level.device
     n3 = RX * RY * RZ
     tri, tri_count, maxtri, edge_axis, edge_off = _tables_torch(dev)
 
     inside = level > 0
-    masks = _cut_masks(inside)  # (3, RX, RY, RZ)
+    masks = _cut_masks(inside, limit)  # (3, RX, RY, RZ)
     flat_mask = masks.reshape(-1)
     vid = torch.cumsum(flat_mask, 0) - 1  # axis-major, flat x-major order
     num_verts = flat_mask.sum()
@@ -285,14 +309,14 @@ def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int) ->
     pos[1, :n] = j.float() + t * (axis == 1)
     pos[2, :n] = k.float() + t * (axis == 2)
 
-    # cell cases; cells on the +x, +y and +z boundary emit nothing
+    # cell cases; cells on the +y and +z boundary and at x >= limit emit nothing
     pad = F.pad(inside.to(torch.int64), (0, 1, 0, 1, 0, 1))
     case = torch.zeros((RX, RY, RZ), dtype=torch.int64, device=dev)
     for c in range(8):
         ox, oy, oz = c & 1, (c >> 1) & 1, (c >> 2) & 1
         case += pad[ox : ox + RX, oy : oy + RY, oz : oz + RZ] << c
     ntri = tri_count[case]
-    ntri[-1], ntri[:, -1], ntri[:, :, -1] = 0, 0, 0
+    ntri[limit:], ntri[:, -1], ntri[:, :, -1] = 0, 0, 0
     # block-major cell order: blocks (bx, by, bz), cells (ox, oy, oz)
     cell_ids = _to_blocks(torch.arange(n3, device=dev).reshape(1, RX, RY, RZ)).reshape(-1)
     ntri_b = ntri.reshape(-1)[cell_ids]
@@ -350,14 +374,15 @@ def k10_scratch(RX: int, RY: int, RZ: int) -> dict:
             "status_tiles": tiles, "zeroed": 8 + 2 * tiles}
 
 
-def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int) -> MCResult:
+def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_limit: int = -1) -> MCResult:
     """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of
-    8 -> ``MCResult`` (see the module docstring). Kernel K10 on a CUDA
-    tensor, its plain version on a CPU tensor. Nothing here waits for the
-    device (after the tables' first upload to it)."""
+    8 -> ``MCResult`` (see the module docstring; ``valid_x_limit`` there).
+    Kernel K10 on a CUDA tensor, its plain version on a CPU tensor. Nothing
+    here waits for the device (after the tables' first upload to it)."""
     if not level.is_cuda:
-        return marching_cubes_plain(level, max_verts, max_faces)
+        return marching_cubes_plain(level, max_verts, max_faces, valid_x_limit)
     level = _check_level(level, "marching cubes")
+    limit = _x_limit(level, valid_x_limit)
     if max_verts < 1 or max_faces < 1:
         raise ValueError(f"capacities must be positive, got {max_verts} and {max_faces}")
     RX, RY, RZ = level.shape
@@ -371,10 +396,10 @@ def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int) -> MCRes
     scratch = {name: torch.empty(size[name], dtype=torch.uint8 if name == "cases" else torch.int32, device=dev)
                for name in ("cutbits", "word_base", "cases", "blocks", "fbase")}
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    err = _mc_lib("marching_cubes_fwd", 10, 8)(
+    err = _mc_lib("marching_cubes_fwd", 10, 9)(
         level.data_ptr(), tables.data_ptr(), pos.data_ptr(), corners.data_ptr(), zeroed.data_ptr(),
         *(scratch[name].data_ptr() for name in ("cutbits", "word_base", "cases", "blocks", "fbase")),
-        RX, RY, RZ, max_verts, max_faces, maxtri, size["status_tiles"], num_sms,
+        RX, RY, RZ, limit, max_verts, max_faces, maxtri, size["status_tiles"], num_sms,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "marching_cubes_fwd")

@@ -7,6 +7,15 @@ a projection in, blocks of pre-LN (eps 1e-5) self-attention over the 3 072
 triplane tokens, cross-attention into the 1 025 image tokens and an
 exact-erf GEGLU feed-forward, a projection out, and a residual around the
 whole stack. Every attention call goes through ``ops.attention``.
+
+Each module's ``forward`` takes an optional tp group (``tp``: a tuple of
+devices, see ``ops/sharding.py``): attention splits q/k/v by heads and
+``to_out`` by rows, the feed-forward splits its GEGLU hidden units and
+``net.2`` alike, each reduced on the input's device. Each shard's
+attention is one ``dot_product_attention`` call at ``heads / tp`` heads
+(kernel K1 on the card). The JAX package switches its fused attention off
+under tensor parallelism, a workaround for its sharding compiler that the
+port has no need of. Without ``tp`` nothing is split.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sculptmate_tpu_torch.ops.attention import dot_product_attention
+from sculptmate_tpu_torch.ops.sharding import TPGroup, column_shards, reduce_partials, row_shards, sharded_attention
+from sculptmate_tpu_torch.runtime.device import device_scope
 
 
 class Attention(nn.Module):
@@ -42,8 +53,11 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
 
-    def forward(self, hidden_states, encoder_hidden_states=None):
+    def forward(self, hidden_states, encoder_hidden_states=None, tp: Optional[TPGroup] = None):
         context = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+        if tp is not None:
+            return sharded_attention(hidden_states, context, self.to_q, self.to_k, self.to_v, self.to_out[0],
+                                     self.heads, tp)
         B, Nq, _ = hidden_states.shape
         Nk = context.shape[1]
         q = self.to_q(hidden_states).reshape(B, Nq, self.heads, self.dim_head)
@@ -58,8 +72,14 @@ class GEGLU(nn.Module):
         super().__init__()
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
-    def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
+    def forward(self, x, tp: Optional[TPGroup] = None, shard: int = 0):
+        """With ``tp``: shard ``shard``'s hidden units (the same units of
+        ``h`` and of ``gate``), on ``x``'s device."""
+        if tp is None:
+            h, gate = self.proj(x).chunk(2, dim=-1)
+        else:
+            (wh, bh), (wg, bg) = column_shards(self.proj, tp, parts=2)[shard]
+            h, gate = F.linear(x, wh, bh), F.linear(x, wg, bg)
         return h * F.gelu(gate)  # exact erf form, torch's default
 
 
@@ -69,10 +89,18 @@ class FeedForward(nn.Module):
         # index 1 is the reference's dropout (p = 0): kept so net.2 keeps its name
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
 
-    def forward(self, x):
-        for m in self.net:
-            x = m(x)
-        return x
+    def forward(self, x, tp: Optional[TPGroup] = None):
+        if tp is None:
+            for m in self.net:
+                x = m(x)
+            return x
+        geglu, out = self.net[0], self.net[2]
+        w_out = row_shards(out, tp)
+        parts = []
+        for s, dev in enumerate(tp):
+            with device_scope(dev):
+                parts.append(F.linear(geglu(x.to(dev, non_blocking=True), tp, s), w_out[s]))
+        return reduce_partials(parts, out.bias, x.device)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -87,10 +115,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, encoder_hidden_states=None):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), encoder_hidden_states)
-        return x + self.ff(self.norm3(x))
+    def forward(self, x, encoder_hidden_states=None, tp: Optional[TPGroup] = None):
+        x = x + self.attn1(self.norm1(x), tp=tp)
+        x = x + self.attn2(self.norm2(x), encoder_hidden_states, tp)
+        return x + self.ff(self.norm3(x), tp)
 
 
 class Transformer1D(nn.Module):
@@ -115,10 +143,10 @@ class Transformer1D(nn.Module):
         )
         self.proj_out = nn.Linear(inner, in_channels)
 
-    def forward(self, hidden_states, encoder_hidden_states=None):
+    def forward(self, hidden_states, encoder_hidden_states=None, tp: Optional[TPGroup] = None):
         residual = hidden_states
         x = self.proj_in(self.norm(hidden_states).transpose(1, 2))
         for block in self.transformer_blocks:
-            x = block(x, encoder_hidden_states)
+            x = block(x, encoder_hidden_states, tp)
         x = self.proj_out(x).transpose(1, 2)
         return (x + residual).to(residual.dtype)

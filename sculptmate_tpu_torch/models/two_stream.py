@@ -12,6 +12,14 @@ attends to the latents); GroupNorm and a projection in, a projection out and
 a residual on the triplane stream. Every attention call goes through
 ``ops.attention``, so on the card it runs on kernel K1.
 
+Under tensor parallelism (an optional tp group, ``tp``, as in
+``models/transformer.py``) ``CrossAttention`` splits ``wq/wk/wv`` by heads
+and ``proj`` by rows, and every feed-forward splits its hidden units; the
+blocks, ``TwoStreamInterleaveTransformer`` and
+``SingleStreamTransformer`` hand the group down. ``TriplaneAttention``
+splits nothing: the JAX package's only switches its fused attention off
+under tp, and the port's runs as it does without tp.
+
 The reference's two unused modules are here too (nothing in the SF3D
 system builds them): ``SingleStreamTransformer`` (``backbone.py:151-208``),
 basic blocks over the triplane tokens at 16 heads x 88 by default (K1 at
@@ -32,6 +40,7 @@ import torch.nn as nn
 
 from sculptmate_tpu_torch.models.transformer import FeedForward
 from sculptmate_tpu_torch.ops.attention import dot_product_attention
+from sculptmate_tpu_torch.ops.sharding import TPGroup, sharded_attention
 
 
 class CrossAttention(nn.Module):
@@ -45,7 +54,9 @@ class CrossAttention(nn.Module):
         self.wv = nn.Linear(kv_dim, dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, tp: Optional[TPGroup] = None) -> torch.Tensor:
+        if tp is not None:
+            return sharded_attention(x_q, x_kv, self.wq, self.wk, self.wv, self.proj, self.num_heads, tp)
         B, Nq, C = x_q.shape
         Nk = x_kv.shape[1]
         d = C // self.num_heads
@@ -67,13 +78,13 @@ class BasicBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, z: torch.Tensor, x: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, x: Optional[torch.Tensor], tp: Optional[TPGroup] = None) -> torch.Tensor:
         """Without x, the cross-attention attends to the normed z itself."""
         h = self.norm1(z)
-        z = z + self.attn1(h, h)
+        z = z + self.attn1(h, h, tp)
         h = self.norm2(z)
-        z = z + self.attn2(h, h if x is None else x)
-        return z + self.ff(self.norm3(z))
+        z = z + self.attn2(h, h if x is None else x, tp)
+        return z + self.ff(self.norm3(z), tp)
 
 
 class FuseBlock(nn.Module):
@@ -86,9 +97,9 @@ class FuseBlock(nn.Module):
         self.norm_z2 = nn.LayerNorm(dim_z, eps=1e-5)
         self.ff = FeedForward(dim_z)
 
-    def forward(self, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        z = z + self.attn(self.norm_z1(z), x)
-        return z + self.ff(self.norm_z2(z))
+    def forward(self, z: torch.Tensor, x: torch.Tensor, tp: Optional[TPGroup] = None) -> torch.Tensor:
+        z = z + self.attn(self.norm_z1(z), x, tp)
+        return z + self.ff(self.norm_z2(z), tp)
 
 
 class TwoStreamBlock(nn.Module):
@@ -101,11 +112,11 @@ class TwoStreamBlock(nn.Module):
         )
         self.fuse_block_out = FuseBlock(dim_input, dim_latent, num_heads, qkv_bias)
 
-    def forward(self, latent, input, cross_input):
-        latent = self.fuse_block_in(latent, input)
+    def forward(self, latent, input, cross_input, tp: Optional[TPGroup] = None):
+        latent = self.fuse_block_in(latent, input, tp)
         for block in self.transformer_block:
-            latent = block(latent, cross_input)
-        return latent, self.fuse_block_out(input, latent)
+            latent = block(latent, cross_input, tp)
+        return latent, self.fuse_block_out(input, latent, tp)
 
 
 class TwoStreamInterleaveTransformer(nn.Module):
@@ -138,7 +149,8 @@ class TwoStreamInterleaveTransformer(nn.Module):
         )
         self.proj_out = nn.Linear(triplane_channels, raw_triplane_channels)
 
-    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                tp: Optional[TPGroup] = None) -> torch.Tensor:
         """hidden_states: (B, C, N) channels-first triplane tokens;
         encoder_hidden_states: (B, N_image, C_image) image tokens."""
         B = hidden_states.shape[0]
@@ -149,7 +161,7 @@ class TwoStreamInterleaveTransformer(nn.Module):
         lat = self.proj_latent(self.norm_latent(lat))
         latent = torch.cat([image, lat], dim=1)
         for block in self.main_blocks:
-            latent, triplane = block(latent, triplane, encoder_hidden_states)
+            latent, triplane = block(latent, triplane, encoder_hidden_states, tp)
         out = self.proj_out(triplane).transpose(1, 2)
         return (out + residual).to(residual.dtype)
 
@@ -193,12 +205,13 @@ class SingleStreamTransformer(nn.Module):
         )
         self.proj_out = nn.Linear(inner, in_channels)
 
-    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: Optional[torch.Tensor] = None):
+    def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: Optional[torch.Tensor] = None,
+                tp: Optional[TPGroup] = None):
         """hidden_states: (B, C, N) channels-first tokens -> the same shape."""
         residual = hidden_states
         x = self.proj_in(self.norm(hidden_states).transpose(1, 2))
         for block in self.transformer_blocks:
-            x = block(x, encoder_hidden_states)
+            x = block(x, encoder_hidden_states, tp)
         return (self.proj_out(x).transpose(1, 2) + residual).to(residual.dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -228,7 +241,8 @@ def triplane_attention_bias(res: int, device=None) -> torch.Tensor:
 
 class TriplaneAttention(nn.Module):
     """Self-attention over the 3 res^2 triplane tokens: full (on K1 on the
-    card) or masked to the plane-intersection lines."""
+    card) or masked to the plane-intersection lines. It takes no tp group:
+    the JAX package's shards nothing under tensor parallelism."""
 
     def __init__(self, dim: int, resolution: int, num_heads: int = 16, qkv_bias: bool = False,
                  full_attention: bool = False):

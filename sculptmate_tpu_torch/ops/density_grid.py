@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -78,15 +78,16 @@ def _run_hidden(h: torch.Tensor, weights: Sequence, act, cd) -> torch.Tensor:
 def density_mlp_plain(
     A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, weights: Weights, spec: DensityGridSpec
 ) -> torch.Tensor:
-    """Plain version of kernel K2. A (R_i, R_j, 64) with b1 added, B (R_k,
-    R_i, 64), C (R_k, R_j, 64), all in the compute dtype -> (R, R, R) f32
-    activated density in [x, y, z] order."""
-    R = A.shape[0]
+    """Plain version of kernel K2. A (RX, R, 64) with b1 added, B (R, RX,
+    64), C (R, R, 64), all in the compute dtype -> (RX, R, R) f32 activated
+    density in [x, y, z] order (RX = R for the whole lattice, fewer rows for
+    an x-slab)."""
+    R = A.shape[1]
     act = get_activation(spec.activation)
     slabs = []
     for z0 in range(0, R, spec.slab):
         b_s, c_s = B[z0 : z0 + spec.slab], C[z0 : z0 + spec.slab]
-        h = act(A[None] + b_s[:, :, None, :] + c_s[:, None, :, :])  # (slab, Ri, Rj, 64)
+        h = act(A[None] + b_s[:, :, None, :] + c_s[:, None, :, :])  # (slab, RX, R, 64)
         slabs.append(_run_hidden(h, weights, act, A.dtype)[..., 0].float())
     dens = torch.cat(slabs).permute(1, 2, 0)  # [z, x, y] -> [x, y, z]
     return get_activation(spec.density_activation)(dens + spec.density_bias).contiguous()
@@ -95,7 +96,7 @@ def density_mlp_plain(
 def _density_lib():
     fn = kernels.load("density_grid").density_mlp_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
             ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
@@ -141,16 +142,17 @@ def pack_density_weights(weights: Weights, device) -> Tuple[torch.Tensor, torch.
 def density_mlp(
     A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, weights: Weights, spec: DensityGridSpec
 ) -> torch.Tensor:
-    """Kernel K2 on CUDA tensors, its plain version on CPU tensors."""
+    """Kernel K2 on CUDA tensors, its plain version on CPU tensors; the
+    shapes of ``density_mlp_plain``."""
     if not A.is_cuda:
         return density_mlp_plain(A, B, C, weights, spec)
-    R = A.shape[0]
+    RX, R = A.shape[:2]
     hidden = weights[1:-1]
     if A.dtype != torch.bfloat16:
         raise TypeError(f"density kernel computes in bf16, got {A.dtype} (use a bf16 extract dtype on the card)")
     if spec.activation.lower() != "silu" or spec.density_activation.lower() != "exp":
         raise ValueError("density kernel implements silu hidden layers and exp density only")
-    if A.shape != (R, R, _HIDDEN) or B.shape != A.shape or C.shape != A.shape:
+    if A.shape != (RX, R, _HIDDEN) or B.shape != (R, RX, _HIDDEN) or C.shape != (R, R, _HIDDEN):
         raise ValueError(f"bad partial-sum shapes {tuple(A.shape)} {tuple(B.shape)} {tuple(C.shape)}")
     if len(hidden) != _LAYERS or any(W.shape != (_HIDDEN, _HIDDEN) for W, _ in hidden):
         raise ValueError(f"density kernel takes {_LAYERS} hidden 64x64 layers")
@@ -159,11 +161,11 @@ def density_mlp(
     # wait for the device
     W, bias = pack_density_weights(weights, dev)
     A, B, C = (kernels.aligned(t) for t in (A, B, C))
-    out = torch.empty((R, R, R), dtype=torch.float32, device=dev)
+    out = torch.empty((RX, R, R), dtype=torch.float32, device=dev)
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = _density_lib()(
         A.data_ptr(), B.data_ptr(), C.data_ptr(), W.data_ptr(), bias.data_ptr(),
-        float(spec.density_bias), out.data_ptr(), R, len(hidden), num_sms,
+        float(spec.density_bias), out.data_ptr(), R, RX, len(hidden), num_sms,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "density_mlp_fwd")
@@ -175,14 +177,16 @@ density_mlp.launches = 0
 
 
 def first_layer_partials(
-    triplane: torch.Tensor, weights: Weights, spec: DensityGridSpec
+    triplane: torch.Tensor, weights: Weights, spec: DensityGridSpec, x_coords: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The factorized first layer: A (R_i, R_j, 64) + b1, B (R_k, R_i, 64),
-    C (R_k, R_j, 64) in the compute dtype."""
+    """The factorized first layer: A (RX, R, 64) + b1, B (R, RX, 64), C (R,
+    R, 64) in the compute dtype. ``x_coords``: normalized [-1, 1] x rows in
+    place of the whole lattice's (RX = len(x_coords))."""
     cd = spec.compute_dtype
     coords = lattice_coords(spec.resolution, triplane.device)
+    cx = coords if x_coords is None else x_coords.to(triplane.device, torch.float32)
     Fxy, Fxz, Fyz = sample_triplane_regular_grid(
-        triplane, coords, coords, coords, spec.align_corners
+        triplane, cx, coords, coords, spec.align_corners
     )
     W1, b1 = weights[0]
     C = triplane.shape[1]
@@ -192,10 +196,17 @@ def first_layer_partials(
     return A, Bm, Cm
 
 
-def query_density_grid(triplane: torch.Tensor, weights: Weights, spec: DensityGridSpec) -> torch.Tensor:
+def query_density_grid(
+    triplane: torch.Tensor, weights: Weights, spec: DensityGridSpec, x_coords: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Activated density on the full R^3 lattice. triplane: (3, C, H, W).
-    Returns (R, R, R) float32 indexed [x, y, z]."""
-    A, Bm, Cm = first_layer_partials(triplane, weights, spec)
+    Returns (R, R, R) float32 indexed [x, y, z]. ``x_coords``: optional
+    normalized [-1, 1] coords replacing the lattice's along x, for an
+    (len(x_coords), R, R) x-slab (the JAX package's building block of its
+    sharded extraction; the port's, ``parallel/farm.py``, takes rows of the
+    whole lattice's partials instead, whose bits on the card do not depend
+    on the slab's shape)."""
+    A, Bm, Cm = first_layer_partials(triplane, weights, spec, x_coords)
     return density_mlp(A, Bm, Cm, weights, spec)
 
 

@@ -1,42 +1,58 @@
-"""Batched asset farm on one card: raw RGBA in, meshes out.
+"""Batched asset farm over a device mesh, and the sharded extractions.
 
-Counterpart of ``sculptmate_tpu/parallel/farm.py:AssetFarm`` for a single
-device: the JAX farm's ``dp`` mesh axis has size 1 here, so a chunk is one
-asset by default. ``generate_batch_rgba`` is the serving loop: each
-chunk's matting, fused preprocess and encode are enqueued, then its
-extraction (``TSR.extract_mesh_async``, per asset, so the retry and
-capacity policy is the TSR's own), and up to three chunks are in flight
-before the oldest is waited on and decoded on the host. Nothing before that
-wait waits for the device.
+Counterpart of ``sculptmate_tpu/parallel/farm.py``, on the port's
+single-controller mesh (``parallel/mesh.py``: one process driving a
+``DeviceMesh`` of ``torch.device``; NCCL puts one rank on one card, so a
+process group could not split anything on a one-card machine, where one
+device named several times can):
 
-Each stage of the front runs inside a ``torch.profiler`` span
+- ``AssetFarm``: the batch (and each serving chunk) is split over the
+  ``dp`` axis with ``torch.tensor_split``; each dp row runs its own TSR
+  replica, made once in the constructor and shared where mesh devices
+  repeat, and with ``tp_axis`` that row's backbone runs tensor-parallel
+  over the row's devices (``ops/sharding.py``). Results come back in batch
+  order. Without a mesh it is a one-device farm on ``device``.
+  ``generate_batch_rgba`` is the serving loop: each chunk's matting, fused
+  preprocess and encode are enqueued per dp shard, then every asset's
+  extraction (``TSR.extract_mesh_async``, so the retry and capacity policy
+  is the TSR's own), and up to three chunks are in flight before the
+  oldest is waited on and decoded on the host. Nothing before that wait
+  waits for the device. ``mode="packed"`` returns one batched ``MCResult``
+  of device tensors in lattice coords (K2, then K10, per asset).
+- ``sharded_density_grid``, ``sharded_extract`` and
+  ``sharded_extract_wire``: the high-resolution extraction over x-slabs of
+  the lattice on the ``sp`` axis. Each shard evaluates its ``slab + 1``
+  rows (its own and its neighbour's first, recomputed, the last shard's
+  clamped to the lattice's last row) with K2 on those rows of the whole
+  lattice's first-layer partials, pads x to a multiple of 8,
+  and runs K10 (or K3) with an x limit that keeps the halo's cells out;
+  every shard is dispatched before any is waited on, and the host welds
+  the seams' exact duplicates.
+
+Each stage of the farm's front runs inside a ``torch.profiler`` span
 (``farm.matting``, ``farm.preprocess``, ``farm.encode``), beside the TSR's
 ``tsr.*`` spans.
-
-``mode="packed"`` returns one batched ``MCResult`` of device tensors in
-lattice coords, without colors, as the JAX farm does: each asset's density
-grid (K2) and face-emitting marching cubes (K10), one after another on the
-card where the JAX farm vmaps them.
-
-Tensor parallelism (``tp_axis``) and the sharded extractions are
-multi-device work, ROADMAP item 9, and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from sculptmate_tpu_torch.frontend.matting import U2NET_SIZE
 from sculptmate_tpu_torch.frontend.preprocess import preprocess_batch_device
-from sculptmate_tpu_torch.geometry.marching_cubes import MCResult
+from sculptmate_tpu_torch.geometry import mc_wire
+from sculptmate_tpu_torch.geometry.marching_cubes import BS, N_WIRE_COUNTS, MCResult, marching_cubes, mc_wire_device
+from sculptmate_tpu_torch.ops.density_grid import DensityGridSpec, Weights, density_mlp, first_layer_partials
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
-from sculptmate_tpu_torch.runtime.device import resolve_device
+from sculptmate_tpu_torch.parallel.mesh import DeviceMesh, make_mesh, replicate, shard_batch
+from sculptmate_tpu_torch.runtime.device import canonical, device_scope, resolve_device
 from sculptmate_tpu_torch.systems.tsr import upload
 
-_LATER = "is multi-device work, not ported yet (ROADMAP item 9)"
 _MODES = ("wire", "packed")
 _NO_MAX_FACES = (
     "max_faces is not applicable in wire mode (faces are rebuilt on the host from the wire counters)"
@@ -44,18 +60,41 @@ _NO_MAX_FACES = (
 
 
 class AssetFarm:
-    """Batched Lean generation on one card.
+    """Batched Lean generation over the ``dp`` axis of ``mesh``, with the
+    backbone tensor-parallel over ``tp_axis`` when given (the heads must
+    split evenly over it, or the first encode raises ``ValueError``).
 
-    ``tsr`` is a ``systems.tsr.TSR``; ``device`` defaults to the card and
-    must be the TSR's (pass ``device="cpu"`` for a TSR on the CPU)."""
+    ``tsr`` is a ``systems.tsr.TSR``. Without a mesh the farm runs on
+    ``device``, which defaults to the card and must be the TSR's (pass
+    ``device="cpu"`` for a TSR on the CPU); ``tp_axis`` then raises."""
 
-    def __init__(self, tsr, device=None, tp_axis: Optional[str] = None):
-        if tp_axis is not None:
-            raise NotImplementedError(f"tensor parallelism (tp_axis) {_LATER}")
-        self.device = resolve_device(device)
-        if self.device != tsr.device:
-            raise ValueError(f"the farm's device {self.device} is not the TSR's {tsr.device}")
-        self.tsr = tsr
+    def __init__(self, tsr, mesh: Optional[DeviceMesh] = None, dp_axis: str = "dp", tp_axis: Optional[str] = None,
+                 device=None):
+        if mesh is None:
+            if tp_axis is not None:
+                raise ValueError("tp_axis needs a mesh with that axis: AssetFarm(tsr, mesh, tp_axis=...)")
+            device = resolve_device(device)
+            if device != tsr.device:
+                raise ValueError(f"the farm's device {device} is not the TSR's {tsr.device}")
+            mesh = make_mesh((1,), (dp_axis,), devices=[device])
+        elif device is not None:
+            raise ValueError("a farm over a mesh takes its devices from the mesh, not from device=")
+        groups = mesh.groups(dp_axis, tp_axis)
+        self.tsr, self.mesh, self.dp_axis = tsr, mesh, dp_axis
+        self.device = groups[0][0]
+        self._replicas = replicate([g[0] for g in groups], tsr)
+        self._tp = [g if tp_axis is not None else None for g in groups]
+
+    def _tsr_on(self, device):
+        return self._replicas[canonical(device)]
+
+    def _split(self, x: torch.Tensor) -> List[Tuple[int, torch.Tensor]]:
+        """(shard, part) for each dp shard with at least one row of ``x``."""
+        return [(s, p) for s, p in enumerate(shard_batch(self.mesh, x, self.dp_axis)) if len(p)]
+
+    def _encode(self, images) -> List[Tuple[int, torch.Tensor]]:
+        x = upload(images, self.device)
+        return [(s, self._tsr_on(p.device).scene_codes(p, self._tp[s])) for s, p in self._split(x)]
 
     def generate_batch(
         self,
@@ -67,40 +106,50 @@ class AssetFarm:
         mode: str = "wire",
         has_vertex_color: bool = False,
     ):
-        """Cond images (B, S, S, 3) -> in wire mode a list of (verts, faces,
-        colors | None) numpy triples in world coords, like
+        """Cond images (B, S, S, 3), split over dp -> in wire mode a list of
+        (verts, faces, colors | None) numpy triples in world coords, like
         ``TSR.extract_mesh``; in packed mode one ``MCResult`` of (B, mv) and
         (B, mf) tensors (see ``extract_batch_packed``)."""
         if mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
         if mode == "wire" and max_faces > 0:
             raise ValueError(_NO_MAX_FACES)
-        codes = self.tsr.scene_codes(images)
+        parts = self._encode(images)
         if mode == "packed":
-            return self.extract_batch_packed(codes, resolution, threshold, max_verts, max_faces)
-        return self.extract_batch_wire(codes, resolution, threshold, max_verts, has_vertex_color)
+            return self._packed(parts, resolution, threshold, max_verts, max_faces)
+        return self.extract_batch_wire_wait(self._wire_async(parts, resolution, threshold, max_verts,
+                                                             has_vertex_color))
 
     def extract_batch_packed(
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0, max_faces: int = 0
     ) -> MCResult:
-        """Packed extraction of a batch of codes (B, 3, C, H, W): each
-        asset's density grid and K10 on the card -> one ``MCResult`` whose
-        fields have a leading batch dimension: (B, mv) f32 lattice positions,
-        (B, mf) int32 faces, (B,) int32 counters. Capacities default to
-        8 R^2 and 16 R^2; rows past them are dropped and the counters stay
-        exact, so the caller sees an overflow."""
+        """Packed extraction of a batch of codes (B, 3, C, H, W), split over
+        dp: each asset's density grid and K10 on its shard's device -> one
+        ``MCResult`` on the farm's first device whose fields have a leading
+        batch dimension: (B, mv) f32 lattice positions, (B, mf) int32
+        faces, (B,) int32 counters. Capacities default to 8 R^2 and 16 R^2;
+        rows past them are dropped and the counters stay exact, so the
+        caller sees an overflow."""
+        return self._packed(self._split(codes), resolution, threshold, max_verts, max_faces)
+
+    def _packed(self, parts, resolution, threshold, max_verts, max_faces) -> MCResult:
         mv = max_verts if max_verts > 0 else 8 * resolution * resolution
         mf = max_faces if max_faces > 0 else 16 * resolution * resolution
-        results = [self.tsr._packed_mesh(code, resolution, float(threshold), mv, mf) for code in codes]
-        return MCResult(*(torch.stack(field) for field in zip(*results)))
+        results = []
+        for _, codes in parts:
+            tsr = self._tsr_on(codes.device)
+            with device_scope(codes.device):
+                results += [tsr._packed_mesh(code, resolution, float(threshold), mv, mf) for code in codes]
+        return MCResult(*(torch.stack([f.to(self.device, non_blocking=True) for f in field])
+                          for field in zip(*results)))
 
     def extract_batch_wire(
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0,
         has_vertex_color: bool = False,
     ):
-        """Wire extraction of a batch of codes (B, 3, C, H, W) -> a list of
-        (verts (nv, 3) f32 world, faces (nf, 3) i64, colors (nv, 3) f32 |
-        None)."""
+        """Wire extraction of a batch of codes (B, 3, C, H, W), split over
+        dp -> a list of (verts (nv, 3) f32 world, faces (nf, 3) i64, colors
+        (nv, 3) f32 | None)."""
         return self.extract_batch_wire_wait(
             self.extract_batch_wire_async(codes, resolution, threshold, max_verts, has_vertex_color)
         )
@@ -109,46 +158,58 @@ class AssetFarm:
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0,
         has_vertex_color: bool = False,
     ):
-        """Enqueue every asset's extraction and host copy; the handles for
-        ``extract_batch_wire_wait``."""
-        return [
-            self.tsr.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts) for code in codes
-        ]
+        """Enqueue every asset's extraction and host copy, each on its dp
+        shard; the handles, in batch order, for ``extract_batch_wire_wait``."""
+        return self._wire_async(self._split(codes), resolution, threshold, max_verts, has_vertex_color)
+
+    def _wire_async(self, parts, resolution, threshold, max_verts, has_vertex_color):
+        handles = []
+        for _, codes in parts:
+            tsr = self._tsr_on(codes.device)
+            with device_scope(codes.device):
+                handles += [tsr.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts)
+                            for code in codes]
+        return handles
 
     def extract_batch_wire_wait(self, handles):
         """Wait for and decode each handle in order. An overflow is
         re-extracted with a grown capacity, never truncated; the largest
-        capacity and count of the batch go to the capacity cache."""
+        capacity and count of the batch go to each replica's capacity cache."""
         out, nv_seen, mv = [], 0, 0
         for h in handles:
-            mesh, (nv, mv_h) = self.tsr.extract_mesh_wait(h, store=False)
+            with device_scope(h.scene_code.device):
+                mesh, (nv, mv_h) = self._tsr_on(h.scene_code.device).extract_mesh_wait(h, store=False)
             nv_seen, mv = max(nv_seen, nv), max(mv, mv_h)
             out.append(mesh)
         if handles:
-            self.tsr._wire_caps_store(handles[0].resolution, mv, nv_seen)
+            for tsr in {id(t): t for t in self._replicas.values()}.values():
+                tsr._wire_caps_store(handles[0].resolution, mv, nv_seen)
         return out
 
     def _prep_cond(self, rgba: torch.Tensor, matting, ratio: float) -> torch.Tensor:
-        """Matting and the fused preprocess of (B, H, W, 4) RGBA on the
-        device -> (B, S, S, 3) cond images; nothing here waits for it."""
+        """Matting and the fused preprocess of (B, H, W, 4) RGBA on its
+        device -> (B, S, S, 3) cond images; nothing here waits for it. The
+        matting runs on its own device and its mask comes back."""
         H, W = rgba.shape[1:3]
         if matting is not None:
             # antialiased bilinear with half-pixel centers: the counterpart
             # of jax.image.resize(..., "linear") both ways
             with record_function("farm.matting"):
                 small = resize_bilinear_antialias(rgba[..., :3], U2NET_SIZE, U2NET_SIZE)
-                mask = matting.predict_mask_batch(small)
+                mask = matting.predict_mask_batch(small).to(rgba.device, non_blocking=True)
                 alpha = resize_bilinear_antialias(mask[..., None], H, W)
                 rgba = torch.cat([rgba[..., :3], alpha], dim=-1)
         with record_function("farm.preprocess"):
             size = self.tsr.config.cond_image_size
             return preprocess_batch_device(rgba, ratio=ratio, out_size=size)
 
-    def _front(self, rgba: torch.Tensor, matting, ratio: float) -> torch.Tensor:
-        """Matting, preprocess and encode of one chunk -> scene codes."""
-        cond = self._prep_cond(rgba, matting, ratio)
-        with record_function("farm.encode"):
-            return self.tsr.scene_codes(cond)
+    def _front(self, rgba: torch.Tensor, matting, ratio: float, tp=None) -> torch.Tensor:
+        """Matting, preprocess and encode of one chunk on its device (the
+        replica there, its backbone over the tp group ``tp``) -> scene codes."""
+        with device_scope(rgba.device):
+            cond = self._prep_cond(rgba, matting, ratio)
+            with record_function("farm.encode"):
+                return self._tsr_on(rgba.device).scene_codes(cond, tp)
 
     def generate_batch_rgba(
         self,
@@ -165,29 +226,30 @@ class AssetFarm:
     ):
         """The serving loop: raw (B, H, W, 4) RGBA in [0, 1] -> (optional)
         u2net matting -> fused preprocess -> encode -> wire extraction, in
-        ``chunk``-sized slices (default 1) with up to three chunks in
-        flight, so chunk i's host copy and decode overlap the device work of
-        the chunks after it. Returns a list of (verts, faces, colors | None)
-        triples in batch order; in packed mode the whole batch's cond images
-        go through ``generate_batch(mode="packed")`` (one ``MCResult``)."""
+        ``chunk``-sized slices (default: the dp size, one asset per dp
+        shard), each split over dp, with up to three chunks in flight, so
+        chunk i's host copy and decode overlap the device work of the
+        chunks after it. Returns a list of (verts, faces, colors | None)
+        triples in batch order; in packed mode the whole batch's cond
+        images go through ``generate_batch(mode="packed")`` (one
+        ``MCResult``)."""
         if mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+        rgba = upload(rgba, self.device)  # once, for the whole batch
         if mode == "packed":
-            cond = self._prep_cond(upload(rgba, self.device), matting, ratio)
+            cond = torch.cat([self._prep_cond(p, matting, ratio).to(self.device) for _, p in self._split(rgba)])
             return self.generate_batch(cond, resolution, threshold, max_verts, max_faces, mode="packed")
         if max_faces > 0:
             raise ValueError(_NO_MAX_FACES)
         B = rgba.shape[0]
-        chunk = chunk or 1
-        if B % chunk:
-            raise ValueError(f"batch {B} must split into chunks of {chunk}")
-        if matting is not None and matting.device != self.device:
-            raise ValueError(f"matting runs on {matting.device}, the farm on {self.device}")
-        rgba = upload(rgba, self.device)  # once, for the whole batch
+        dp = self.mesh.shape[self.dp_axis]
+        chunk = chunk or dp
+        if chunk % dp or B % chunk:
+            raise ValueError(f"batch {B} must split into dp-divisible chunks (chunk={chunk}, dp={dp})")
         out, inflight = [], []
         for s in range(0, B, chunk):
-            codes = self._front(rgba[s : s + chunk], matting, ratio)
-            inflight.append(self.extract_batch_wire_async(codes, resolution, threshold, max_verts, has_vertex_color))
+            parts = [(i, self._front(p, matting, ratio, self._tp[i])) for i, p in self._split(rgba[s : s + chunk])]
+            inflight.append(self._wire_async(parts, resolution, threshold, max_verts, has_vertex_color))
             if len(inflight) > 2:
                 out.extend(self.extract_batch_wire_wait(inflight.pop(0)))
         for h in inflight:
@@ -195,16 +257,156 @@ class AssetFarm:
         return out
 
 
-def sharded_density_grid(*args, **kwargs):
-    """Grid-axis-sharded density evaluation: not ported (multi-device)."""
-    raise NotImplementedError(f"sharded_density_grid {_LATER}")
+# -- the x-slab sharded extraction (the sp axis) --
 
 
-def sharded_extract(*args, **kwargs):
-    """Grid-axis-sharded packed extraction: not ported (multi-device)."""
-    raise NotImplementedError(f"sharded_extract {_LATER}")
+def _slab_geometry(mesh: DeviceMesh, spec: DensityGridSpec, sp_axis: str):
+    """(sp devices, slab rows per shard, rows with the halo padded to a
+    multiple of 8)."""
+    devices = [g[0] for g in mesh.groups(sp_axis)]
+    R = spec.resolution
+    if R % len(devices):
+        raise ValueError(f"resolution {R} does not split over sp = {len(devices)}")
+    slab = R // len(devices)
+    return devices, slab, slab + 1 + (-(slab + 1)) % BS
 
 
-def sharded_extract_wire(*args, **kwargs):
-    """Grid-axis-sharded wire extraction: not ported (multi-device)."""
-    raise NotImplementedError(f"sharded_extract_wire {_LATER}")
+def _slab_density(triplane, weights: Weights, spec: DensityGridSpec, s: int, slab: int, device,
+                  partials: dict) -> torch.Tensor:
+    """Shard s's activated density rows s slab .. s slab + slab (the last
+    one its neighbour's first), each clamped to the lattice's last row ->
+    (slab + 1, R, R) f32 on ``device``: K2 on those rows of the whole
+    lattice's first-layer partials (``partials``: kept per device for the
+    call), so that a row has the same bits in every slab that holds it and
+    in the whole lattice (the partials' products on the card are not
+    row-position-independent across shapes; K2 is)."""
+    R = spec.resolution
+    if device not in partials:
+        w = [(W.to(device, non_blocking=True), b.to(device, non_blocking=True)) for W, b in weights]
+        partials[device] = (w, first_layer_partials(triplane.to(device, non_blocking=True), w, spec))
+    w, (A, B, C) = partials[device]
+    rows = torch.clamp(s * slab + torch.arange(slab + 1, device=device), max=R - 1)
+    return density_mlp(A[rows].contiguous(), B[:, rows].contiguous(), C, w, spec)
+
+
+def _slab_level(triplane, weights, spec, threshold, s, slab, RXp, device, partials) -> torch.Tensor:
+    """Shard s's level, its x rows padded with -1 (outside) to ``RXp``."""
+    level = _slab_density(triplane, weights, spec, s, slab, device, partials) - threshold
+    return F.pad(level, (0, 0, 0, 0, 0, RXp - (slab + 1)), value=-1.0)
+
+
+def sharded_density_grid(
+    mesh: DeviceMesh, triplane: torch.Tensor, weights: Weights, spec: DensityGridSpec, sp_axis: str = "sp"
+) -> List[torch.Tensor]:
+    """Grid-axis-sharded density evaluation for high resolutions: the
+    (R, R, R) lattice as one (R / sp, R, R) x-slab per ``sp_axis`` device
+    (K2 on each), on that device; ``mesh.gather`` joins them. The triplane
+    and the decoder's weights are copied to each device (they are small)."""
+    devices, slab, _ = _slab_geometry(mesh, spec, sp_axis)
+    out, partials = [], {}
+    for s, dev in enumerate(devices):
+        with device_scope(dev):
+            out.append(_slab_density(triplane, weights, spec, s, slab, dev, partials)[:slab])
+    return out
+
+
+def _weld(all_verts, all_faces) -> Tuple[np.ndarray, np.ndarray]:
+    """Concatenate the shards' meshes, merge the seam vertices (exact
+    duplicates: the halo row is the neighbour's first row, computed to the
+    same bits) and drop the vertices no face uses. The exact-match unique
+    of the JAX package's ``np.unique(axis=0)``, by a numeric lexsort of the
+    columns (vertices in (x, y, z) order)."""
+    verts = np.concatenate(all_verts) if all_verts else np.zeros((0, 3), np.float32)
+    faces = np.concatenate(all_faces) if all_faces else np.zeros((0, 3), np.int64)
+    order = np.lexsort((verts[:, 2], verts[:, 1], verts[:, 0]))
+    sv = verts[order]
+    new = np.ones(len(sv), bool)
+    new[1:] = (sv[1:] != sv[:-1]).any(axis=1)
+    inv = np.empty(len(sv), np.int64)
+    inv[order] = np.cumsum(new) - 1
+    uverts = sv[new]
+    faces = inv[faces]
+    used = np.zeros(len(uverts), bool)
+    used[faces.ravel()] = True
+    remap = np.cumsum(used) - 1
+    return uverts[used], remap[faces]
+
+
+def sharded_extract(
+    mesh: DeviceMesh,
+    triplane: torch.Tensor,
+    weights: Weights,
+    spec: DensityGridSpec,
+    threshold: float,
+    sp_axis: str = "sp",
+    max_verts_per_shard: int = 0,
+    max_faces_per_shard: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """End-to-end grid-axis-sharded extraction for high resolutions: per
+    x-slab on its ``sp_axis`` device the density (K2) and the packed
+    marching cubes (K10) with the slab's x limit (its own rows; the last
+    shard's last row is the lattice's boundary), every shard dispatched
+    before any is read, then one copy per shard and the host weld of the
+    seams. Returns (verts (N, 3) f32 lattice coords, faces (M, 3) int64),
+    the single-device ``marching_cubes`` mesh up to vertex order. A
+    shard's overflow raises ``RuntimeError``."""
+    devices, slab, RXp = _slab_geometry(mesh, spec, sp_axis)
+    R, n_sp = spec.resolution, len(devices)
+    mv = max_verts_per_shard if max_verts_per_shard > 0 else 16 * R * R // n_sp + 65536
+    mf = max_faces_per_shard if max_faces_per_shard > 0 else 2 * mv
+    packed, partials = [], {}
+    for s, dev in enumerate(devices):
+        with device_scope(dev):
+            level = _slab_level(triplane, weights, spec, threshold, s, slab, RXp, dev, partials)
+            res = marching_cubes(level, mv, mf, valid_x_limit=slab - 1 if s == n_sp - 1 else slab)
+            counts = torch.stack(list(res[6:])).to(torch.int64)
+            packed.append((res.vx + float(s * slab), res.vy, res.vz, res.faces, counts))
+    all_verts, all_faces, base = [], [], 0
+    for s, (vx, vy, vz, faces, counts) in enumerate(packed):
+        nv, nf, nblk, ncell = (int(c) for c in counts.cpu())
+        if nv > mv or nf > mf:
+            raise RuntimeError(
+                f"sharded_extract capacity overflow on shard {s}: "
+                f"nv={nv}/{mv} nf={nf}/{mf} blocks={nblk} cells={ncell}"
+            )
+        all_verts.append(torch.stack([vx[:nv], vy[:nv], vz[:nv]], dim=1).cpu().numpy())
+        all_faces.append(faces[:nf].cpu().numpy().astype(np.int64) + base)
+        base += nv
+    return _weld(all_verts, all_faces)
+
+
+def sharded_extract_wire(
+    mesh: DeviceMesh,
+    triplane: torch.Tensor,
+    weights: Weights,
+    spec: DensityGridSpec,
+    threshold: float,
+    sp_axis: str = "sp",
+    max_verts_per_shard: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``sharded_extract`` over the wire format: each shard's K3 wire
+    (occupancy bits and u16 t) with the slab's x limit, every shard
+    dispatched before any is read; the host rebuilds each shard's faces with
+    the same limit, then welds the exact-duplicate seams (the halo row's
+    bits and t are the neighbour's, so its positions are the same bits)."""
+    devices, slab, RXp = _slab_geometry(mesh, spec, sp_axis)
+    R, n_sp = spec.resolution, len(devices)
+    mv = max_verts_per_shard if max_verts_per_shard > 0 else 16 * R * R // n_sp + 65536
+    wires, partials = [], {}
+    for s, dev in enumerate(devices):
+        with device_scope(dev):
+            level = _slab_level(triplane, weights, spec, threshold, s, slab, RXp, dev, partials)
+            wires.append(mc_wire_device(level, mv, valid_x_limit=slab - 1 if s == n_sp - 1 else slab))
+    all_verts, all_faces, base = [], [], 0
+    for s, wire in enumerate(wires):
+        wire = wire.cpu().numpy()
+        nv, nblk = (int(c) for c in mc_wire.wire_counts(wire, N_WIRE_COUNTS))
+        if nv > mv:
+            raise RuntimeError(f"sharded_extract_wire capacity overflow on shard {s}: nv={nv}/{mv} blocks={nblk}")
+        limit = slab - 1 if s == n_sp - 1 else slab
+        verts, faces, _, _ = mc_wire.decode_wire(wire, (RXp, R, R), mv, has_colors=False, valid_x_limit=limit)
+        verts[:, 0] += s * slab
+        all_verts.append(verts)
+        all_faces.append(faces.astype(np.int64) + base)
+        base += nv
+    return _weld(all_verts, all_faces)

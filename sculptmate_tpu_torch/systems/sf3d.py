@@ -218,13 +218,15 @@ class SF3DModule(nn.Module):
         )
         self.global_estimator = MultiHeadEstimator(triplane_features=c.num_channels)
 
-    def forward(self, rgb_cond, c2w_cond, intrinsic_normed_cond):
+    def forward(self, rgb_cond, c2w_cond, intrinsic_normed_cond, tp=None):
         """rgb_cond (B, S, S, 3) -> (scene_codes (B, 3, 40, 384, 384),
-        direct_codes (B, 3, 1024, 96, 96))."""
+        direct_codes (B, 3, 1024, 96, 96)); ``tp``: the two-stream
+        backbone's tp group, or None (the encoders stay whole, as in the
+        JAX package)."""
         camera_embeds = self.camera_embedder(c2w_cond, intrinsic_normed_cond)
         image_tokens = self.image_tokenizer(rgb_cond, camera_embeds).transpose(1, 2)  # (B, Nt, C)
         tokens = self.tokenizer(rgb_cond.shape[0]).transpose(1, 2)  # (B, C, 3HW)
-        tokens = self.backbone(tokens, image_tokens)
+        tokens = self.backbone(tokens, image_tokens, tp)
         direct_codes = self.tokenizer.detokenize(tokens.transpose(1, 2))
         return self.post_processor(direct_codes), direct_codes
 
@@ -309,6 +311,12 @@ class SF3D:
         self._k5_weights = None  # (key, K5's packed heads), see _k5_weights_packed
         self._k6_weights = None  # (key, K6's packed heads), see _k6_weights_packed
 
+    def replica(self, device) -> "SF3D":
+        """This model on another device: the same config, dtypes and
+        weights, copied once."""
+        return SF3D(self.config, state_dict=self.module.state_dict(), dtype=self.dtype,
+                    extract_dtype=self.extract_dtype, device=device)
+
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=self.dtype, enabled=self.dtype != torch.float32)
 
@@ -325,11 +333,13 @@ class SF3D:
         return mask, (bg * (1.0 - mask) + rgb * mask).clamp(0.0, 1.0)
 
     @torch.inference_mode()
-    def get_scene_codes(self, rgb_cond: torch.Tensor):
-        """(B, S, S, 3) -> (scene_codes (B, 3, 40, 384, 384), direct_codes)."""
+    def get_scene_codes(self, rgb_cond: torch.Tensor, tp=None):
+        """(B, S, S, 3) -> (scene_codes (B, 3, 40, 384, 384), direct_codes).
+        ``tp``: a tp group (a tuple of devices, the first this model's) for
+        the two-stream backbone, or None."""
         B = rgb_cond.shape[0]
         with self._autocast():
-            return self.module(rgb_cond, self._c2w.expand(B, 4, 4), self._Kn.expand(B, 3, 3))
+            return self.module(rgb_cond, self._c2w.expand(B, 4, 4), self._Kn.expand(B, 3, 3), tp)
 
     @torch.inference_mode()
     def estimate_materials(self, masked_rgb: torch.Tensor) -> Dict[str, torch.Tensor]:

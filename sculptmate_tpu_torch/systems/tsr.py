@@ -7,7 +7,9 @@ ConvTranspose upsample -> NeRF MLP decoder, in two stages:
 - ``scene_codes``: images (B, H, W, 3) in [0, 1] -> triplane codes
   (B, 3, 40, 64, 64), computed in ``dtype`` (bf16 on the card) under
   autocast; the encoder's matrix weights are stored in ``dtype`` once
-  (``cast_matrix_weights``), the rest of the parameters in f32;
+  (``cast_matrix_weights``), the rest of the parameters in f32. With a tp
+  group (``tp``, a tuple of devices) the backbone runs tensor-parallel
+  (``ops/sharding.py``); the ViT encoder stays whole, as in the JAX package;
 - ``extract_mesh``: codes -> density lattice (kernel K2) -> wire-format
   marching cubes (K3) with per-vertex colors (K4) on the device -> one
   uint8 transfer -> faces rebuilt on the host by the native wire decoder;
@@ -150,11 +152,12 @@ class TSRModule(nn.Module):
             c.decoder_in_channels, c.decoder_n_neurons, c.decoder_n_hidden_layers, c.decoder_activation
         )
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) in [0, 1] at cond_image_size -> (B, 3, C, H, W)."""
+    def forward(self, images: torch.Tensor, tp=None) -> torch.Tensor:
+        """images (B, H, W, 3) in [0, 1] at cond_image_size -> (B, 3, C, H, W);
+        ``tp``: the backbone's tp group, or None."""
         image_tokens = self.image_tokenizer(images).transpose(1, 2)  # (B, Nt, 768)
         tokens = self.tokenizer(images.shape[0])
-        tokens = self.backbone(tokens, encoder_hidden_states=image_tokens)
+        tokens = self.backbone(tokens, encoder_hidden_states=image_tokens, tp=tp)
         return self.post_processor(self.tokenizer.detokenize(tokens))
 
     @torch.no_grad()
@@ -307,10 +310,18 @@ class TSR:
         self._packed_cap_cache = {}
         self._k4_weights = None  # (key, K4's packed decoder), see _k4_inputs
 
+    def replica(self, device) -> "TSR":
+        """This model on another device: the same config, dtypes and
+        weights, copied once."""
+        return TSR(self.config, state_dict=self.module.state_dict(), dtype=self.dtype,
+                   extract_dtype=self.extract_dtype, device=device)
+
     # -- stage 1: image -> scene codes --------------------------------
     @torch.inference_mode()
-    def scene_codes(self, images) -> torch.Tensor:
-        """images: (B, H, W, 3) float in [0, 1]; resized if needed."""
+    def scene_codes(self, images, tp=None) -> torch.Tensor:
+        """images: (B, H, W, 3) float in [0, 1]; resized if needed. ``tp``:
+        a tp group (a tuple of devices, the first this model's) for the
+        backbone, or None."""
         x = upload(images, self.device)
         s = self.config.cond_image_size
         if x.shape[1] != s or x.shape[2] != s:
@@ -318,7 +329,7 @@ class TSR:
         with record_function("tsr.scene_codes"), torch.autocast(
             self.device.type, dtype=self.dtype, enabled=self.dtype != torch.float32
         ):
-            return self.module(x)
+            return self.module(x, tp)
 
     # -- stage 2: scene code -> mesh ----------------------------------
     def grid_spec(self, resolution: int, compute_dtype: torch.dtype = torch.float32) -> DensityGridSpec:

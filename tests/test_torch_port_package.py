@@ -39,7 +39,8 @@ for name in names:
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax", "sculptmate_tpu.")) or m == "sculptmate_tpu")
 host_only = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2"))
 print(len(names), bad, host_only)
-assert len(names) >= 66, names
+assert len(names) >= 68, names
+assert "sculptmate_tpu_torch.parallel.mesh" in names and "sculptmate_tpu_torch.ops.sharding" in names, names
 assert "sculptmate_tpu_torch.addon.panel" in names and "sculptmate_tpu_torch.addon.preferences" in names, names
 assert not bad, bad
 assert not host_only, host_only

@@ -93,16 +93,25 @@ def test_farm_meshes_match_jax(farms):
 
 def test_farm_refuses_what_is_not_ported(farms):
     from sculptmate_tpu_torch.parallel import farm as farm_mod
+    from sculptmate_tpu_torch.parallel.mesh import make_mesh
 
     _, _, farm, _, rgba = farms
     # packed mode is ported (tests/test_torch_port_packed.py); an unknown mode raises
     with pytest.raises(ValueError, match="mode"):
         farm.generate_batch_rgba(rgba, mode="dense")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # tensor parallelism needs a mesh with a tp axis (tests/test_torch_port_parallel.py)
+    with pytest.raises(ValueError, match="tp_axis needs a mesh"):
         AssetFarm(farm.tsr, device="cpu", tp_axis="tp")
-    for fn in (farm_mod.sharded_density_grid, farm_mod.sharded_extract, farm_mod.sharded_extract_wire):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn()
+    # the sharded functions on a one-device mesh: the density grid in one
+    # slab, and a mesh from each extraction
+    tsr, mesh = farm.tsr, make_mesh((1,), ("sp",), devices=["cpu"])
+    code, w, spec = tsr.scene_codes(rgba[:1, :, :, :3])[0], tsr.decoder_weights(), tsr.grid_spec(RES)
+    (slab,) = farm_mod.sharded_density_grid(mesh, code, w, spec)
+    thr = float(slab.median())
+    assert slab.shape == (RES, RES, RES)
+    for fn in (farm_mod.sharded_extract, farm_mod.sharded_extract_wire):
+        verts, faces = fn(mesh, code, w, spec, thr)
+        assert verts.shape[1] == 3 and len(faces) > 0 and faces.max() < len(verts)
     with pytest.raises(ValueError, match="max_faces"):
         farm.generate_batch_rgba(rgba, max_faces=10)
 

@@ -199,11 +199,11 @@ def test_sf3d_farm_matches_run_image(scene):
     """``SF3DFarm.generate_batch`` on two images (the batched front, each
     asset's extraction, the round-robin tail of fused bakes) against the
     port's ``run_image(fused=True)`` per image: the same faces, vertices,
-    UVs, textures and materials. Device-mesh arguments raise, naming
-    ROADMAP item 9."""
+    UVs, textures and materials. A tp axis without a mesh raises (the farm
+    over a mesh: tests/test_torch_port_parallel.py)."""
     _, port, img, _, _, thr = scene
     images = np.concatenate([img, np.random.default_rng(8).random((1, 56, 56, 4)).astype(np.float32)])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="tp_axis needs a mesh"):
         SF3DFarm(port, tp_axis="tp", device="cpu")
     farm = SF3DFarm(port, device="cpu")
     got = farm.generate_batch(images, bake_resolution=32, threshold=thr)
