@@ -61,7 +61,12 @@ Phases (any failure raises and exits non-zero):
    method at its input size (u2netp, u2net_human_seg, silueta at 320^2,
    ISNet at 1024^2, the cloth session's class map at 768^2, SAM ViT-B's
    encode and a point and a box decode, one ViT-H encode), finite masks in
-   [0, 1], ms per image; a narrow ISNet and a tiny SAM card vs CPU.
+   [0, 1], ms per image; a narrow ISNet and a tiny SAM card vs CPU. Then
+   the SAM cutout (``sam_cutout_path``): ``sam_segment`` with a box prompt
+   on a 640 x 480 uint8 image through seeded ViT-B on the card, timed per
+   image, its mask held against the same call on the CPU, then
+   ``image_preprocess_sam`` on the cutout where PIL is installed (a line
+   says it was skipped where it is not).
 5. The serving path at full width: ``AssetFarm.generate_batch_rgba`` on
    eight raw 512^2 RGBA images with full-u2net matting, the fused
    preprocess, encode and 256^3 extraction with vertex colors; one batch
@@ -133,12 +138,16 @@ Phases (any failure raises and exits non-zero):
 10. The multi-device paths (``multi_device_path``) on a mesh of four
    shards, ``cuda:0`` four times on one card (one card each where there
    are four): the Lean asset's code extracted at 512^3 over sp = 4 x-slabs
-   (``sharded_extract``: K2 and K10 four launches each, held to K2 and K10
-   on the whole lattice by JAX's criteria: counts, edge statistics, cut
-   edges, positions), its wire form (K3 four launches, the same mesh), and
+   at the Lean threshold itself (``sharded_extract``: K2 and K10 four
+   launches each, held to the mesh of K2 and K10 on the whole lattice as
+   it comes: vertex count, vertices on the same cut edges within one f32
+   ulp, directed edges, faces), its wire form (K3 four launches, the same
+   mesh within a u16 t step, the same triangles), and
    ``sharded_density_grid`` against the whole lattice's density, each
-   timed with its peak bytes; K3 and K10 at a shard's padded slab equal to
-   their plain versions and timed; ``AssetFarm`` over (dp 2, tp 2) on four
+   timed with its peak bytes; a planted weld that merges every exact
+   duplicate, which the check must fail, and both welds timed on the
+   same shards; K3 and K10 (with its vertices' edges) at a shard's padded slab equal to their plain versions and
+   timed; ``AssetFarm`` over (dp 2, tp 2) on four
    raw RGBA images with matting and colors (K1 = 4 x (12 + 32 x 2)), its
    codes against the one-device farm's and an f32 encode over the tp
    group against the unsplit one; ``SF3DFarm`` over (dp 2, tp 2) on two
@@ -248,6 +257,10 @@ SST_CASE = "single-stream transformer (16 x 88)"
 # The narrow card-vs-CPU checks of the new paths (f32, TF32 off): within
 # this share of max |CPU output|, as the u2net's
 CARD_CPU_SHARE = 1e-4
+# SAM's 8-bit cutout masks, card against CPU: they agree but where a mask
+# logit lies within float noise of 0 (the CPU tests' limit against the JAX
+# package): at most this share of the pixels more than 1 apart
+SAM_MASK_SHARE = 0.01
 
 # Deliberate faults, each one edit to a kernel source, that the kernel
 # checks must fail: (name, kernel, text, replacement[, file]), the file
@@ -355,6 +368,9 @@ PLANTED_FAULTS = (
      "const int le = tri[(cs * maxtri + s) * 3 + c];", "const int le = tri[(cs * maxtri + s) * 3 + (3 - c) % 3];"),
     ("K10's face corners leave out their word's base", "marching_cubes",
      "int id = word_base[w3];", "int id = 0;"),
+    # the vertices' edges, by which the sharded extraction welds its seams
+    ("K10's vertex edges leave out their axis", "marching_cubes",
+     "edges[id] = (long long)a * RX * RY * RZ + (long long)(p0 + k);", "edges[id] = (long long)(p0 + k);"),
     # the x limit of a slab (the sharded extraction): the halo row's cells
     # and x-cut edges must emit nothing
     ("K10's x limit is off by one (<=)", "marching_cubes",
@@ -1244,11 +1260,12 @@ def check_mc_wire(scene, timed=True):
 
 def check_marching_cubes(scene, timed=True):
     """K10 against its plain version, which it must equal in every
-    position, face and counter: on the Lean asset's 256^3 level, on the
-    ragged 64 x 72 x 80 lattice, at half the asset's vertex and face
-    counts, and on a padded x-slab of the asset's level at x limits 128
-    and 127. With ``timed``, the asset's case also gets its time, the plain
-    version's and its bound."""
+    position, face, counter and vertex edge (``return_edges``): on the Lean
+    asset's 256^3 level, on the ragged 64 x 72 x 80 lattice, at half the
+    asset's vertex and face counts, and on a padded x-slab of the asset's
+    level at x limits 128 and 127. With ``timed``, the asset's case also
+    gets its time (as the packed path calls it, without the edges;
+    ``edges_ms`` with them), the plain version's and its bound."""
     from sculptmate_tpu_torch.geometry import marching_cubes as mc
 
     level, nv = scene["level"], scene["nv"]
@@ -1260,11 +1277,11 @@ def check_marching_cubes(scene, timed=True):
              ("Lean slab 136x256x256, x limit 127", slab, 1 << 19, 1 << 20, 127)]
     result, failures = None, []
     for name, lev, mv, mf, limit in cases:
-        got = mc.marching_cubes(lev, mv, mf, valid_x_limit=limit)
+        got = mc.marching_cubes(lev, mv, mf, valid_x_limit=limit, return_edges=True)
         torch.cuda.synchronize()
-        ref = mc.marching_cubes_plain(lev, mv, mf, valid_x_limit=limit)
+        ref = mc.marching_cubes_plain(lev, mv, mf, valid_x_limit=limit, return_edges=True)
         differ = {k: int((getattr(got, k) != getattr(ref, k)).sum()) for k in mc.MCResult._fields}
-        counts = [int(c) for c in ref[6:]]
+        counts = [int(c) for c in ref[6:10]]
         line = {"check": "K10", "case": name, "shape": list(lev.shape), "capacities": [mv, mf], "counts": counts,
                 "valid_x_limit": limit, "differing": {k: v for k, v in differ.items() if v}, "limit": 0}
         if any(differ.values()):
@@ -1279,7 +1296,10 @@ def check_marching_cubes(scene, timed=True):
         bound, by = bound_ms(0, 4 * lev.numel() + 12 * counts[0] + 12 * counts[1] + 16, PEAK_F32_FLOPS)
         row = {"ms": cuda_ms(lambda: mc.marching_cubes(lev, mv, mf), iters=10),
                "plain_ms": cuda_ms(lambda: mc.marching_cubes_plain(lev, mv, mf), iters=2, warmup=1, graph=False),
-               "bound_ms": bound, "bound_by": by, "library_ms": None}
+               "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "edges_ms": cuda_ms(lambda: mc.marching_cubes(lev, mv, mf, return_edges=True), iters=10),
+               "edges_bound_ms": bound_ms(0, 4 * lev.numel() + 20 * counts[0] + 12 * counts[1] + 16,
+                                          PEAK_F32_FLOPS)[0]}
         log(json.dumps({**line, "check_passed": True, **row, "bound_share": bound / row["ms"]}))
         result = row
     if failures:
@@ -2053,33 +2073,6 @@ def edge_stats(faces):
     return len(fwd), int(single.sum()) - int((a == b).sum())  # (a, a) is its own reverse
 
 
-def _edge_keyed(v):
-    fr = v - np.floor(v)
-    axis = np.argmax(fr, axis=1)
-    base = np.floor(v + 1e-6).astype(np.int64)
-    key = ((axis * 1000 + base[:, 0]) * 1000 + base[:, 1]) * 1000 + base[:, 2]
-    order = np.argsort(key, kind="stable")
-    return key[order], v[order]
-
-
-def same_mesh(a, b):
-    """``tests/test_parallel.py``'s criteria for two meshes of one lattice:
-    equal vertex and face counts, equal edge statistics, the same cut
-    lattice edges, every vertex within 1.0 of its edge's and the 99th
-    percentile within 1e-2 -> (ok, the numbers)."""
-    (av, af), (bv, bf) = a, b
-    stats = {"verts": [len(av), len(bv)], "faces": [len(af), len(bf)], "edge_stats": [edge_stats(af), edge_stats(bf)]}
-    if len(av) != len(bv) or len(af) != len(bf) or stats["edge_stats"][0] != stats["edge_stats"][1]:
-        return False, stats
-    ka, va = _edge_keyed(av)
-    kb, vb = _edge_keyed(bv)
-    if not np.array_equal(ka, kb):
-        return False, {**stats, "edge_keys_equal": False}
-    d = np.abs(va - vb).max(axis=1)
-    stats.update(edge_keys_equal=True, max_vertex_dist=float(d.max()), p99_vertex_dist=float(np.quantile(d, 0.99)))
-    return bool(d.max() <= 1.0 and np.quantile(d, 0.99) < 1e-2), stats
-
-
 def _triangle_hash_sum(faces):
     """A multiset hash of the triangles: each rotated to start at its least
     vertex (the winding kept), mixed to 64 bits (splitmix64's finalizer),
@@ -2095,30 +2088,72 @@ def _triangle_hash_sum(faces):
         return int(h.sum(dtype=np.uint64))
 
 
-def wire_matches_packed(wire_mesh, packed_mesh):
-    """The wire extraction against the packed one, both welded (their
-    vertices in (x, y, z) order): equal counts; each wire vertex within
-    2e-4 lattice units (u16 t steps) of its packed one, row for row, or,
-    where a quantized t swapped two rows' order, of its nearest among the
-    rows out of step (a one-to-one map, scipy's ``cKDTree``); and the same
-    triangles under that map (a multiset hash) -> (ok, the numbers)."""
-    from scipy.spatial import cKDTree
+def on_their_edges(verts, edges, shape):
+    """Whether each vertex lies on its cut edge (``edges`` as K10 numbers
+    them in a lattice of ``shape``): its other two coordinates the edge's
+    start, its own between the start and the start + 1."""
+    RX, RY, RZ = shape
+    a, lin = edges // (RX * RY * RZ), edges % (RX * RY * RZ)
+    start = np.stack([lin // (RY * RZ), (lin // RZ) % RY, lin % RZ], axis=1).astype(np.float32)
+    off = verts - start
+    rows = np.arange(len(verts))
+    along = off[rows, a]
+    off[rows, a] = 0
+    return bool((along >= 0).all() and (along <= 1).all() and not off.any())
 
-    (wv, wf), (pv, pf) = wire_mesh, packed_mesh
-    stats = {"verts": [len(wv), len(pv)], "faces": [len(wf), len(pf)]}
-    if len(wv) != len(pv) or len(wf) != len(pf):
+
+def unwelded_match(got, whole, R, wire=False):
+    """A sharded mesh against the whole lattice's K10 mesh as it comes
+    (verts, faces and each vertex's cut edge, nothing welded): the same
+    vertex count; vertex v on the cut edge of the whole lattice's vertex v
+    (so the same cut edges, in the same order) and within one f32 ulp of
+    it (for the wire a u16 t step, 1 / 65535, and the ulp of i + t's f32
+    rounding: 3.05e-5 past x = 256); the same directed edges
+    (``edge_stats``); the packed form's faces equal to the whole lattice's,
+    the wire's the same triangles with their winding (a multiset hash) ->
+    (ok, the numbers)."""
+    (gv, gf), (wv, wf, we) = got, whole
+    stats = {"verts": [len(gv), len(wv)], "faces": [len(gf), len(wf)]}
+    if len(gv) != len(wv) or len(gf) != len(wf):
         return False, stats
-    perm = np.arange(len(wv))
-    out = np.nonzero(np.abs(wv - pv).max(axis=1) >= 2e-4)[0]
-    if len(out):
-        _, near = cKDTree(pv[out]).query(wv[out])
-        perm[out] = out[near]
-    dist = np.abs(wv - pv[perm]).max(axis=1)
-    stats.update(rows_out_of_step=len(out), max_vertex_dist=float(dist.max()),
-                 one_to_one=bool(len(np.unique(perm[out])) == len(out)))
-    stats["triangles_equal"] = bool(stats["one_to_one"]
-                                    and _triangle_hash_sum(perm[wf]) == _triangle_hash_sum(pf))
-    return stats["triangles_equal"] and stats["max_vertex_dist"] < 2e-4, stats
+    d = np.abs(gv - wv)
+    ulps = d / np.spacing(np.maximum(np.abs(gv), np.abs(wv)))
+    stats.update(edge_stats=[edge_stats(gf), edge_stats(wf)], on_the_same_cut_edges=on_their_edges(gv, we, (R, R, R)),
+                 max_vertex_dist=float(d.max()), max_ulps=float(ulps.max()))
+    if wire:
+        stats["triangles_equal"] = _triangle_hash_sum(gf) == _triangle_hash_sum(wf)
+        close = bool((d <= 1.0 / 65535 + np.spacing(np.maximum(np.abs(gv), np.abs(wv)))).all())
+    else:
+        stats["faces_equal"] = bool(np.array_equal(gf, wf))
+        close = stats["max_ulps"] <= 1.0
+    return bool(close and stats["on_the_same_cut_edges"] and stats["edge_stats"][0] == stats["edge_stats"][1]
+                and stats.get("triangles_equal", stats.get("faces_equal"))), stats
+
+
+def merge_every_duplicate(shards, *_):
+    """The planted weld fault, ``_seam_weld``'s signature: the weld before
+    it, every shard's vertices (halo rows too) through
+    ``merge_exact_duplicates``, so coincident vertices of different cut
+    edges merge."""
+    offsets = np.cumsum([0] + [len(v) for v, _, _ in shards[:-1]])
+    return merge_exact_duplicates(np.concatenate([v for v, _, _ in shards]),
+                                  np.concatenate([f + o for (_, f, _), o in zip(shards, offsets)]))
+
+
+def merge_exact_duplicates(verts, faces):
+    """The JAX package's weld: exact duplicate vertices merged (a numeric
+    lexsort for its ``np.unique(axis=0)``: the vertices come in (x, y, z)
+    order), unused vertices dropped."""
+    order = np.lexsort((verts[:, 2], verts[:, 1], verts[:, 0]))
+    sv = verts[order]
+    new = np.ones(len(sv), bool)
+    new[1:] = (sv[1:] != sv[:-1]).any(axis=1)
+    inv = np.empty(len(sv), np.int64)
+    inv[order] = np.cumsum(new) - 1
+    faces = inv[faces]
+    used = np.zeros(int(new.sum()), bool)
+    used[faces.ravel()] = True
+    return sv[new][used], (np.cumsum(used) - 1)[faces]
 
 
 def _timed(fn):
@@ -2137,16 +2172,19 @@ def _timed(fn):
 
 
 def sharded_extraction_path(tsr, lean):
-    """The Lean asset's code extracted at 512^3 over sp = 4 x-slabs
-    (``sharded_extract``, K2 and K10 four launches each) against K2 and K10
-    on the whole lattice on the card by JAX's criteria (``same_mesh``), the
-    wire form (``sharded_extract_wire``, K3 four launches) against it, and
-    ``sharded_density_grid`` bit-equal to the whole lattice's density; each
-    call once counted, once timed, with its peak bytes; at the Lean
-    threshold itself, the sharded mesh against the whole lattice's welded
-    by the same exact match; then K3 and K10 at one shard's padded slab
-    (136 x 512 x 512, x limit 128), equal to their plain versions and
-    timed."""
+    """The Lean asset's code extracted at 512^3 over sp = 4 x-slabs at the
+    Lean threshold itself (``sharded_extract``, K2 and K10 four launches
+    each) against K2 and K10 on the whole lattice on the card, its mesh as
+    it comes (``unwelded_match``); the wire form (``sharded_extract_wire``,
+    K3 four launches) against it too; ``sharded_density_grid`` bit-equal to
+    the whole lattice's density; each call once counted, once timed, with
+    its peak bytes. The Lean threshold is a lattice value (K2's densities
+    are the exp of a bf16 d), so cut edges from a point where the level is
+    exactly 0 put coincident vertices on it, which the seam weld keeps
+    apart; then a planted weld that merges every exact duplicate, which
+    the check must catch, and both welds timed on the same shard outputs. Then K3 and K10 at one shard's padded slab (136
+    x 512 x 512, x limit 128; K10 with its vertices' edges, as the sharded
+    extraction asks), equal to their plain versions and timed."""
     from sculptmate_tpu_torch.geometry import marching_cubes as mc
     from sculptmate_tpu_torch.ops import density_grid as dg
     from sculptmate_tpu_torch.parallel import farm as farm_mod
@@ -2156,22 +2194,7 @@ def sharded_extraction_path(tsr, lean):
     mesh = make_mesh((n,), ("sp",), devices=mesh_devices(n))
     code, w = lean["codes"][0], tsr.decoder_weights()
     spec = tsr.grid_spec(R, tsr.extract_dtype)
-    # The equality check against the whole lattice's mesh as it comes, and
-    # the wire form and the timed calls beside it, cut at the Lean
-    # threshold moved to the middle of the gap between the two densities
-    # of the 512^3 lattice around it, and nothing else does. K2's
-    # densities take few distinct values (exp of a bf16 d), and where the
-    # level is exactly 0 at a lattice point, the cut edges from it put
-    # their vertices at one position, which the exact-duplicate weld
-    # merges (as the JAX package's does) and the whole lattice's mesh does
-    # not (ROADMAP 3). At the Lean threshold itself the sharded mesh is
-    # held to the whole lattice's mesh welded the same way
-    dens = dg.query_density_grid(code, w, spec)
-    vals = torch.unique(dens[(dens - lean["threshold"]).abs() <= 0.05 * abs(lean["threshold"])])
-    i = int(torch.searchsorted(vals, torch.tensor(lean["threshold"], device=vals.device)))
-    i = min(max(i, 1), len(vals) - 1)
-    thr, margin = float((vals[i - 1] + vals[i]) / 2), float((vals[i] - vals[i - 1]) / 2)
-    del dens, vals
+    thr = lean["threshold"]
 
     def counted(key, fn):
         """``fn`` once, its launches counted, timed and its peak bytes read."""
@@ -2184,15 +2207,14 @@ def sharded_extraction_path(tsr, lean):
 
     mv_whole = 32 * R * R
 
-    def whole(thr=thr):
-        res = mc.marching_cubes(dg.query_density_grid(code, w, spec) - thr, mv_whole, 2 * mv_whole)
+    def whole():
+        res = mc.marching_cubes(dg.query_density_grid(code, w, spec) - thr, mv_whole, 2 * mv_whole,
+                                return_edges=True)
         nv, nf = int(res.num_verts), int(res.num_faces)
         if nv > mv_whole or nf > 2 * mv_whole:
             raise AssertionError(f"whole-lattice extraction overflowed: {nv} vertices, {nf} faces")
-        verts, faces = res.verts[:nv].cpu().numpy(), res.faces[:nf].cpu().numpy().astype(np.int64)
-        used = np.zeros(nv, bool)
-        used[faces.ravel()] = True
-        return verts[used], (np.cumsum(used) - 1)[faces]
+        return (res.verts[:nv].cpu().numpy(), res.faces[:nf].cpu().numpy().astype(np.int64),
+                res.edges[:nv].cpu().numpy())
 
     def sharded():
         return farm_mod.sharded_extract(mesh, code, w, spec, thr)
@@ -2203,9 +2225,10 @@ def sharded_extraction_path(tsr, lean):
     t0, out, launches = time.perf_counter(), {}, {}
     sm = counted("sharded_extract", sharded)
     ref = counted("whole_lattice", whole)
-    ok_mesh, stats = same_mesh(sm, ref)
+    ok_mesh, stats = unwelded_match(sm, ref, R)
     wm = counted("sharded_extract_wire", wire)
-    wire_ok, wire_stats = wire_matches_packed(wm, sm)
+    wire_ok, wire_stats = unwelded_match(wm, ref, R, wire=True)
+    del sm, wm
     slabs = counted("sharded_density_grid", lambda: farm_mod.sharded_density_grid(mesh, code, w, spec))
     dens = dg.query_density_grid(code, w, spec)
     # the design takes each slab's rows of the whole lattice's partials, so
@@ -2213,28 +2236,20 @@ def sharded_extraction_path(tsr, lean):
     # slab evaluated apart put the mesh 20 faces off at 8.4e-5
     joined = gather(slabs, "cuda")
     dens_equal, dens_err = bool(torch.equal(joined, dens)), (joined - dens).abs().max().item()
+    zeros = int((joined == thr).sum())
     del slabs, dens, joined
-    at_lean, whole_lean = farm_mod.sharded_extract(mesh, code, w, spec, lean["threshold"]), whole(lean["threshold"])
-    lean_ok, lean_stats = same_mesh(at_lean, farm_mod._weld([whole_lean[0]], [whole_lean[1]]))
-    lean_stats["vertices_merged"] = len(whole_lean[0]) - len(at_lean[0])
-    del at_lean, whole_lean
     log(json.dumps({"multi_device_path": f"sharded extraction {R}^3 over sp = {n}",
-                    "devices": [str(d) for d in mesh.devices.ravel()], "threshold": thr, "threshold_margin": margin,
-                    "launches": launches, **out,
+                    "devices": [str(d) for d in mesh.devices.ravel()], "threshold": thr,
+                    "lattice_points_at_the_threshold": zeros, "launches": launches, **out,
                     "packed_vs_whole_lattice": {"passed": ok_mesh, **stats},
-                    "wire_vs_packed": {"passed": wire_ok, **wire_stats},
-                    "at_lean_threshold": {"threshold": lean["threshold"],
-                                          "packed_vs_whole_lattice_welded": {"passed": lean_ok, **lean_stats}},
+                    "wire_vs_whole_lattice": {"passed": wire_ok, **wire_stats},
                     "sharded_density_grid_bit_equal": dens_equal, "sharded_density_grid_max_abs_err": dens_err,
                     "sharded_density_grid_limit": 0,
                     "phase_sec": time.perf_counter() - t0}))
     if not ok_mesh:
-        raise AssertionError(f"the sharded extraction differs from the whole lattice's: {stats}")
+        raise AssertionError(f"the sharded extraction differs from the whole lattice's mesh: {stats}")
     if not wire_ok:
-        raise AssertionError(f"the sharded wire extraction differs from the packed one: {wire_stats}")
-    if not lean_ok:
-        raise AssertionError(f"at the Lean threshold the sharded extraction differs from the whole lattice's "
-                             f"welded mesh: {lean_stats}")
+        raise AssertionError(f"the sharded wire extraction differs from the whole lattice's mesh: {wire_stats}")
     if not dens_equal:
         raise AssertionError(f"sharded_density_grid is not bit-equal to the whole lattice's density: {dens_err}")
     for key, want in (("sharded_extract", {"K2": n, "K10": n}), ("sharded_extract_wire", {"K2": n, "K3": n}),
@@ -2242,12 +2257,40 @@ def sharded_extraction_path(tsr, lean):
         if any(launches[key][k] != v for k, v in want.items()):
             raise AssertionError(f"{key} launched {launches[key]}, not {want}")
 
+    # the planted weld fault: the exact-duplicate weld must fail the check
+    seam_weld, shards = farm_mod._seam_weld, []
+
+    def planted_weld(*args):
+        shards.append(args)
+        return merge_every_duplicate(*args)
+
+    farm_mod._seam_weld = planted_weld
+    try:
+        faulty = sharded()
+    finally:
+        farm_mod._seam_weld = seam_weld
+    fault_passed, fault_stats = unwelded_match(faulty, ref, R)
+    merged = len(ref[0]) - len(faulty[0])
+    # both welds on these same shard outputs, alternated, three times each
+    weld_sec = {"_seam_weld": [], "merge_every_duplicate": []}
+    for _ in range(3):
+        for name, weld in (("_seam_weld", seam_weld), ("merge_every_duplicate", merge_every_duplicate)):
+            t_weld = time.perf_counter()
+            weld(*shards[0])
+            weld_sec[name].append(time.perf_counter() - t_weld)
+    log(json.dumps({"planted_fault": "the sharded weld merges every exact duplicate", "caught": not fault_passed,
+                    "vertices_merged": merged, "by": fault_stats, "host_weld_sec_on_the_same_shards": weld_sec}))
+    if fault_passed:
+        raise AssertionError("planted fault 'the sharded weld merges every exact duplicate' passed its check")
+    del faulty, ref
+
     # K3 and K10 at a shard's slab shape, against their plain versions
     slab = R // n
     level = farm_mod._slab_level(code, w, spec, thr, 1, slab, slab + 1 + (-(slab + 1)) % 8, torch.device("cuda"), {})
     mv, mf = 16 * R * R // n + 65536, 2 * (16 * R * R // n + 65536)
     times = {}
-    k10, k10_ref = (f(level, mv, mf, valid_x_limit=slab) for f in (mc.marching_cubes, mc.marching_cubes_plain))
+    k10, k10_ref = (f(level, mv, mf, valid_x_limit=slab, return_edges=True)
+                    for f in (mc.marching_cubes, mc.marching_cubes_plain))
     k3, k3_ref = (f(level, mv, valid_x_limit=slab) for f in (mc.mc_wire_device, mc.mc_wire_device_plain))
     differ = sum(int((getattr(k10, k) != getattr(k10_ref, k)).sum()) for k in mc.MCResult._fields)
     wire_differ = int((k3 != k3_ref).sum())
@@ -2255,8 +2298,9 @@ def sharded_extraction_path(tsr, lean):
     nv3 = int.from_bytes(k3_ref[-8:-4].cpu().numpy().tobytes(), "little")
     n3 = level.numel()
     for name, fn, plain, nbytes in (
-            ("K10", lambda: mc.marching_cubes(level, mv, mf, valid_x_limit=slab),
-             lambda: mc.marching_cubes_plain(level, mv, mf, valid_x_limit=slab), 4 * n3 + 12 * (nv10 + nf10) + 16),
+            ("K10", lambda: mc.marching_cubes(level, mv, mf, valid_x_limit=slab, return_edges=True),
+             lambda: mc.marching_cubes_plain(level, mv, mf, valid_x_limit=slab, return_edges=True),
+             4 * n3 + 20 * nv10 + 12 * nf10 + 16),
             ("K3", lambda: mc.mc_wire_device(level, mv, valid_x_limit=slab),
              lambda: mc.mc_wire_device_plain(level, mv, valid_x_limit=slab), 4 * n3 + n3 // 8 + 2 * nv3 + 8)):
         bound, by = bound_ms(0, nbytes, PEAK_F32_FLOPS)
@@ -3126,6 +3170,61 @@ def session_zoo_path():
     return ms_per_image
 
 
+def sam_cutout_path():
+    """The SAM cutout (``frontend/preprocess.py:sam_segment``) with a box
+    prompt on a seeded 640 x 480 RGB image (a disc over noise) through SAM
+    ViT-B at its published widths, seeded weights, on the card: the uint8
+    array form, which needs no PIL (``SamSession.predict_rgb``, every
+    resize on the card, as for a PIL image). Timed per image (wall clock to the cutout on the
+    host, after a warm-up, median of 3); its mask held against the same
+    call on the CPU with the same weights: the RGB equal, at most
+    ``SAM_MASK_SHARE`` of the alpha more than 1 apart. Then
+    ``image_preprocess_sam`` on the cutout (host, PIL), or a line saying it
+    was skipped where PIL is not installed -> ms per image."""
+    from sculptmate_tpu_torch.frontend.preprocess import image_preprocess_sam, sam_segment
+    from sculptmate_tpu_torch.frontend.sam import SamSession
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    img = rng.random((480, 640, 3)) * 110
+    yy, xx = np.mgrid[:480, :640]
+    img[(yy - 250) ** 2 + (xx - 300) ** 2 < 150**2] += 140
+    img = img.clip(0, 255).astype(np.uint8)
+    bbox = (140.0, 95.5, 470.0, 410.0)
+    card = SamSession(seed=0, device="cuda")  # ViT-B
+    cutout = sam_segment(img, bbox, session=card)  # warm-up
+    secs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        cutout = sam_segment(img, bbox, session=card)
+        secs.append(time.perf_counter() - t)
+    cpu = SamSession(state_dict={k: v.cpu() for k, v in card.module.state_dict().items()}, device="cpu")
+    del card
+    torch.cuda.empty_cache()
+    ref = sam_segment(img, bbox, session=cpu)
+    diff = np.abs(cutout[..., 3].astype(int) - ref[..., 3].astype(int))
+    line = {"sam_cutout_path": "sam_segment, box prompt, SAM vit_b, 640 x 480 uint8 RGB", "bbox": list(bbox),
+            "shape": list(cutout.shape), "ms_per_image": 1e3 * float(np.median(secs)),
+            "foreground_share": float((cutout[..., 3] > 127).mean()),
+            "alpha_max_abs_diff_vs_cpu": int(diff.max()), "alpha_share_over_1_vs_cpu": float((diff > 1).mean()),
+            "limit": f"at most {SAM_MASK_SHARE} of the alpha more than 1 apart, the RGB equal"}
+    ok = (cutout.shape == (480, 640, 4) and cutout.dtype == np.uint8 and np.array_equal(cutout[..., :3], img)
+          and line["alpha_share_over_1_vs_cpu"] <= SAM_MASK_SHARE)
+    log(json.dumps({**line, "check_passed": bool(ok), "phase_sec": time.perf_counter() - t0}))
+    if not ok:
+        raise AssertionError(f"the SAM cutout on the card differs from the CPU's: {line}")
+    try:
+        from PIL import Image
+    except ImportError:
+        log(json.dumps({"sam_cutout_path": "image_preprocess_sam skipped: PIL is not installed on this machine"}))
+        return line["ms_per_image"]
+    out, scale = image_preprocess_sam(Image.fromarray(cutout))
+    if out.size != (1024, 1024) or out.mode != "RGB" or not 0 < scale < float("inf"):
+        raise AssertionError(f"image_preprocess_sam gave a {out.mode} {out.size} image, scale {scale}")
+    log(json.dumps({"sam_cutout_path": "image_preprocess_sam", "size": list(out.size), "scale": scale}))
+    return line["ms_per_image"]
+
+
 def dead_upstream_path():
     """SF3D's unused backbone modules at full width, seeded weights, bf16
     autocast as the SF3D encode runs: one ``SingleStreamTransformer`` at its
@@ -3325,6 +3424,7 @@ def main():
     packed_launches, _ = packed_path(gen.model, lean, wire_sec)
     matting = frontend_checks()
     session_ms = session_zoo_path()
+    sam_cutout_ms = sam_cutout_path()
     farm, rgba, threshold, launches, served = serving_path(gen.model, matting)
     async_contract(farm, matting, rgba, threshold, served)
     where_time_goes(
@@ -3421,9 +3521,9 @@ def main():
          "launches_by_path": {"packed_asset": packed_launches["K10"],
                               f"sharded_extract_{MULTI_R}_sp{MULTI_SP}": multi["extraction"]["sharded_extract"]["K10"]},
          **multi["slab_times"]["K10"],
-         "max_abs_err": 0.0, "limit": "equal positions, faces and counters", "check": "pass",
+         "max_abs_err": 0.0, "limit": "equal positions, faces, counters and vertex edges", "check": "pass",
          "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "edges_ms": k10["edges_ms"], "edges_bound_ms": k10["edges_bound_ms"]},
         {"name": "mt_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_tets.cu",
          "replaces": "sculptmate_tpu/geometry/marching_tets.py:388", "launches": sf3d_launches["K7"],
          "launches_by_path": {"fast3d_generator": sf3d_launches["K7"], "fast3d_generator_textured": tex_launches["K7"],
@@ -3464,8 +3564,9 @@ def main():
         " one SingleStreamTransformer call and its 1 in one full TriplaneAttention at res 96; each launches_by_path"
         " also counts the multi-device phase (the (dp 2, tp 2) farms' batches, K1 split over 2 tp shards, and one"
         " call of each 512^3 sharded function over sp = 4); K2's slab_* keys time it at a shard's 129 x 512 x 512"
-        " slab, K3's and K10's at a shard's padded 136 x 512 x 512 level, x limit 128")
-    log(json.dumps({"session_zoo_ms_per_image": session_ms,
+        " slab, K3's and K10's at a shard's padded 136 x 512 x 512 level, x limit 128 (K10 with its vertices' edges, as"
+        " sharded_extract calls it); K10's edges_ms is the asset's 256^3 mesh with its vertices' edges")
+    log(json.dumps({"session_zoo_ms_per_image": session_ms, "sam_cutout_ms_per_image": sam_cutout_ms,
                     "dead_upstream_ms": {key: v["ms"] for key, v in dead_upstream.items()}}))
     print(json.dumps(kernels_line))
     print(card)

@@ -332,7 +332,7 @@ def k10_variants(smoke, lean):
         edit_copy(kernels.CSRC, edits, csrc)
         with kernels.sources_from(csrc):
             got = mc.marching_cubes(level, 1 << 20, 1 << 21)
-            differ = sum(int((getattr(got, k) != getattr(ref, k)).sum()) for k in mc.MCResult._fields)
+            differ = sum(int((getattr(got, k) != getattr(ref, k)).sum()) for k in mc.MCResult._fields[:10])
             ms = smoke.cuda_ms(lambda: mc.marching_cubes(level, 1 << 20, 1 << 21), iters=10)
             split = smoke.k10_split(lean)
             spills = [line.strip() for line in kernels.ptxas_report("marching_cubes").splitlines()

@@ -17,8 +17,9 @@
 // Bound on the H100: bytes. At 256^3 K3 reads the 67 MB level and writes
 // 2.1 MB of bits and 14 B per vertex (0.022 ms at 3.35 TB/s); K10 reads the
 // level and writes 12 B per vertex and per face (~0.027 ms at ~0.6 M
-// vertices). The TPU program's block capacities, one-hot contraction and
-// overflow tails were workarounds for fixed compaction buffers; here the
+// vertices; 8 B more per vertex with the edges). The TPU program's block
+// capacities, one-hot contraction and overflow tails were workarounds for
+// fixed compaction buffers; here the
 // ids come from exact prefixes and only the rows under the capacity are
 // written.
 //
@@ -42,7 +43,9 @@
 //   (scan.cuh's scan_segments, decoupled look-back) of the popcounts of the
 //   cut words (vertex ids), of the block face counts (face ids), of the
 //   active cells and of the axis flags, whose last tiles write the four
-//   counters; (3) one thread per cut word emits its positions; (4) persistent
+//   counters; (3) one thread per cut word emits its positions (and, when
+//   the caller asks, each vertex's cut edge a n3 + lin, the identity the
+//   sharded extraction welds its seams by); (4) persistent
 //   blocks, each with the tables in shared memory once, walk the 8^3
 //   blocks with faces and emit them from the case bytes, each corner's id
 //   its cut word's base plus a popcount within the word.
@@ -282,11 +285,13 @@ __global__ void __launch_bounds__(CELLS) mc_classify(const float *__restrict__ l
 
 // one thread per cut word (the words of a row consecutive, rows in (axis,
 // x, y) order): the positions of its cut edges with ids under the capacity,
-// the first its word's scanned base
+// the first its word's scanned base, and, when edges is not null, each
+// one's edge a n3 + (i RY + j) RZ + k
 __global__ void __launch_bounds__(VERT_THREADS) mc_verts(const float *__restrict__ lv,
                                                          const unsigned *__restrict__ cutbits,
                                                          const int *__restrict__ word_base, float *__restrict__ pos,
-                                                         int RX, int RY, int RZ, int nwords, int mv) {
+                                                         long long *__restrict__ edges, int RX, int RY, int RZ,
+                                                         int nwords, int mv) {
     const int nrows = RX * RY;
     const long long wi = (long long)blockIdx.x * VERT_THREADS + threadIdx.x;
     if (wi >= 3ll * nrows * nwords) return;
@@ -302,6 +307,7 @@ __global__ void __launch_bounds__(VERT_THREADS) mc_verts(const float *__restrict
         pos[id] = __fadd_rn((float)i, a == 0 ? t : 0.f);
         pos[(size_t)mv + id] = __fadd_rn((float)j, a == 1 ? t : 0.f);
         pos[2 * (size_t)mv + id] = __fadd_rn((float)k, a == 2 ? t : 0.f);
+        if (edges != nullptr) edges[id] = (long long)a * RX * RY * RZ + (long long)(p0 + k);
     }
 }
 
@@ -392,16 +398,17 @@ extern "C" int mc_wire_fwd(const void *level, void *wire, void *pos, void *masks
 }
 
 // K10: level (RX, RY, RZ) f32, x limit xlimit (<= RX - 1) -> (3, mv) f32 positions and (3, mf) int32
-// face corners (both zeroed by the caller). zeroed (zeroed by the caller):
-// the 4 int32 counters, the scan's tile counter, 3 pad ints, then
+// face corners (both zeroed by the caller), and, when edges is not null, the
+// (mv,) int64 cut edge of each vertex (zeroed by the caller). zeroed
+// (zeroed by the caller): the 4 int32 counters, the scan's tile counter, 3 pad ints, then
 // status_tiles u64 status words. Scratch: cutbits and word_base 3 RX RY
 // ceil(RZ / 32) ints each, cases RX RY RZ bytes, blocks 5 NB ints, fbase
 // NB ints. Four launches: classify, one scan of every count array (which
 // writes the counters), the vertices, the faces.
-extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *pos, void *corners, void *zeroed,
-                                  void *cutbits, void *word_base, void *cases, void *blocks, void *fbase, int RX,
-                                  int RY, int RZ, int xlimit, int mv, int mf, int maxtri, int status_tiles,
-                                  int num_sms, void *stream) {
+extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *pos, void *edges, void *corners,
+                                  void *zeroed, void *cutbits, void *word_base, void *cases, void *blocks,
+                                  void *fbase, int RX, int RY, int RZ, int xlimit, int mv, int mf, int maxtri,
+                                  int status_tiles, int num_sms, void *stream) {
     if (bad_shape(RX, RY, RZ) || mv < 1 || mf < 1 || maxtri < 1 || xlimit < 0 || xlimit > RX - 1)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -442,7 +449,7 @@ extern "C" int marching_cubes_fwd(const void *level, const void *tables, void *p
     scan_segments<<<tiles, MS_THREADS, 0, st>>>(sg, reinterpret_cast<unsigned long long *>(counts + 8),
                                                  counts + 4);
     mc_verts<<<(3 * nrows * nwords + VERT_THREADS - 1) / VERT_THREADS, VERT_THREADS, 0, st>>>(
-        lv, bits, wb, static_cast<float *>(pos), RX, RY, RZ, nwords, mv);
+        lv, bits, wb, static_cast<float *>(pos), static_cast<long long *>(edges), RX, RY, RZ, nwords, mv);
     mc_faces<<<fgrid, CELLS, smem, st>>>(static_cast<const uint8_t *>(cases), tab, bits, wb, bl, fb,
                                          static_cast<int *>(corners), RX, RY, RZ, nwords, mf, maxtri);
     return (int)cudaGetLastError();

@@ -11,6 +11,10 @@ Counterpart of ``sculptmate_tpu/frontend/preprocess.py``.
   alpha bbox is a masked min/max on the device, and the whole crop -> pad ->
   Lanczos resize chain is one dynamic-window separable resample
   (``ops/warp.py``): fixed shapes, no host sync.
+- ``sam_segment`` and ``image_preprocess_sam``: the reference's dormant SAM
+  cutout path (``preprocessing.py:22-70``): a box-prompted SAM mask as
+  alpha, then the contrast lowering, recentre, 1024^2 Lanczos resize and
+  white composite (host, PIL).
 """
 
 from __future__ import annotations
@@ -65,6 +69,72 @@ def preprocess_image(image, ratio: float = 0.85, use_alpha: bool = False, sessio
     if out.size[0] < 250:
         return None
     return out.resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
+
+
+def sam_segment(image, bbox, session=None):
+    """SAM-assisted cutout (the reference's dormant ``sam_out_nosave``,
+    ``preprocessing.py:22-39``): the mask of SAM prompted with the box
+    ``bbox`` (x1, y1, x2, y2 in pixels) as alpha, through
+    ``SamSession.predict_rgb``. ``image``: a PIL image -> an RGBA PIL
+    image, as the JAX package's; or an (H, W, 3 or 4) uint8 array -> an
+    (H, W, 4) uint8 array, with no PIL. ``session``: the port's
+    ``SamSession``, by default ``new_session("sam")`` on the card; a CPU
+    session keeps it on the CPU."""
+    import json
+
+    import numpy as np
+
+    if session is None:
+        from sculptmate_tpu_torch.frontend.sessions import new_session
+
+        session = new_session("sam")
+    prompt = json.dumps([{"type": "rectangle", "data": list(map(float, bbox))}])
+    is_array = isinstance(image, np.ndarray)
+    rgb = np.ascontiguousarray(image[..., :3]) if is_array else np.array(image.convert("RGB"))
+    out = np.concatenate([rgb, session.predict_rgb(rgb, prompt).cpu().numpy()[..., None]], axis=-1)
+    if is_array:
+        return out
+    from PIL import Image
+
+    return Image.fromarray(out, mode="RGBA")
+
+
+def image_preprocess_sam(input_image, lower_contrast: bool = True, rescale: bool = True):
+    """The reference's dormant SAM-path preprocessing
+    (``preprocessing.py:42-70``) on an RGBA PIL image: optionally the
+    contrast lowered (x 0.8, alpha over 200 made opaque again), the alpha
+    bbox recentred on a square canvas (its side the bbox's larger side /
+    0.75 with ``rescale``, else the input's height), Lanczos to 1024^2 and
+    composited on white. Returns (RGB image, the input's height over the
+    bbox width)."""
+    import numpy as np
+    from PIL import Image
+
+    arr = np.asarray(input_image).copy()
+    in_w = arr.shape[0]
+
+    if lower_contrast:
+        # convertScaleAbs(alpha=0.8): scale + clip, then re-solidify alpha
+        arr = np.clip(arr.astype(np.float32) * 0.8, 0, 255).astype(np.uint8)
+        arr[arr[..., -1] > 200, -1] = 255
+
+    alpha = np.asarray(input_image)[..., -1]
+    ys, xs = np.where(alpha > 1)
+    if len(ys) == 0:
+        return input_image.convert("RGB"), 1.0
+    y, x = ys.min(), xs.min()
+    h = ys.max() - ys.min() + 1
+    w = xs.max() - xs.min() + 1
+    max_size = max(w, h)
+    side_len = int(max_size / 0.75) if rescale else in_w
+    scale = in_w / w
+    padded = np.zeros((side_len, side_len, 4), np.uint8)
+    center = side_len // 2
+    padded[center - h // 2 : center - h // 2 + h, center - w // 2 : center - w // 2 + w] = arr[y : y + h, x : x + w]
+    rgba = Image.fromarray(padded).resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
+    f = np.asarray(rgba).astype(np.float32) / 255.0
+    rgb = f[..., :3] * f[..., -1:] + (1 - f[..., -1:])
+    return Image.fromarray((rgb * 255).astype(np.uint8)), scale
 
 
 def _alpha_bbox(alpha: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -43,6 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sculptmate_tpu_torch.ops.warp import resample_matrix
 from sculptmate_tpu_torch.runtime.device import resolve_device
 
 IMG_SIZE = 1024
@@ -418,6 +419,20 @@ class Sam(nn.Module):
 # ---------------------------------------------------------------------------
 # session
 
+
+def _resize_u8(x: torch.Tensor, out_hw: Tuple[int, int], method: str) -> torch.Tensor:
+    """PIL's resize of an 8-bit (H, W, C) image on x's device: the
+    horizontal pass rounded to 8 bits, then the vertical one; ``"linear"``
+    is its BILINEAR and ``"lanczos3"`` its LANCZOS (the taps of
+    ``ops/warp.py:resample_matrix``, the support dilated when reducing).
+    Returns f32 values in 0..255."""
+    H, W = x.shape[:2]
+    cols = resample_matrix(W, out_hw[1], 0.0, float(W), method).to(x.device)
+    rows = resample_matrix(H, out_hw[0], 0.0, float(H), method).to(x.device)
+    x = torch.einsum("pw,hwc->hpc", cols, x.float()).round().clamp(0, 255)
+    return torch.einsum("oh,hpc->opc", rows, x).round().clamp(0, 255)
+
+
 def get_input_points(prompt) -> Tuple[np.ndarray, np.ndarray]:
     """Parse rembg's JSON prompt schema (``sessions/sam.py``): points, and
     rectangles as two corner points labelled 2 and 3."""
@@ -486,24 +501,31 @@ class SamSession:
         return (masks[torch.arange(masks.shape[0], device=masks.device), best] > 0).float()
 
     def predict(self, img, *args, **kwargs):
-        """PIL image and ``sam_prompt`` (JSON or a list) -> one mask at the
-        image's size."""
+        """PIL image and ``sam_prompt`` (JSON or a list) -> one 'L' mask at
+        the image's size: ``predict_rgb`` on its RGB values."""
         from PIL import Image
 
-        points, labels = get_input_points(kwargs.get("sam_prompt", "[]"))
-        rgb = img.convert("RGB")
-        w0, h0 = rgb.size
+        mask = self.predict_rgb(np.array(img.convert("RGB")), kwargs.get("sam_prompt", "[]"))
+        return [Image.fromarray(mask.cpu().numpy(), mode="L")]
+
+    def predict_rgb(self, rgb, sam_prompt) -> torch.Tensor:
+        """(H, W, 3) RGB values in [0, 255] (an array or a tensor) and
+        ``sam_prompt`` -> the (H, W) uint8 mask, every step on the session's
+        device: the image bilinear into the top left of the 1024^2 frame,
+        the best-IoU mask bilinear up to the frame and Lanczos down to the
+        image (PIL's filters and 8-bit rounding, ``_resize_u8``)."""
+        rgb = torch.as_tensor(rgb, device=self.device)
+        h0, w0 = rgb.shape[:2]
+        points, labels = get_input_points(sam_prompt)
         scale = IMG_SIZE / max(w0, h0)
         nw, nh = int(round(w0 * scale)), int(round(h0 * scale))
-        canvas = np.zeros((IMG_SIZE, IMG_SIZE, 3), np.float32)
-        canvas[:nh, :nw] = np.asarray(rgb.resize((nw, nh), Image.Resampling.BILINEAR), np.float32)
-        pts = np.concatenate([points * scale, [[0.0, 0.0]]], axis=0)[None]
-        lbl = np.concatenate([labels, [-1]])[None]
-        m = self.predict_mask_batch(torch.from_numpy(canvas[None]), torch.from_numpy(pts.astype(np.float32)),
-                                    torch.from_numpy(lbl.astype(np.int64)))[0].cpu().numpy()
-        mask_img = Image.fromarray((m * 255).astype(np.uint8), mode="L")
-        mask_full = mask_img.resize((IMG_SIZE, IMG_SIZE), Image.Resampling.BILINEAR)
-        return [mask_full.crop((0, 0, nw, nh)).resize((w0, h0), Image.Resampling.LANCZOS)]
+        pts = np.concatenate([points * scale, [[0.0, 0.0]]], axis=0)[None].astype(np.float32)
+        lbl = np.concatenate([labels, [-1]])[None].astype(np.int64)
+        canvas = torch.zeros((1, IMG_SIZE, IMG_SIZE, 3), device=self.device)
+        canvas[0, :nh, :nw] = _resize_u8(rgb, (nh, nw), "linear")
+        m = 255 * self.predict_mask_batch(canvas, torch.from_numpy(pts), torch.from_numpy(lbl))[0, :, :, None]
+        mask_full = _resize_u8(m, (IMG_SIZE, IMG_SIZE), "linear")
+        return _resize_u8(mask_full[:nh, :nw], (h0, w0), "lanczos3")[..., 0].to(torch.uint8)
 
     def predict_mask(self, image):
         """A centre box prompt when used as a generic matting session."""

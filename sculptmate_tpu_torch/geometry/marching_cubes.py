@@ -33,7 +33,12 @@ block-major (8^3 blocks in (bx, by, bz) order, cells in (ox, oy, oz) order
 within a block, then the table's triangles). At most ``max_verts`` and
 ``max_faces`` rows are written, the rest are zero, and the four counters are
 exact. ``level > 0`` is inside; positions are lattice index coords; faces
-are wound so normals point away from the inside.
+are wound so normals point away from the inside. On request
+(``return_edges``) the result's ``edges`` holds each vertex's cut edge, the
+int64 ``a * RX * RY * RZ + (i * RY + j) * RZ + k`` of the edge from lattice
+point (i, j, k) along axis a: the identity by which the sharded extraction
+(``parallel/farm.py``) welds its seams, since two vertices of different
+edges can share a position; else it is None.
 
 The x limit (``valid_x_limit``, default -1 meaning RX - 1): cells and
 x-cut edges at x >= the limit emit nothing, y and z cut edges are never
@@ -75,6 +80,7 @@ class MCResult(NamedTuple):
     num_faces: torch.Tensor
     num_active_blocks: torch.Tensor  # max(active (axis, block) pairs of cut edges, blocks with faces)
     num_active_cells: torch.Tensor  # cells that emit at least one face
+    edges: Optional[torch.Tensor] = None  # (max_verts,) int64 cut edge per vertex, with return_edges
 
     @property
     def verts(self) -> torch.Tensor:
@@ -283,9 +289,11 @@ def _tables_torch(device):
     return as_t(tri), as_t(cnt), maxtri, as_t(EDGE_AXIS), as_t(EDGE_OFFSET)
 
 
-def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_limit: int = -1) -> MCResult:
+def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_limit: int = -1,
+                         return_edges: bool = False) -> MCResult:
     """Plain version of kernel K10: the packed mesh's semantics (see the
-    module docstring), written as torch over the whole lattice."""
+    module docstring), written as torch over the whole lattice;
+    ``marching_cubes``'s arguments and result."""
     _check_shape(level)
     limit = _x_limit(level, valid_x_limit)
     RX, RY, RZ = level.shape
@@ -339,6 +347,7 @@ def marching_cubes_plain(level: torch.Tensor, max_verts: int, max_faces: int, va
     return MCResult(
         pos[0], pos[1], pos[2], corners[0], corners[1], corners[2],
         i32(num_verts), i32(ntri.sum()), i32(torch.maximum(n_vblocks, n_fblocks)), i32(active.sum()),
+        F.pad(edges, (0, max_verts - n)) if return_edges else None,
     )
 
 
@@ -374,13 +383,16 @@ def k10_scratch(RX: int, RY: int, RZ: int) -> dict:
             "status_tiles": tiles, "zeroed": 8 + 2 * tiles}
 
 
-def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_limit: int = -1) -> MCResult:
+def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_limit: int = -1,
+                   return_edges: bool = False) -> MCResult:
     """level (RX, RY, RZ) f32, ``level > 0`` inside, each dim a multiple of
-    8 -> ``MCResult`` (see the module docstring; ``valid_x_limit`` there).
-    Kernel K10 on a CUDA tensor, its plain version on a CPU tensor. Nothing
-    here waits for the device (after the tables' first upload to it)."""
+    8 -> ``MCResult`` (see the module docstring; ``valid_x_limit`` there),
+    with ``return_edges`` its ``edges`` each vertex's cut edge, zero past
+    the count. Kernel K10 on a CUDA tensor, its plain version on a CPU
+    tensor. Nothing here waits for the device (after the tables' first
+    upload to it)."""
     if not level.is_cuda:
-        return marching_cubes_plain(level, max_verts, max_faces, valid_x_limit)
+        return marching_cubes_plain(level, max_verts, max_faces, valid_x_limit, return_edges)
     level = _check_level(level, "marching cubes")
     limit = _x_limit(level, valid_x_limit)
     if max_verts < 1 or max_faces < 1:
@@ -389,6 +401,7 @@ def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_
     dev = level.device
     tables, maxtri = _tables_packed(dev)
     pos = torch.zeros((3, max_verts), dtype=torch.float32, device=dev)
+    edges = torch.zeros(max_verts, dtype=torch.int64, device=dev) if return_edges else None
     corners = torch.zeros((3, max_faces), dtype=torch.int32, device=dev)
     size = k10_scratch(RX, RY, RZ)
     # the counters, the scan's tile counter and status words, zeroed on the stream
@@ -396,15 +409,16 @@ def marching_cubes(level: torch.Tensor, max_verts: int, max_faces: int, valid_x_
     scratch = {name: torch.empty(size[name], dtype=torch.uint8 if name == "cases" else torch.int32, device=dev)
                for name in ("cutbits", "word_base", "cases", "blocks", "fbase")}
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    err = _mc_lib("marching_cubes_fwd", 10, 9)(
-        level.data_ptr(), tables.data_ptr(), pos.data_ptr(), corners.data_ptr(), zeroed.data_ptr(),
+    err = _mc_lib("marching_cubes_fwd", 11, 9)(
+        level.data_ptr(), tables.data_ptr(), pos.data_ptr(), None if edges is None else edges.data_ptr(),
+        corners.data_ptr(), zeroed.data_ptr(),
         *(scratch[name].data_ptr() for name in ("cutbits", "word_base", "cases", "blocks", "fbase")),
         RX, RY, RZ, limit, max_verts, max_faces, maxtri, size["status_tiles"], num_sms,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "marching_cubes_fwd")
     marching_cubes.launches += 1
-    return MCResult(pos[0], pos[1], pos[2], corners[0], corners[1], corners[2], *zeroed[:4].unbind())
+    return MCResult(pos[0], pos[1], pos[2], corners[0], corners[1], corners[2], *zeroed[:4].unbind(), edges)
 
 
 marching_cubes.launches = 0

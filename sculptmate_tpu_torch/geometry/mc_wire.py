@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import warnings
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -20,6 +20,19 @@ from sculptmate_tpu_torch.geometry.mc_tables import EDGE_AXIS, EDGE_OFFSET, buil
 from sculptmate_tpu_torch.geometry.native import load_native
 
 N_WIRE_COUNTS = 2  # num_verts, n_vblocks (callers may append extras)
+
+
+class WireMesh(NamedTuple):
+    """A decoded wire: the mesh in lattice coords, the wire's counts and,
+    on request, each vertex's cut edge, ``a * RX * RY * RZ + (i * RY + j)
+    * RZ + k`` for the edge from lattice point (i, j, k) along axis a (as
+    ``marching_cubes(return_edges=True)`` numbers them)."""
+
+    verts: np.ndarray  # (nv, 3) f32
+    faces: np.ndarray  # (nf, 3) i32
+    colors: np.ndarray  # (nv, 3) f32
+    counts: np.ndarray  # (n_counts,) u32
+    edges: Optional[np.ndarray] = None  # (nv,) int64, with return_edges
 
 
 class WireCorruptError(ValueError):
@@ -119,7 +132,7 @@ def _lib():
             ctypes.c_longlong,
             i32, i32, i32, i32,
             ctypes.c_int, ctypes.c_longlong,
-            f32, f32, i32,
+            f32, f32, i32, ctypes.POINTER(ctypes.c_int64),
         ]
         lib._mc_wire_configured = True
     return lib
@@ -136,9 +149,10 @@ def decode_wire(
     n_counts: int = N_WIRE_COUNTS,
     has_colors: bool = True,
     valid_x_limit: int = -1,
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """wire (W,) uint8 -> (verts (nv,3) f32 lattice coords, faces (nf,3) i32,
-    colors (nv,3) f32, counts (n_counts,) u32). Raises on malformed input.
+    return_edges: bool = False,
+) -> WireMesh:
+    """wire (W,) uint8 -> ``WireMesh`` (its ``edges`` with
+    ``return_edges``, else None). Raises on malformed input.
 
     ``valid_x_limit``: cells/x-cuts valid at x < limit (default RX-1) — must
     match the ``valid_x`` mask the device packer ran with (the SP sharded
@@ -167,12 +181,8 @@ def decode_wire(
         cr = cg = cb = np.zeros(max_verts, np.uint8)
 
     if nv == 0:
-        return (
-            np.zeros((0, 3), np.float32),
-            np.zeros((0, 3), np.int32),
-            np.zeros((0, 3), np.float32),
-            counts,
-        )
+        return WireMesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32), np.zeros((0, 3), np.float32),
+                        counts, np.zeros(0, np.int64) if return_edges else None)
 
     tri_table, tri_count, edge_axis, edge_offset, maxtri = _tables()
     lib = _lib()
@@ -188,6 +198,7 @@ def decode_wire(
         verts = np.empty((nv, 3), np.float32)
         colors = np.empty((nv, 3), np.float32)
         faces = np.empty((max(nf, 1), 3), np.int32)
+        edges = np.empty(nv, np.int64) if return_edges else None
         wrote = int(
             lib.mc_wire_build(
                 _ptr(occ, ctypes.c_uint8), RX, RY, RZ, valid_x_limit,
@@ -199,7 +210,7 @@ def decode_wire(
                 _ptr(edge_axis, ctypes.c_int32), _ptr(edge_offset, ctypes.c_int32),
                 maxtri, nf,
                 _ptr(verts, ctypes.c_float), _ptr(colors, ctypes.c_float),
-                _ptr(faces, ctypes.c_int32),
+                _ptr(faces, ctypes.c_int32), None if edges is None else _ptr(edges, ctypes.c_int64),
             )
         )
         if wrote < 0:
@@ -208,7 +219,7 @@ def decode_wire(
             raise WireCorruptError(
                 f"mc_wire_build wrote {wrote} faces, expected {nf}"
             )
-        return verts, faces[:nf], colors, counts
+        return WireMesh(verts, faces[:nf], colors, counts, edges)
 
     warnings.warn(
         "native mc_wire unavailable - falling back to the ~10x slower numpy "
@@ -217,11 +228,11 @@ def decode_wire(
         stacklevel=2,
     )
     return _decode_numpy(
-        occ, t_lo, t_hi, cr, cg, cb, shape, nv, counts, valid_x_limit
+        occ, t_lo, t_hi, cr, cg, cb, shape, nv, counts, valid_x_limit, return_edges
     )
 
 
-def _decode_numpy(occ, t_lo, t_hi, cr, cg, cb, shape, nv, counts, vxlim=-1):
+def _decode_numpy(occ, t_lo, t_hi, cr, cg, cb, shape, nv, counts, vxlim=-1, return_edges=False):
     """Vectorized numpy fallback (same conventions as the C++)."""
     RX, RY, RZ = shape
     if vxlim < 0:
@@ -327,4 +338,5 @@ def _decode_numpy(occ, t_lo, t_hi, cr, cg, cb, shape, nv, counts, vxlim=-1):
         faces_np = faces_all
     else:
         faces_np = np.zeros((0, 3), np.int64)
-    return verts, faces_np.astype(np.int32), colors, counts
+    edges = (axis * n3 + (i * RY + j) * RZ + k).astype(np.int64) if return_edges else None
+    return WireMesh(verts, faces_np.astype(np.int32), colors, counts, edges)

@@ -190,8 +190,10 @@ long long mc_wire_count_faces(const uint8_t *occ_bytes, int RX, int RY,
 }
 
 // Rebuild the mesh. out_verts (nv*3 f32, lattice coords), out_colors
-// (nv*3 f32 in [0,1]), out_faces (max_out_faces*3 i32). Returns the number
-// of faces written, or -1 on bad arguments / -2 on vertex-count mismatch.
+// (nv*3 f32 in [0,1]), out_faces (max_out_faces*3 i32) and, when not null,
+// out_edges (nv i64: each vertex's cut edge a*RX*RY*RZ + lin). Returns the
+// number of faces written, or -1 on bad arguments / -2 on vertex-count
+// mismatch.
 long long mc_wire_build(
     const uint8_t *occ_bytes, int RX, int RY, int RZ, int valid_x_limit,
     const uint8_t *t_lo, const uint8_t *t_hi,
@@ -200,7 +202,8 @@ long long mc_wire_build(
     const int32_t *tri_table /*(256*5*3)*/, const int32_t *tri_count /*(256,)*/,
     const int32_t *edge_axis /*(12,)*/, const int32_t *edge_offset /*(12*3)*/,
     int max_tri, long long max_out_faces,
-    float *out_verts, float *out_colors, int32_t *out_faces) {
+    float *out_verts, float *out_colors, int32_t *out_faces,
+    int64_t *out_edges) {
     // block-major numbering needs every dim 8-aligned (the device packer
     // already guarantees this: mc_wire_device asserts dims % 8 == 0)
     if (RX % 8 != 0 || RY % 8 != 0 || RZ % 8 != 0) return -1;
@@ -239,6 +242,10 @@ long long mc_wire_build(
                                 out_colors[3 * v + 0] = (float)cr[v] / 255.0f;
                                 out_colors[3 * v + 1] = (float)cg[v] / 255.0f;
                                 out_colors[3 * v + 2] = (float)cb[v] / 255.0f;
+                                if (out_edges)
+                                    out_edges[v] =
+                                        (int64_t)a * RX * RY * RZ +
+                                        ((int64_t)i * RY + j) * RZ + k;
                                 ++v;
                             }
                         }

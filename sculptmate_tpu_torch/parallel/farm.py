@@ -27,7 +27,8 @@ device named several times can):
   lattice's first-layer partials, pads x to a multiple of 8,
   and runs K10 (or K3) with an x limit that keeps the halo's cells out;
   every shard is dispatched before any is waited on, and the host welds
-  the seams' exact duplicates.
+  the seams by edge identity: a halo row's cut edges are the next shard's
+  first row's (``_seam_weld``).
 
 Each stage of the farm's front runs inside a ``torch.profiler`` span
 (``farm.matting``, ``farm.preprocess``, ``farm.encode``), beside the TSR's
@@ -140,8 +141,8 @@ class AssetFarm:
             tsr = self._tsr_on(codes.device)
             with device_scope(codes.device):
                 results += [tsr._packed_mesh(code, resolution, float(threshold), mv, mf) for code in codes]
-        return MCResult(*(torch.stack([f.to(self.device, non_blocking=True) for f in field])
-                          for field in zip(*results)))
+        stack = lambda field: torch.stack([f.to(self.device, non_blocking=True) for f in field])  # noqa: E731
+        return MCResult(*(None if field[0] is None else stack(field) for field in zip(*results)))  # edges: None
 
     def extract_batch_wire(
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0,
@@ -310,26 +311,50 @@ def sharded_density_grid(
     return out
 
 
-def _weld(all_verts, all_faces) -> Tuple[np.ndarray, np.ndarray]:
-    """Concatenate the shards' meshes, merge the seam vertices (exact
-    duplicates: the halo row is the neighbour's first row, computed to the
-    same bits) and drop the vertices no face uses. The exact-match unique
-    of the JAX package's ``np.unique(axis=0)``, by a numeric lexsort of the
-    columns (vertices in (x, y, z) order)."""
-    verts = np.concatenate(all_verts) if all_verts else np.zeros((0, 3), np.float32)
-    faces = np.concatenate(all_faces) if all_faces else np.zeros((0, 3), np.int64)
-    order = np.lexsort((verts[:, 2], verts[:, 1], verts[:, 0]))
-    sv = verts[order]
-    new = np.ones(len(sv), bool)
-    new[1:] = (sv[1:] != sv[:-1]).any(axis=1)
-    inv = np.empty(len(sv), np.int64)
-    inv[order] = np.cumsum(new) - 1
-    uverts = sv[new]
-    faces = inv[faces]
-    used = np.zeros(len(uverts), bool)
-    used[faces.ravel()] = True
-    remap = np.cumsum(used) - 1
-    return uverts[used], remap[faces]
+def _seam_weld(shards, slab: int, R: int, RXp: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Join the x-slabs' meshes by edge identity. ``shards``: per shard, in
+    x order, (verts (n, 3) f32 lattice coords with the slab's x origin
+    added, faces (m, 3) int64 into them, edges (n,) int64 ascending: each
+    vertex's cut edge in the shard's padded (RXp, R, R) lattice, as K10
+    numbers them). Shard s keeps the vertices of its own rows (x < slab);
+    the y and z cut edges of its halo row x = slab are shard s + 1's edges
+    of row 0, the same cuts at the same positions (the row has the same
+    bits in both), and each face corner on one takes that vertex. The last
+    shard's halo row (the lattice's last row again) is used by no face, as
+    its x limit keeps its cells out. Vertices inside a shard are never
+    merged, so coincident vertices of different edges (a cut at a lattice
+    point where the level is exactly 0) stay apart, as in the whole
+    lattice's mesh. Returns the vertices in the whole lattice's K10 order
+    (axis-major, then flat x-major) and the faces in shard order."""
+    plane, n3, n_sp = R * R, RXp * R * R, len(shards)
+    # per shard and axis: where its vertices start, where the halo row's start
+    axis_at = [np.searchsorted(e, np.arange(4) * n3) for _, _, e in shards]
+    halo_at = [np.searchsorted(e, np.arange(3) * n3 + slab * plane) for _, _, e in shards]
+    if any(h[0] != a[1] for a, h in zip(axis_at, halo_at)):
+        raise RuntimeError("an x-cut edge of a halo row (the x limit was not the slab's)")
+    kept = np.array([[h[a] - at[a] for a in range(3)] for at, h in zip(axis_at, halo_at)])  # (sp, 3)
+    base = (np.cumsum(kept.T.ravel()) - kept.T.ravel()).reshape(3, n_sp)  # axis-major, then shard
+    verts = np.empty((int(kept.sum()), 3), np.float32)
+    remaps = []
+    for s, (v, _, _) in enumerate(shards):
+        remap = np.full(len(v), -1, np.int64)
+        for a in range(3):
+            lo, hi, b = axis_at[s][a], halo_at[s][a], base[a, s]
+            verts[b : b + hi - lo] = v[lo:hi]
+            remap[lo:hi] = np.arange(b, b + hi - lo)
+        remaps.append(remap)
+    for s in range(n_sp - 1):
+        e, e1 = shards[s][2], shards[s + 1][2]
+        for a in (1, 2):
+            halo = slice(halo_at[s][a], axis_at[s][a + 1])
+            row0 = slice(axis_at[s + 1][a], np.searchsorted(e1, a * n3 + plane))
+            if not np.array_equal(e[halo] - slab * plane, e1[row0]):
+                raise RuntimeError(f"the seam between shards {s} and {s + 1} has different cut edges on its two sides")
+            remaps[s][halo] = remaps[s + 1][row0]
+    faces = np.concatenate([remap[f] for remap, (_, f, _) in zip(remaps, shards)])
+    if (faces < 0).any():
+        raise RuntimeError("a face uses a vertex of the last shard's halo row")
+    return verts, faces
 
 
 def sharded_extract(
@@ -347,9 +372,12 @@ def sharded_extract(
     marching cubes (K10) with the slab's x limit (its own rows; the last
     shard's last row is the lattice's boundary), every shard dispatched
     before any is read, then one copy per shard and the host weld of the
-    seams. Returns (verts (N, 3) f32 lattice coords, faces (M, 3) int64),
-    the single-device ``marching_cubes`` mesh up to vertex order. A
-    shard's overflow raises ``RuntimeError``."""
+    seams by edge identity (``_seam_weld``). Returns (verts (N, 3) f32
+    lattice coords, faces (M, 3) int64): the single-device
+    ``marching_cubes`` mesh, its vertices in its order (positions within an
+    f32 ulp: a shard adds its x origin to its own coordinates) and its
+    faces (in its order too where the slab is a multiple of 8). A shard's
+    overflow raises ``RuntimeError``."""
     devices, slab, RXp = _slab_geometry(mesh, spec, sp_axis)
     R, n_sp = spec.resolution, len(devices)
     mv = max_verts_per_shard if max_verts_per_shard > 0 else 16 * R * R // n_sp + 65536
@@ -358,21 +386,20 @@ def sharded_extract(
     for s, dev in enumerate(devices):
         with device_scope(dev):
             level = _slab_level(triplane, weights, spec, threshold, s, slab, RXp, dev, partials)
-            res = marching_cubes(level, mv, mf, valid_x_limit=slab - 1 if s == n_sp - 1 else slab)
-            counts = torch.stack(list(res[6:])).to(torch.int64)
-            packed.append((res.vx + float(s * slab), res.vy, res.vz, res.faces, counts))
-    all_verts, all_faces, base = [], [], 0
-    for s, (vx, vy, vz, faces, counts) in enumerate(packed):
+            res = marching_cubes(level, mv, mf, valid_x_limit=slab - 1 if s == n_sp - 1 else slab, return_edges=True)
+            counts = torch.stack([res.num_verts, res.num_faces, res.num_active_blocks, res.num_active_cells])
+            packed.append((res.vx + float(s * slab), res.vy, res.vz, res.faces, res.edges, counts.to(torch.int64)))
+    shards = []
+    for s, (vx, vy, vz, faces, edges, counts) in enumerate(packed):
         nv, nf, nblk, ncell = (int(c) for c in counts.cpu())
         if nv > mv or nf > mf:
             raise RuntimeError(
                 f"sharded_extract capacity overflow on shard {s}: "
                 f"nv={nv}/{mv} nf={nf}/{mf} blocks={nblk} cells={ncell}"
             )
-        all_verts.append(torch.stack([vx[:nv], vy[:nv], vz[:nv]], dim=1).cpu().numpy())
-        all_faces.append(faces[:nf].cpu().numpy().astype(np.int64) + base)
-        base += nv
-    return _weld(all_verts, all_faces)
+        shards.append((torch.stack([vx[:nv], vy[:nv], vz[:nv]], dim=1).cpu().numpy(),
+                       faces[:nf].cpu().numpy().astype(np.int64), edges[:nv].cpu().numpy()))
+    return _seam_weld(shards, slab, R, RXp)
 
 
 def sharded_extract_wire(
@@ -386,9 +413,11 @@ def sharded_extract_wire(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """``sharded_extract`` over the wire format: each shard's K3 wire
     (occupancy bits and u16 t) with the slab's x limit, every shard
-    dispatched before any is read; the host rebuilds each shard's faces with
-    the same limit, then welds the exact-duplicate seams (the halo row's
-    bits and t are the neighbour's, so its positions are the same bits)."""
+    dispatched before any is read; the host rebuilds each shard's faces and
+    its vertices' edges with the same limit, puts the vertices in edge
+    order and welds the seams by edge identity (``_seam_weld``). The
+    result is ``sharded_extract``'s mesh in its vertex order, positions
+    within a u16 t step, faces in the wire decoder's order."""
     devices, slab, RXp = _slab_geometry(mesh, spec, sp_axis)
     R, n_sp = spec.resolution, len(devices)
     mv = max_verts_per_shard if max_verts_per_shard > 0 else 16 * R * R // n_sp + 65536
@@ -397,16 +426,18 @@ def sharded_extract_wire(
         with device_scope(dev):
             level = _slab_level(triplane, weights, spec, threshold, s, slab, RXp, dev, partials)
             wires.append(mc_wire_device(level, mv, valid_x_limit=slab - 1 if s == n_sp - 1 else slab))
-    all_verts, all_faces, base = [], [], 0
+    shards = []
     for s, wire in enumerate(wires):
         wire = wire.cpu().numpy()
         nv, nblk = (int(c) for c in mc_wire.wire_counts(wire, N_WIRE_COUNTS))
         if nv > mv:
             raise RuntimeError(f"sharded_extract_wire capacity overflow on shard {s}: nv={nv}/{mv} blocks={nblk}")
         limit = slab - 1 if s == n_sp - 1 else slab
-        verts, faces, _, _ = mc_wire.decode_wire(wire, (RXp, R, R), mv, has_colors=False, valid_x_limit=limit)
+        verts, faces, _, _, edges = mc_wire.decode_wire(wire, (RXp, R, R), mv, has_colors=False,
+                                                        valid_x_limit=limit, return_edges=True)
         verts[:, 0] += s * slab
-        all_verts.append(verts)
-        all_faces.append(faces.astype(np.int64) + base)
-        base += nv
-    return _weld(all_verts, all_faces)
+        order = np.argsort(edges)  # block-major -> K10's edge order
+        rank = np.empty_like(order)
+        rank[order] = np.arange(len(order))
+        shards.append((verts[order], rank[faces], edges[order]))
+    return _seam_weld(shards, slab, R, RXp)

@@ -426,7 +426,7 @@ class TSR:
     def _wire_decode(self, host: _HostCopy, wire: np.ndarray, nv: int, mv_used: int, resolution: int):
         """Wire (+ split color bytes) -> (verts world f32, faces i64, colors f32 | None)."""
         shape = (resolution, resolution, resolution)
-        verts, faces, _, _ = mc_wire.decode_wire(wire, shape, mv_used, has_colors=False)
+        verts, faces, *_ = mc_wire.decode_wire(wire, shape, mv_used, has_colors=False)
         colors = None
         if len(host.parts) > 1 and nv > 0:
             cb = host.colors()  # its copy ran while the geometry decoded

@@ -84,7 +84,7 @@ def test_mc_wire_matches_jax(rng, field):
     rgb_g, rgb_r = (c.reshape(3, mv)[:, :nv].astype(np.int32) for c in (got_rgb, ref_rgb))
     assert np.abs(rgb_g - rgb_r).max() <= 1
 
-    vg, fg, _, _ = twire.decode_wire(got, shape, mv, has_colors=False)
+    vg, fg, *_ = twire.decode_wire(got, shape, mv, has_colors=False)
     vr, fr, _, _ = jwire.decode_wire(ref, shape, mv, has_colors=False)
     assert len(fg) > 0 and np.array_equal(fg, fr)
     np.testing.assert_allclose(vg, vr, rtol=0, atol=2.0 / 65535)
@@ -96,8 +96,8 @@ def test_numpy_decoder_matches_native(rng):
     wire = mc_wire_device(torch.from_numpy(level), mv).numpy()
     o = twire.wire_layout(level.shape, mv, twire.N_WIRE_COUNTS, has_colors=False)
     zeros = np.zeros(mv, np.uint8)
-    vn, fn, _, counts = twire.decode_wire(wire, level.shape, mv, has_colors=False)
-    vp, fp, _, _ = twire._decode_numpy(
+    vn, fn, _, counts, _ = twire.decode_wire(wire, level.shape, mv, has_colors=False)
+    vp, fp, *_ = twire._decode_numpy(
         wire[: o[1]], wire[o[1] : o[2]], wire[o[2] : o[3]], zeros, zeros, zeros,
         level.shape, int(counts[0]), counts,
     )

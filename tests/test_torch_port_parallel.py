@@ -7,6 +7,8 @@ conftest's 8 virtual CPU devices, on the same seeded weights
 (``tsr_params_from_jax``, ``sf3d_params_from_jax``) and inputs."""
 
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -171,7 +173,7 @@ def test_valid_x_limit_matches_jax(slab_level, limit):
     wire = mc.mc_wire_device_plain(torch.from_numpy(level), mv, valid_x_limit=limit).numpy()
     jref = np.asarray(jax.jit(functools.partial(j_wire, valid_x=valid_x), static_argnums=(1,))(jnp.asarray(level), mv))
     assert wire.shape == jref.shape and np.array_equal(wire, jref)
-    vg, fg, _, _ = twire.decode_wire(wire, level.shape, mv, has_colors=False, valid_x_limit=limit)
+    vg, fg, *_ = twire.decode_wire(wire, level.shape, mv, has_colors=False, valid_x_limit=limit)
     vr, fr, _, _ = jwire.decode_wire(jref, level.shape, mv, has_colors=False, valid_x_limit=limit)
     assert len(fg) == nf and np.array_equal(fg, fr)
     np.testing.assert_allclose(vg, vr, rtol=0, atol=2.0 / 65535)
@@ -293,13 +295,47 @@ def test_sharded_extract_capacities(sharded):
     assert np.array_equal(v, sharded["port"][0]) and np.array_equal(f, sharded["port"][1])
 
 
+@functools.lru_cache(maxsize=None)
+def smoke():
+    """``chip_smoke``, whose mesh helpers the checks here share: its
+    ``merge_exact_duplicates`` (the JAX package's weld, the planted weld
+    fault there) and ``on_their_edges``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+def directed_edges(faces):
+    return set(map(tuple, np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]).tolist()))
+
+
+def assert_unwelded_single(got, single, wire=False):
+    """``got`` is the single-device mesh as it comes: the same vertex count
+    and order, the same directed edges, positions within one f32 ulp (for
+    the wire a u16 t step and an ulp); the packed form's faces in the same
+    order."""
+    (gv, gf), (sv, sf) = got, single
+    assert len(gv) == len(sv) and len(gf) == len(sf)
+    assert directed_edges(gf) == directed_edges(sf)
+    ulp = np.spacing(np.maximum(np.abs(gv), np.abs(sv)))
+    if wire:
+        assert (np.abs(gv - sv) <= 1.0 / 65535 + ulp).all()
+    else:
+        assert np.array_equal(gf, sf)
+        assert (np.abs(gv - sv) <= ulp).all()
+
+
 def test_sharded_extract_merges_the_cuts_of_a_lattice_value(pair):
     """A threshold equal to a lattice point's density, each package's own
-    slab value there: the level is exactly 0 at that point, the cut edges
-    from it to its inside neighbours put their vertices on it, and the
-    exact-duplicate weld of both packages merges them. So the sharded mesh
-    has fewer vertices and directed edges than the single-device mesh, and
-    equals it welded the same way; the JAX package's merges the same."""
+    slab value there: the level is exactly 0 at that point, and the cut
+    edges from it to its inside neighbours put their vertices on it. The
+    port's seam weld matches vertices by edge identity, so its sharded mesh
+    (packed and wire) is the unwelded single-device mesh; the JAX package's
+    exact-duplicate weld merges the coincident vertices, so its sharded
+    mesh has fewer vertices and equals the port's welded the same way."""
     jt, tt, code, jw, tw = pair
     R, slab = R_SP, R_SP // 8
     spec, jspec = tt.grid_spec(R), jt.grid_spec(R)
@@ -322,11 +358,12 @@ def test_sharded_extract_merges_the_cuts_of_a_lattice_value(pair):
     thr = float(dens[p])
     got = farm_mod.sharded_extract(mesh, torch.from_numpy(code), tw, spec, thr)
     wire = farm_mod.sharded_extract_wire(mesh, torch.from_numpy(code), tw, spec, thr)
-    sv, sf = mc.marching_cubes_host(dens - thr, device="cpu")
-    welded = farm_mod._weld([sv], [sf.astype(np.int64)])
-    assert len(got[0]) < len(sv) and edge_stats(got[1])[0] < edge_stats(sf)[0]
-    assert_same_mesh(got, welded)
-    assert_same_mesh(wire, got)
+    single = mc.marching_cubes_host(dens - thr, device="cpu")
+    single = single[0], single[1].astype(np.int64)
+    welded = smoke().merge_exact_duplicates(*single)
+    assert len(welded[0]) < len(single[0]) and len(directed_edges(welded[1])) < len(directed_edges(single[1]))
+    assert_unwelded_single(got, single)
+    assert_unwelded_single(wire, single, wire=True)
     # JAX's shards evaluate their slab from its x coordinates: its threshold
     # is the slab's value at p, as its shard program computes it
     s = p[0] // slab
@@ -335,7 +372,94 @@ def test_sharded_extract_merges_the_cuts_of_a_lattice_value(pair):
     jslab = np.asarray(jax.jit(lambda c, x: j_query(c, jw, jspec, x_coords=x))(jnp.asarray(code), jnp.asarray(cx)))
     jthr = float(jslab[p[0] - s * slab, p[1], p[2]])
     ref = jfarm_mod.sharded_extract(j_make_mesh((8,), ("sp",)), jnp.asarray(code), jw, jspec, threshold=jthr)
-    assert_same_mesh(got, ref)
+    assert len(ref[0]) < len(got[0])
+    assert_same_mesh(welded, ref)
+
+
+R_SEAM = 32  # the seam cases' lattice
+
+
+@pytest.fixture(scope="module")
+def seam_density(pair):
+    jt, tt, code, jw, tw = pair
+    spec = tt.grid_spec(R_SEAM)
+    return dg.query_density_grid(torch.from_numpy(code), tw, spec).numpy(), spec
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("form", ["packed", "wire"])
+def test_sharded_extract_at_a_zero_on_a_seam_plane(pair, seam_density, sp, form):
+    """The level exactly 0 at a lattice point of the last seam plane x =
+    (sp - 1) slab with at least two inside neighbours, so cut edges from
+    both sides of the seam put coincident vertices on it: the sharded
+    extraction over sp CPU shards gives the unwelded single-device K10 mesh
+    (vertex count and order, directed edges, positions within one f32 ulp,
+    a u16 t step for the wire), where an exact-duplicate weld would lose
+    vertices."""
+    jt, tt, code, jw, tw = pair
+    dens, spec = seam_density
+    R, slab = R_SEAM, R_SEAM // sp
+    x = (sp - 1) * slab
+    steps = [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]
+    denser = [(j, k) for j in range(1, R - 1) for k in range(1, R - 1)
+              if sum(dens[x + a, j + b, k + c] > dens[x, j, k] for a, b, c in steps) >= 2
+              and (dens[x, j, k] < dens[x - 1, j, k]) and (dens[x, j, k] < dens[x + 1, j, k])]
+    j, k = denser[len(denser) // 2]
+    thr = float(dens[x, j, k])
+    single = mc.marching_cubes_host(dens - thr, device="cpu")
+    single = single[0], single[1].astype(np.int64)
+    assert len(smoke().merge_exact_duplicates(*single)[0]) < len(single[0])
+    fn = farm_mod.sharded_extract if form == "packed" else farm_mod.sharded_extract_wire
+    got = fn(make_mesh((sp,), ("sp",), devices=cpus(sp)), torch.from_numpy(code), tw, spec, thr)
+    assert_unwelded_single(got, single, wire=form == "wire")
+
+
+def test_seam_weld_refuses_seams_that_differ():
+    """Two shards whose seam rows disagree raise, as does a face on the
+    last shard's halo row."""
+    R, slab, RXp = 8, 4, 8
+    plane, n3 = R * R, RXp * R * R
+    v = np.zeros((2, 3), np.float32)
+    f = np.zeros((1, 3), np.int64)
+    halo = np.array([1 * n3 + 3 * plane + 5, 1 * n3 + slab * plane + 9])
+    row0 = np.array([1 * n3 + 10, 1 * n3 + 2 * plane])
+    with pytest.raises(RuntimeError, match="different cut edges"):
+        farm_mod._seam_weld([(v, f, halo), (v, f, row0)], slab, R, RXp)
+    with pytest.raises(RuntimeError, match="halo row"):
+        farm_mod._seam_weld([(v, f + 1, halo)], slab, R, RXp)
+
+
+@pytest.mark.parametrize("limit", [8, 7])
+def test_vertex_edges_of_k10_and_the_wire_decoder(slab_level, limit):
+    """Each vertex's cut edge: K10's plain version's ascending, the edges
+    its positions lie on, zero past the count; the wire decoder's (native
+    and numpy) the same edges in its block-major order, with the same
+    positions within a u16 t step."""
+    from sculptmate_tpu_torch.geometry import mc_wire as twire
+
+    level = torch.from_numpy(slab_level)
+    n3, plane = level.numel(), level.shape[1] * level.shape[2]
+    mv, mf = 3 * n3 // 4, 3 * n3 // 2
+    res = mc.marching_cubes_plain(level, mv, mf, valid_x_limit=limit, return_edges=True)
+    without = mc.marching_cubes_plain(level, mv, mf, valid_x_limit=limit)
+    assert without.edges is None and torch.equal(res.vx, without.vx)
+    nv = int(res.num_verts)
+    e = res.edges.numpy()
+    assert nv > 100 and (np.diff(e[:nv]) > 0).all() and not e[nv:].any()
+    pos = res.verts[:nv].numpy()
+    assert smoke().on_their_edges(pos, e[:nv], level.shape)
+    assert (e[:nv][e[:nv] < n3] // plane < limit).all()  # x-cut edges: x below the limit
+    wire = mc.mc_wire_device_plain(level, mv, valid_x_limit=limit).numpy()
+    got = twire.decode_wire(wire, level.shape, mv, has_colors=False, valid_x_limit=limit, return_edges=True)
+    occ, lo, hi, *_ = twire.wire_layout(level.shape, mv, 2, has_colors=False)
+    zeros = np.zeros(mv, np.uint8)
+    numpy = twire._decode_numpy(wire[occ:lo], wire[lo:hi], wire[hi : hi + mv], zeros, zeros, zeros, level.shape,
+                                nv, None, limit, return_edges=True)
+    assert twire.decode_wire(wire, level.shape, mv, has_colors=False, valid_x_limit=limit).edges is None
+    for verts, edges_w in ((got.verts, got.edges), (numpy.verts, numpy.edges)):
+        order = np.argsort(edges_w)
+        assert np.array_equal(edges_w[order], e[:nv])
+        assert np.abs(verts[order] - pos).max() <= 1.0 / 65535
 
 
 # -- the farms over dp, and tensor parallelism --
@@ -516,8 +640,8 @@ def test_density_kernel_on_slabs_matches_plain():
 @pytest.mark.cuda
 @pytest.mark.parametrize("limit", [-1, 8, 3])
 def test_marching_cubes_kernels_at_x_limits_match_plain(limit):
-    """K3's wire byte for byte and K10's every field and counter equal to
-    their plain versions at an x limit on a padded slab."""
+    """K3's wire byte for byte and K10's every field, counter and vertex
+    edge equal to their plain versions at an x limit on a padded slab."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(5)
@@ -526,7 +650,7 @@ def test_marching_cubes_kernels_at_x_limits_match_plain(limit):
     level = level.cuda()
     assert torch.equal(mc.mc_wire_device(level, 1 << 16, valid_x_limit=limit),
                        mc.mc_wire_device_plain(level, 1 << 16, valid_x_limit=limit))
-    got = mc.marching_cubes(level, 1 << 16, 1 << 17, valid_x_limit=limit)
-    ref = mc.marching_cubes_plain(level, 1 << 16, 1 << 17, valid_x_limit=limit)
+    got = mc.marching_cubes(level, 1 << 16, 1 << 17, valid_x_limit=limit, return_edges=True)
+    ref = mc.marching_cubes_plain(level, 1 << 16, 1 << 17, valid_x_limit=limit, return_edges=True)
     for k in mc.MCResult._fields:
         assert torch.equal(getattr(got, k), getattr(ref, k)), k

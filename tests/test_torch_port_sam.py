@@ -286,19 +286,19 @@ def test_official_state_dict_loads(tiny, tmp_path, monkeypatch):
     psam.Sam(32, 2, 2, img_size=128).load_state_dict(loaded, strict=True)
 
 
-def test_session_predict_matches_jax(tiny, monkeypatch):
-    """``SamSession.predict`` on a 96 x 80 image with a point and a box:
-    the same 1024^2 canvas, prompt scaling and padding point, best-IoU mask
-    and resizes as the JAX session, whose encode and decode are neutralised
-    for (a)-(d). The 8-bit masks agree but where a mask logit lies within
-    float noise of 0."""
+@pytest.fixture(scope="module")
+def sessions(tiny):
+    """The tiny model as a port ``SamSession`` on the CPU and as a JAX
+    session at the 1024^2 frame (a 64^2 position table), the JAX encode
+    and decode neutralised for (a)-(d)."""
     net, params = tiny
-    monkeypatch.setitem(psam.SAM_SIZES, "tiny", (32, 2, 2, (2, 5, 8, 11)))
     full = psam.Sam(32, 2, 2)  # the same weights at the 1024^2 frame: a 64^2 position table
     sd = dict(net.state_dict())
     sd["image_encoder.pos_embed"] = sd["image_encoder.pos_embed"].repeat(1, 8, 8, 1)
     full.load_state_dict(sd)
-    port = psam.SamSession(state_dict=full.state_dict(), variant="tiny", device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(psam.SAM_SIZES, "tiny", (32, 2, 2, (2, 5, 8, 11)))
+        port = psam.SamSession(state_dict=full.state_dict(), variant="tiny", device="cpu")
     jparams = {**params, "image_encoder": {**params["image_encoder"],
                                            "pos_embed": jnp.asarray(sd["image_encoder.pos_embed"].numpy())}}
     jsess = object.__new__(jsam.SamSession)
@@ -310,12 +310,114 @@ def test_session_predict_matches_jax(tiny, monkeypatch):
 
     jsess._encode = jax.jit(encode)
     jsess._decode = lambda v, emb, pts, lbl: _jax_decoder()(v["params"], emb, pts, lbl)
+    return port, jsess
+
+
+def _mask_agrees(got, ref, share=0.01):
+    """8-bit masks that agree but where a mask logit lies within float
+    noise of 0: at most ``share`` of the pixels more than 1 apart."""
+    diff = np.abs(np.asarray(got).astype(int) - np.asarray(ref).astype(int))
+    assert (diff > 1).mean() <= share, (diff > 1).mean()
+
+
+def test_session_predict_matches_jax(sessions):
+    """``SamSession.predict`` on a 96 x 80 image with a point and a box:
+    the same 1024^2 canvas, prompt scaling and padding point, best-IoU mask
+    and resizes as the JAX session, whose encode and decode are neutralised
+    for (a)-(d). The 8-bit masks agree but where a mask logit lies within
+    float noise of 0."""
+    port, jsess = sessions
     img = Image.fromarray((np.random.default_rng(7).random((80, 96, 3)) * 255).astype(np.uint8))
     prompt = [{"type": "point", "data": [40, 30], "label": 1}, {"type": "rectangle", "data": [10, 5, 90, 70]}]
     ref, got = jsess.predict(img, sam_prompt=prompt), port.predict(img, sam_prompt=prompt)
     assert len(got) == len(ref) == 1 and got[0].size == ref[0].size == (96, 80)
-    diff = np.abs(np.asarray(got[0]).astype(int) - np.asarray(ref[0]).astype(int))
-    assert (diff > 1).mean() <= 0.01, (diff > 1).mean()
+    _mask_agrees(got[0], ref[0])
+
+
+# -- the SAM cutout helpers of frontend/preprocess.py --
+
+BBOX = (70.5, 50.0, 119.0, 95.0)  # its mask leaves ~5 % of the image out
+
+
+def _cutout_image():
+    """A seeded 120 x 96 RGB image: noise under a bright disc."""
+    rng = np.random.default_rng(11)
+    img = rng.random((96, 120, 3)) * 120
+    yy, xx = np.mgrid[:96, :120]
+    img[(yy - 46) ** 2 + (xx - 58) ** 2 < 30**2] += 130
+    return img.clip(0, 255).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def jax_cutout(sessions):
+    from sculptmate_tpu.frontend.preprocess import sam_segment as j_segment
+
+    return j_segment(Image.fromarray(_cutout_image()), BBOX, session=sessions[1])
+
+
+def test_sam_segment_matches_jax(sessions, jax_cutout):
+    """The port's ``sam_segment`` on a PIL image against the JAX
+    package's, on the same seeded tiny SAM with (a)-(d) neutralised on the
+    JAX side (the box corners take the half-pixel shift of (c) too): an
+    RGBA image of the input's size, the RGB equal, the SAM mask as alpha
+    agreeing as ``predict``'s does."""
+    from sculptmate_tpu_torch.frontend.preprocess import sam_segment
+
+    got = sam_segment(Image.fromarray(_cutout_image()), BBOX, session=sessions[0])
+    assert got.mode == jax_cutout.mode == "RGBA" and got.size == jax_cutout.size == (120, 96)
+    g, r = np.asarray(got), np.asarray(jax_cutout)
+    assert np.array_equal(g[..., :3], r[..., :3])
+    assert 0.02 < (r[..., 3] < 128).mean() < 0.98
+    _mask_agrees(g[..., 3], r[..., 3])
+
+
+def test_sam_segment_without_pil_matches_jax(sessions, jax_cutout, monkeypatch):
+    """On an (H, W, 4) uint8 array ``sam_segment`` runs with no PIL
+    (``SamSession.predict_rgb``: the resizes in f32 on the session's
+    device): an (H, W, 4) array, the RGB the input's, the alpha the JAX
+    package's within PIL's fixed-point rounding (at most 1 % of the pixels
+    more than 1 apart)."""
+    import sys
+
+    from sculptmate_tpu_torch.frontend.preprocess import sam_segment
+
+    rgba = np.concatenate([_cutout_image(), np.full((96, 120, 1), 7, np.uint8)], axis=-1)
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "PIL", None)
+        got = sam_segment(rgba, BBOX, session=sessions[0])
+    assert got.dtype == np.uint8 and got.shape == (96, 120, 4)
+    assert np.array_equal(got[..., :3], rgba[..., :3])
+    _mask_agrees(got[..., 3], np.asarray(jax_cutout)[..., 3])
+
+
+def _rgba_image(seed, empty=False):
+    """A seeded 150 x 130 RGBA image: noise, its alpha a soft blob (values
+    0..255, some 1 and 2 at the rim), or zero."""
+    rng = np.random.default_rng(seed)
+    arr = (rng.random((150, 130, 4)) * 255).astype(np.uint8)
+    yy, xx = np.mgrid[:150, :130]
+    r = np.sqrt((yy - 70.0) ** 2 / 1.6 + (xx - 52.0) ** 2)
+    arr[..., 3] = 0 if empty else np.clip(255 * (40 - r) / 8, 0, 255).astype(np.uint8)
+    if not empty:
+        arr[66:70, 90:93, 3] = (1, 2, 1)  # alpha 1 is not foreground, 2 is
+    return Image.fromarray(arr, mode="RGBA")
+
+
+@pytest.mark.parametrize("lower_contrast,rescale,empty", [(True, True, False), (False, True, False),
+                                                           (True, False, False), (True, True, True)])
+def test_image_preprocess_sam_matches_jax(lower_contrast, rescale, empty):
+    """``image_preprocess_sam`` byte-equal to the JAX package's on a
+    seeded RGBA image, with and without the contrast lowering and the
+    rescale, and on an empty alpha; the same scale."""
+    from sculptmate_tpu.frontend.preprocess import image_preprocess_sam as j_pre
+    from sculptmate_tpu_torch.frontend.preprocess import image_preprocess_sam
+
+    img = _rgba_image(3, empty)
+    got, scale = image_preprocess_sam(img, lower_contrast=lower_contrast, rescale=rescale)
+    ref, jscale = j_pre(img, lower_contrast=lower_contrast, rescale=rescale)
+    assert got.mode == ref.mode == "RGB" and got.size == ref.size
+    assert got.size == ((130, 150) if empty else (1024, 1024))
+    assert np.array_equal(np.asarray(got), np.asarray(ref)) and scale == jscale
 
 
 def _pad_norm1_output_with_zeros_1024(next_fun, args, kwargs, context):

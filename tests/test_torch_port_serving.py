@@ -236,7 +236,7 @@ def test_async_handle_holds_its_host_copy(small_tsr):
 
     wire, rgb = (t.numpy() for t in tt._extract_wire(codes[0], RES, 0.5, mv, True))
     assert mv_used == mv and nv == int(mc_wire.wire_counts(wire, mc_wire.N_WIRE_COUNTS)[0])
-    v, f, _, _ = mc_wire.decode_wire(wire, (RES,) * 3, mv, has_colors=False)
+    v, f, *_ = mc_wire.decode_wire(wire, (RES,) * 3, mv, has_colors=False)
     scale = 2 * tt.config.radius / (RES - 1.0)
     assert np.array_equal(verts, v * scale - tt.config.radius) and np.array_equal(faces, f)
     assert np.array_equal(colors, rgb.reshape(3, mv)[:, :nv].T.astype(np.float32) / 255.0)
