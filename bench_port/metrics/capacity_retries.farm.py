@@ -1,0 +1,9 @@
+"""Capacity retries per 100 lattice evaluations of the farm's assets:
+``tsr.capacity_retry`` spans over ``tsr.density_grid`` spans (the
+retries' own included), in percent."""
+
+from harness.spans import retries_per_100
+
+
+def read(trace, cell):
+    return retries_per_100(trace)

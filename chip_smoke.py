@@ -3431,7 +3431,7 @@ def main():
         "one farm chunk (matting + preprocess + encode + extract 256^3 + colors)",
         lambda: farm.generate_batch_rgba(rgba[:1], matting=matting, resolution=256, threshold=threshold,
                                          has_vertex_color=True),
-        prefixes=("farm.", "tsr."),
+        prefixes=("farm.", "matting.", "tsr."),
     )
     sf3d_small_check()
     sf3d_launches = sf3d_path(fast, scene)

@@ -12,7 +12,10 @@ sessions (``frontend/sessions.py``) derive from it. The network and its
 normalisation run on the device in f32 (``predict_mask_batch``). The host
 surface (``predict_mask``, ``remove``) works on PIL images; PIL and cv2 are
 imported inside the functions that use them, so the device path needs
-neither.
+neither. Each stage runs inside a ``torch.profiler`` span named
+``matting.<stage>``: the network (``matting.u2net``, on the device path
+too) and, on the host surface, the resizes, the mask's copy to the host and
+the cutout, all inside ``matting.remove``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from sculptmate_tpu_torch.frontend.u2net import U2Net
 from sculptmate_tpu_torch.runtime.checkpoint import U2NET_KEY, try_load_onnx_state_dict
@@ -87,22 +91,27 @@ class SessionBase:
     def predict_mask_batch(self, images: torch.Tensor) -> torch.Tensor:
         """Device path: (B, H, W, 3) in [0, 1] at ``input_size`` -> (B, H, W)
         masks."""
-        return self._predict(images.to(self.device, torch.float32))
+        with record_function("matting.u2net"):
+            return self._predict(images.to(self.device, torch.float32))
 
     def _small(self, image) -> torch.Tensor:
         """PIL image -> (1, H, W, 3) in [0, 1] at ``input_size`` (Lanczos)."""
         from PIL import Image
 
-        small = image.convert("RGB").resize(self.input_size, Image.Resampling.LANCZOS)
-        return torch.from_numpy(np.asarray(small, dtype=np.float32) / 255.0)[None]
+        with record_function("matting.downsize"):
+            small = image.convert("RGB").resize(self.input_size, Image.Resampling.LANCZOS)
+            return torch.from_numpy(np.asarray(small, dtype=np.float32) / 255.0)[None]
 
     def predict_mask(self, image):
         """PIL image -> PIL 'L' mask at the image's size."""
         from PIL import Image
 
-        mask = self.predict_mask_batch(self._small(image))[0].cpu().numpy()
-        mask_img = Image.fromarray((mask * 255).astype(np.uint8), mode="L")
-        return mask_img.resize(image.size, Image.Resampling.LANCZOS)
+        mask = self.predict_mask_batch(self._small(image))[0]
+        with record_function("matting.mask_to_host"):  # waits for the network
+            mask = mask.cpu().numpy()
+        with record_function("matting.upsize"):
+            mask_img = Image.fromarray((mask * 255).astype(np.uint8), mode="L")
+            return mask_img.resize(image.size, Image.Resampling.LANCZOS)
 
     def predict(self, image, *args, **kwargs):
         """Session surface: a list of masks (``rembg/sessions/base.py:17-31``)."""
@@ -177,34 +186,36 @@ def remove(
     ``ValueError``) on ``device``, which defaults to the card."""
     from PIL import Image, ImageOps
 
-    if session is None and session_name is not None:
-        from sculptmate_tpu_torch.frontend.sessions import new_session
+    with record_function("matting.remove"):
+        if session is None and session_name is not None:
+            from sculptmate_tpu_torch.frontend.sessions import new_session
 
-        session = new_session(session_name, device=device)
-    session = session or default_session(device)
-    image = ImageOps.exif_transpose(image)
-    if hasattr(session, "predict"):
-        masks = session.predict(image, **session_kwargs)
-    else:
-        masks = [session.predict_mask(image)]
-
-    cutouts = []
-    for mask in masks:
-        if post_process:
-            mask = Image.fromarray(post_process_mask(np.asarray(mask)))
-        if only_mask:
-            cutout = mask
-        elif putalpha:
-            cutout = image.convert("RGB").copy()
-            cutout.putalpha(mask)
+            session = new_session(session_name, device=device)
+        session = session or default_session(device)
+        image = ImageOps.exif_transpose(image)
+        if hasattr(session, "predict"):
+            masks = session.predict(image, **session_kwargs)
         else:
-            empty = Image.new("RGBA", image.size, 0)
-            cutout = Image.composite(image, empty, mask)
-        cutouts.append(cutout)
+            masks = [session.predict_mask(image)]
 
-    cutout = _concat_v_multi(cutouts) if cutouts else image
-    if bgcolor is not None and not only_mask:
-        bg = Image.new("RGBA", cutout.size, tuple(bgcolor))
-        bg.paste(cutout, mask=cutout)  # the cutout's alpha is the paste mask
-        cutout = bg
-    return cutout
+        with record_function("matting.cutout"):
+            cutouts = []
+            for mask in masks:
+                if post_process:
+                    mask = Image.fromarray(post_process_mask(np.asarray(mask)))
+                if only_mask:
+                    cutout = mask
+                elif putalpha:
+                    cutout = image.convert("RGB").copy()
+                    cutout.putalpha(mask)
+                else:
+                    empty = Image.new("RGBA", image.size, 0)
+                    cutout = Image.composite(image, empty, mask)
+                cutouts.append(cutout)
+
+            cutout = _concat_v_multi(cutouts) if cutouts else image
+            if bgcolor is not None and not only_mask:
+                bg = Image.new("RGBA", cutout.size, tuple(bgcolor))
+                bg.paste(cutout, mask=cutout)  # the cutout's alpha is the paste mask
+                cutout = bg
+        return cutout

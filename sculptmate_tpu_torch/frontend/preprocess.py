@@ -6,7 +6,10 @@ Counterpart of ``sculptmate_tpu/frontend/preprocess.py``.
   with its quirks: the bbox crop takes ``alpha.max()`` as an exclusive
   bound (dropping the last foreground row and column), the gray composite
   comes before the uint8 quantization, and an input whose padded square is
-  narrower than 250 px is rejected (None).
+  narrower than 250 px is rejected (None). It runs inside a
+  ``torch.profiler`` span, ``frontend.preprocess``, with the matting's
+  ``matting.*`` spans and its own ``frontend.crop_pad``,
+  ``frontend.composite`` and ``frontend.resize`` inside.
 - ``preprocess_batch_device`` (any device): the batched serving path. The
   alpha bbox is a masked min/max on the device, and the whole crop -> pad ->
   Lanczos resize chain is one dynamic-window separable resample
@@ -22,6 +25,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.profiler import record_function
 
 from sculptmate_tpu_torch.ops.warp import separable_resample
 
@@ -38,37 +42,41 @@ def preprocess_image(image, ratio: float = 0.85, use_alpha: bool = False, sessio
 
     from sculptmate_tpu_torch.frontend.matting import remove
 
-    input_raw = image.convert("RGBA") if use_alpha else image
-    input_raw = remove(input_raw, session=session)
+    with record_function("frontend.preprocess"):
+        input_raw = image.convert("RGBA") if use_alpha else image
+        input_raw = remove(input_raw, session=session)
 
-    arr = np.asarray(input_raw)
-    ys, xs = np.where(arr[..., 3] > 0)
-    if len(ys) == 0:
-        return None
-    y1, y2, x1, x2 = ys.min(), ys.max(), xs.min(), xs.max()
-    fg = arr[y1:y2, x1:x2]  # exclusive max bound, as in the reference
-    if fg.size == 0:
-        return None
+        with record_function("frontend.crop_pad"):
+            arr = np.asarray(input_raw)
+            ys, xs = np.where(arr[..., 3] > 0)
+            if len(ys) == 0:
+                return None
+            y1, y2, x1, x2 = ys.min(), ys.max(), xs.min(), xs.max()
+            fg = arr[y1:y2, x1:x2]  # exclusive max bound, as in the reference
+            if fg.size == 0:
+                return None
 
-    size = max(fg.shape[0], fg.shape[1])
-    ph0, pw0 = (size - fg.shape[0]) // 2, (size - fg.shape[1]) // 2
-    ph1, pw1 = size - fg.shape[0] - ph0, size - fg.shape[1] - pw0
-    fg = np.pad(fg, ((ph0, ph1), (pw0, pw1), (0, 0)), mode="constant")
+            size = max(fg.shape[0], fg.shape[1])
+            ph0, pw0 = (size - fg.shape[0]) // 2, (size - fg.shape[1]) // 2
+            ph1, pw1 = size - fg.shape[0] - ph0, size - fg.shape[1] - pw0
+            fg = np.pad(fg, ((ph0, ph1), (pw0, pw1), (0, 0)), mode="constant")
 
-    new_size = int(size / ratio)
-    p0 = (new_size - size) // 2
-    p1 = new_size - size - p0
-    fg = np.pad(fg, ((p0, p1), (p0, p1), (0, 0)), mode="constant")
+            new_size = int(size / ratio)
+            p0 = (new_size - size) // 2
+            p1 = new_size - size - p0
+            fg = np.pad(fg, ((p0, p1), (p0, p1), (0, 0)), mode="constant")
 
-    if use_alpha:
-        return Image.fromarray(fg, mode="RGBA")
+        if use_alpha:
+            return Image.fromarray(fg, mode="RGBA")
 
-    f = fg.astype(np.float32) / 255.0
-    rgb = f[:, :, :3] * f[:, :, 3:4] + (1 - f[:, :, 3:4]) * 0.5
-    out = Image.fromarray((rgb * 255.0).astype(np.uint8))
-    if out.size[0] < 250:
-        return None
-    return out.resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
+        with record_function("frontend.composite"):
+            f = fg.astype(np.float32) / 255.0
+            rgb = f[:, :, :3] * f[:, :, 3:4] + (1 - f[:, :, 3:4]) * 0.5
+            out = Image.fromarray((rgb * 255.0).astype(np.uint8))
+        if out.size[0] < 250:
+            return None
+        with record_function("frontend.resize"):
+            return out.resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
 
 
 def sam_segment(image, bbox, session=None):

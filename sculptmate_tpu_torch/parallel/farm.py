@@ -31,8 +31,8 @@ device named several times can):
   first row's (``_seam_weld``).
 
 Each stage of the farm's front runs inside a ``torch.profiler`` span
-(``farm.matting``, ``farm.preprocess``, ``farm.encode``), beside the TSR's
-``tsr.*`` spans.
+(``farm.matting``, ``farm.preprocess``; the encode is the TSR's own
+``tsr.scene_codes``), beside the TSR's other ``tsr.*`` spans.
 """
 
 from __future__ import annotations
@@ -209,8 +209,7 @@ class AssetFarm:
         replica there, its backbone over the tp group ``tp``) -> scene codes."""
         with device_scope(rgba.device):
             cond = self._prep_cond(rgba, matting, ratio)
-            with record_function("farm.encode"):
-                return self._tsr_on(rgba.device).scene_codes(cond, tp)
+            return self._tsr_on(rgba.device).scene_codes(cond, tp)
 
     def generate_batch_rgba(
         self,

@@ -33,12 +33,15 @@ up once through pinned memory, so nothing on the dispatch path waits for
 the device.
 
 Each stage runs inside a ``torch.profiler`` span named ``tsr.<stage>``, so
-a profile of one asset splits its host and device time by stage.
+a profile of one asset splits its host and device time by stage; each
+re-extraction after a capacity overflow runs inside ``tsr.capacity_retry``,
+so their number is the retry count.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -426,10 +429,12 @@ class TSR:
     def _wire_decode(self, host: _HostCopy, wire: np.ndarray, nv: int, mv_used: int, resolution: int):
         """Wire (+ split color bytes) -> (verts world f32, faces i64, colors f32 | None)."""
         shape = (resolution, resolution, resolution)
-        verts, faces, *_ = mc_wire.decode_wire(wire, shape, mv_used, has_colors=False)
+        with record_function("tsr.wire_faces"):
+            verts, faces, *_ = mc_wire.decode_wire(wire, shape, mv_used, has_colors=False)
         colors = None
         if len(host.parts) > 1 and nv > 0:
-            cb = host.colors()  # its copy ran while the geometry decoded
+            with record_function("tsr.colors_to_host"):
+                cb = host.colors()  # its copy ran while the geometry decoded
             colors = cb.reshape(3, mv_used)[:, :nv].T.astype(np.float32) / 255.0
         scale = 2 * self.config.radius / (resolution - 1.0)
         return verts * scale - self.config.radius, faces.astype(np.int64), colors
@@ -470,7 +475,9 @@ class TSR:
             if grown is None:
                 break
             mv = grown
-            host = self._dispatch(handle.scene_code, handle.resolution, handle.threshold, mv, handle.want_colors)
+            with record_function("tsr.capacity_retry"):
+                host = self._dispatch(handle.scene_code, handle.resolution, handle.threshold, mv,
+                                      handle.want_colors)
         if store:
             self._wire_caps_store(handle.resolution, mv, nv)
         with record_function("tsr.wire_decode"):
@@ -574,15 +581,17 @@ class TSR:
         out = []
         for code in scene_codes:
             mv, mf = self._packed_caps(resolution, max_verts, max_faces)
+            extract = functools.partial(self._extract_packed, code, resolution, float(threshold),
+                                        want_colors=bool(has_vertex_color))
+            verts, faces, colors, counts = extract(mv, mf)
             while True:
-                verts, faces, colors, counts = self._extract_packed(
-                    code, resolution, float(threshold), mv, mf, bool(has_vertex_color)
-                )
                 with record_function("tsr.packed_to_host"):
                     nv, nf = (int(c) for c in counts.cpu())
                 if nv <= mv and nf <= mf:
                     break
                 mv, mf = max(mv, up64k(int(1.2 * nv))), max(mf, up64k(int(1.2 * nf)))
+                with record_function("tsr.capacity_retry"):
+                    verts, faces, colors, counts = extract(mv, mf)
             caps = (capacity_cache.tighten(mv, nv), capacity_cache.tighten(mf, nf))
             self._packed_cap_cache[resolution] = caps
             capacity_cache.store(f"torch_tsr_packed_r{resolution}", caps)

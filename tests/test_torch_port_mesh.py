@@ -2,6 +2,7 @@
 Lean slice (codes -> density grid -> wire -> mesh with vertex colors)
 against the JAX package, on the CPU."""
 
+import collections
 import functools
 
 import jax
@@ -156,17 +157,31 @@ def test_extract_mesh_matches_jax(slice_pair, resolution):
     np.testing.assert_allclose(cg, cr, rtol=0, atol=1.0 / 255 + 1e-6)
 
 
+def _span_counts(fn):
+    """``fn()`` under the CPU profiler -> (its result, the count of each
+    event name)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, collections.Counter(e.name for e in prof.events())
+
+
 def test_overflow_is_retried_not_truncated(slice_pair):
     """An explicit capacity far below the vertex count still returns the
-    whole mesh (grown and re-extracted), identical to the default run."""
+    whole mesh (grown and re-extracted), identical to the default run; the
+    re-extraction runs inside one ``tsr.capacity_retry`` span, the default
+    run inside none."""
     _, tt, codes = slice_pair
     code = torch.from_numpy(codes)
-    v0, f0, c0 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5)[0]
+    (v0, f0, c0), n0 = _span_counts(
+        lambda: tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5)[0])
     assert len(v0) > 64
     tt._wire_cap_cache.clear()
-    v1, f1, c1 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5, max_verts=64)[0]
+    (v1, f1, c1), n1 = _span_counts(
+        lambda: tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5, max_verts=64)[0])
     assert np.array_equal(f0, f1) and np.array_equal(v0, v1) and np.array_equal(c0, c1)
     assert tt._wire_cap_cache[16] >= len(v0)
+    assert n0["tsr.capacity_retry"] == 0 and n1["tsr.capacity_retry"] == 1
+    assert n1["tsr.density_grid"] == 2
 
 
 def test_extract_stages_are_profiled(slice_pair):
@@ -179,4 +194,4 @@ def test_extract_stages_are_profiled(slice_pair):
         tt.extract_mesh(torch.from_numpy(codes), has_vertex_color=True, resolution=16, threshold=0.5)
     spans = {e.key for e in prof.key_averages() if e.key.startswith("tsr.")}
     assert spans == {"tsr.scene_codes", "tsr.density_grid", "tsr.marching_cubes", "tsr.color_query",
-                     "tsr.wire_to_host", "tsr.wire_decode"}
+                     "tsr.wire_to_host", "tsr.wire_decode", "tsr.wire_faces", "tsr.colors_to_host"}

@@ -160,15 +160,21 @@ def test_extract_mesh_packed_matches_jax(cap_dir, packed_pair, resolution):
 def test_packed_capacity_retry_and_wire_refusal(cap_dir, packed_pair):
     """Capacities far below the counts are grown and the asset extracted
     again, never truncated: the same mesh as the default run, and the grown
-    capacities remembered. In wire mode ``max_faces`` raises."""
+    capacities remembered; the extraction again runs inside one
+    ``tsr.capacity_retry`` span, the default run inside none. In wire mode
+    ``max_faces`` raises."""
     jt, tt, codes = packed_pair
     code = torch.from_numpy(codes)
     thr = _threshold(jt, codes, 16)
-    v0, f0, c0 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=thr, mode="packed")[0]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p0:
+        v0, f0, c0 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=thr, mode="packed")[0]
     assert len(v0) > 64 and len(f0) > 64
     tt._packed_cap_cache.clear()
-    v1, f1, c1 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=thr, max_verts=64,
-                                 max_faces=64, mode="packed")[0]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p1:
+        v1, f1, c1 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=thr, max_verts=64,
+                                     max_faces=64, mode="packed")[0]
+    retries = [sum(e.name == "tsr.capacity_retry" for e in p.events()) for p in (p0, p1)]
+    assert retries == [0, 1]
     assert np.array_equal(v0, v1) and np.array_equal(f0, f1) and np.array_equal(c0, c1)
     mv, mf = tt._packed_cap_cache[16]
     assert mv >= len(v0) and mf >= len(f0)
