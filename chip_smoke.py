@@ -40,8 +40,10 @@ Phases (any failure raises and exits non-zero):
    copy kernels and device time under the profiler, codes bit-equal.
 3. The Lean main path at full width (default ``TSRConfig``: ViT-B/16,
    16 x 1024 backbone, 256^3 grid) with seeded random weights: one asset
-   through ``TripoGenerator`` with the launch counters (K1, K2, K3, K4) read
-   around it, then a warm-up and three timed assets through the same calls
+   through ``TripoGenerator`` with the launch counters (K1, K2, K4, K10, and
+   K3, which must not run: on the card the default path builds the faces
+   with K10) read around it, then a warm-up and three timed assets through
+   the same calls
    (``scene_codes`` -> ``extract_mesh``); a narrow model on the card
    against the same model on the CPU, its codes and (bf16) its render.
    Then the render path: one ``TSR.render_views`` at the defaults (8 views,
@@ -49,9 +51,10 @@ Phases (any failure raises and exits non-zero):
    one written as PNG, three timed renders (``render_sec``) and a profile
    (``tsr.render*`` spans); and the packed path: one asset's
    ``extract_mesh(mode="packed", has_vertex_color=True)`` with the K2, K4
-   and K10 counters, held to wire mode on the same codes (counts, positions
-   at the same lattice edge, triangles, colors), three timed assets
-   (``packed_sec_per_asset`` beside the wire's ``sec_per_asset``), one
+   and K10 counters, held to ``mode="wire"`` on the same codes (counts,
+   positions at the same lattice edge, triangles, colors), three timed
+   assets (``packed_sec_per_asset`` beside the main path's
+   ``sec_per_asset``), one
    ``AssetFarm`` packed batch of 2, and a profile.
 4. Frontend checks: a narrow u2net (``SMALL_CONFIG``) at 64^2 on the card
    against the same weights on the CPU; the full u2net at 320^2 on the card
@@ -71,11 +74,12 @@ Phases (any failure raises and exits non-zero):
    eight raw 512^2 RGBA images with full-u2net matting, the fused
    preprocess, encode and 256^3 extraction with vertex colors; one batch
    with the launch counters read around it (it is also the warm-up), then
-   three timed batches, and every mesh checked.
+   three timed batches, and every mesh checked (K10 on every asset, K3 on
+   none).
 6. The asynchronous contract: the dispatch half of three in-flight assets
    (the farm's front, then ``extract_mesh_async``) under
    ``torch.cuda.set_sync_debug_mode("error")``, so any host sync fails the
-   run (K3 and K4 dispatch there); then their waits.
+   run (K10 and K4 dispatch there); then their waits.
 7. Profiles: one asset (``tsr.*`` spans) and one farm chunk (``farm.*``
    and ``tsr.*`` spans), each with the device's idle share and each span's
    device launches.
@@ -165,7 +169,7 @@ Phases (any failure raises and exits non-zero):
    head-dim-88 time at SingleStreamTransformer's shape under ``d88_*``
    keys and the dead-upstream runs' launches in ``launches_by_path``; K5's
    launches counted on the untextured SF3D asset; K6's, K8's and K9's on
-   the textured one; K3's and K4's on the TripoGenerator asset, K4's per
+   the textured one; K3's, K4's and K10's on the TripoGenerator asset, K4's per
    path beside them; K10's on the packed asset; K7's on the untextured SF3D
    asset, per path beside them; K11's on the packed SF3D extraction), then
    the card line, then
@@ -1959,8 +1963,8 @@ def addon_path(gen, fast, lean, scene):
 
     counters = {"K1": flash_attention, "K2": dg.density_mlp, "K3": mc.mc_wire_device, "K4": dg.triplane_points,
                 "K5": dg.grid_multihead, "K6": dg.points_multihead, "K7": mt.mt_wire_device, "K8": tb.binned_winner,
-                "K9": ud.unwrap_core}
-    need = {"lean": ("K1", "K2", "K3", "K4"), "fast": ("K1", "K5", "K6", "K7", "K8", "K9")}
+                "K9": ud.unwrap_core, "K10": mc.marching_cubes}
+    need = {"lean": ("K1", "K2", "K10", "K4"), "fast": ("K1", "K5", "K6", "K7", "K8", "K9")}
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     try:
         import fake_bpy
@@ -2344,10 +2348,10 @@ def tp_farm_path(tsr, matting, threshold):
                                         has_vertex_color=True, chunk=2)
 
     torch.cuda.synchronize()
-    flash_attention.launches = dg.density_mlp.launches = mc.mc_wire_device.launches = dg.triplane_points.launches = 0
+    flash_attention.launches = dg.density_mlp.launches = mc.marching_cubes.launches = dg.triplane_points.launches = 0
     meshes = run()
     torch.cuda.synchronize()
-    launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
+    launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K10": mc.marching_cubes.launches,
                 "K4": dg.triplane_points.launches}
     _, sec, _, _ = _timed(run)
     x = upload(rgba, farm.device)
@@ -2370,7 +2374,7 @@ def tp_farm_path(tsr, matting, threshold):
                     "codes_bf16_max_abs_err": err, "codes_bf16_limit": limit,
                     "codes_f32_max_abs_err": err32, "codes_f32_limit": limit32, "meshes_failing_checks": bad,
                     "phase_sec": time.perf_counter() - t0}))
-    if launches["K1"] != want_k1 or min(launches["K2"], launches["K3"], launches["K4"]) < 4:
+    if launches["K1"] != want_k1 or min(launches["K2"], launches["K10"], launches["K4"]) < 4:
         raise AssertionError(f"the (2, 2) farm missed a kernel: {launches}")
     if err > limit or err32 > limit32:
         raise AssertionError(f"tp codes disagree: bf16 {err} > {limit} or f32 {err32} > {limit32}")
@@ -2759,20 +2763,24 @@ def main_path(gen):
         glb = os.path.join(tmp, "asset.glb")
         torch.cuda.synchronize()
         flash_attention.launches = dg.density_mlp.launches = mc.mc_wire_device.launches = 0
-        dg.triplane_points.launches = 0
+        dg.triplane_points.launches = mc.marching_cubes.launches = 0
         rc = gen.generate_mesh(image, output_path=glb, threshold=threshold)
         torch.cuda.synchronize()
         launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
-                    "K4": dg.triplane_points.launches}
+                    "K4": dg.triplane_points.launches, "K10": mc.marching_cubes.launches}
         glb_bytes = os.path.getsize(glb) if rc == 0 else 0
-    # K2, K3 and K4 run twice when the first 256^3 extraction outgrows the
-    # default vertex capacity: the exact counter triggers one re-extraction
+    # on the card the default path builds the faces with K10 (K3 never
+    # runs); K2, K10 and K4 run twice when the first 256^3 extraction
+    # outgrows the default capacities: the exact counters trigger one
+    # re-extraction
     log(json.dumps({"main_path": "TripoGenerator.generate_mesh", "rc": rc, "launches": launches,
                     "glb_bytes": glb_bytes}))
     if rc != 0:
         raise RuntimeError(f"generate_mesh returned {rc}")
-    if launches["K1"] != 44 or launches["K2"] < 1 or launches["K3"] < 1 or launches["K4"] < 1:
+    if launches["K1"] != 44 or launches["K2"] < 1 or launches["K10"] < 1 or launches["K4"] < 1:
         raise AssertionError(f"main path missed a kernel: {launches}")
+    if launches["K3"]:
+        raise AssertionError(f"the main path on the card ran the wire (K3): {launches}")
 
     times = []
     for it in range(4):  # 1 warm-up + 3 timed
@@ -2907,7 +2915,7 @@ def packed_path(tsr, scene, wire_sec):
     vp, fp, cp = tsr.extract_mesh(codes, has_vertex_color=True, resolution=256, threshold=threshold, mode="packed")[0]
     torch.cuda.synchronize()
     launches = {"K2": dg.density_mlp.launches, "K4": dg.triplane_points.launches, "K10": mc.marching_cubes.launches}
-    vw, fw, cw = tsr.extract_mesh(codes, has_vertex_color=True, resolution=256, threshold=threshold)[0]
+    vw, fw, cw = tsr.extract_mesh(codes, has_vertex_color=True, resolution=256, threshold=threshold, mode="wire")[0]
     scale = 2 * r / 255.0
     same_counts = len(vp) == len(vw) and len(fp) == len(fw)
     pos_err = tri_equal = col_err = None
@@ -3318,11 +3326,12 @@ def serving_path(tsr, matting):
                                         has_vertex_color=True)
 
     torch.cuda.synchronize()
-    flash_attention.launches = dg.density_mlp.launches = mc.mc_wire_device.launches = dg.triplane_points.launches = 0
+    flash_attention.launches = dg.density_mlp.launches = mc.marching_cubes.launches = dg.triplane_points.launches = 0
+    mc.mc_wire_device.launches = 0
     meshes = run()
     torch.cuda.synchronize()
     launches = {"K1": flash_attention.launches, "K2": dg.density_mlp.launches, "K3": mc.mc_wire_device.launches,
-                "K4": dg.triplane_points.launches}
+                "K4": dg.triplane_points.launches, "K10": mc.marching_cubes.launches}
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -3335,8 +3344,8 @@ def serving_path(tsr, matting):
                     "verts": [len(m[0]) for m in meshes], "faces": [len(m[1]) for m in meshes],
                     "farm_sec_per_asset": float(np.median(times)) / batch,
                     "batch_sec": [round(t, 4) for t in times], "threshold": threshold, "meshes_failing_checks": bad}))
-    if launches["K1"] != 44 * batch or min(launches["K2"], launches["K3"], launches["K4"]) < batch:
-        raise AssertionError(f"serving path missed a kernel: {launches}")
+    if launches["K1"] != 44 * batch or min(launches["K2"], launches["K10"], launches["K4"]) < batch or launches["K3"]:
+        raise AssertionError(f"serving path missed a kernel or ran the wire (K3): {launches}")
     if bad or len(meshes) != batch:
         raise AssertionError(f"serving-path meshes {bad} failed their checks")
     return farm, rgba, threshold, launches, meshes
@@ -3355,7 +3364,7 @@ def async_contract(farm, matting, rgba, threshold, served):
     n = 3
     x = upload(rgba[:n], farm.device)
     torch.cuda.synchronize()
-    mc.mc_wire_device.launches = dg.triplane_points.launches = 0
+    mc.marching_cubes.launches = dg.triplane_points.launches = 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         handles = [farm.extract_batch_wire_async(farm._front(x[i : i + 1], matting, 0.75), 256, threshold, 0, True)
@@ -3367,12 +3376,12 @@ def async_contract(farm, matting, rgba, threshold, served):
     meshes = first + [m for h in handles[1:] for m in farm.extract_batch_wire_wait(h)]
     r = farm.tsr.config.radius
     same = [len(m[0]) == len(s[0]) and len(m[1]) == len(s[1]) for m, s in zip(meshes, served)]
-    dispatched = {"K3": mc.mc_wire_device.launches, "K4": dg.triplane_points.launches}
+    dispatched = {"K10": mc.marching_cubes.launches, "K4": dg.triplane_points.launches}
     log(json.dumps({"check": "no host sync on the dispatch path", "assets_in_flight": n, "passed": True,
                     "kernels_dispatched": dispatched,
                     "asset2_pending_when_asset0_returned": pending, "counts_as_served": same}))
     if min(dispatched.values()) < n:
-        raise AssertionError(f"the dispatch under sync debug mode missed K3 or K4: {dispatched}")
+        raise AssertionError(f"the dispatch under sync debug mode missed K10 or K4: {dispatched}")
     if not all(mesh_ok(*m, r) for m in meshes):
         raise AssertionError("meshes of the async-contract run failed their checks")
 
@@ -3497,7 +3506,6 @@ def main():
         {"name": "mc_wire", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
          "replaces": "sculptmate_tpu/geometry/marching_cubes.py:454", "launches": lean_launches["K3"],
          "launches_by_path": {"tripo_generator": lean_launches["K3"], "serving_batch_of_8": launches["K3"],
-                              "asset_farm_dp2_tp2_batch_of_4": multi["lean_farm"]["K3"],
                               f"sharded_extract_wire_{MULTI_R}_sp{MULTI_SP}":
                                   multi["extraction"]["sharded_extract_wire"]["K3"]},
          **multi["slab_times"]["K3"],
@@ -3518,7 +3526,9 @@ def main():
             ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "marching_cubes", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/marching_cubes.cu",
          "replaces": "sculptmate_tpu/geometry/marching_cubes.py:538", "launches": packed_launches["K10"],
-         "launches_by_path": {"packed_asset": packed_launches["K10"],
+         "launches_by_path": {"tripo_generator": lean_launches["K10"], "serving_batch_of_8": launches["K10"],
+                              "asset_farm_dp2_tp2_batch_of_4": multi["lean_farm"]["K10"],
+                              "packed_asset": packed_launches["K10"],
                               f"sharded_extract_{MULTI_R}_sp{MULTI_SP}": multi["extraction"]["sharded_extract"]["K10"]},
          **multi["slab_times"]["K10"],
          "max_abs_err": 0.0, "limit": "equal positions, faces, counters and vertex edges", "check": "pass",

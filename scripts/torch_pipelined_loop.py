@@ -7,8 +7,8 @@ point it at an unpacked older commit to compare two versions in one call),
 builds the default ``TSR`` (seed 0) on the card and, on one random 512^2
 cond image at 256^3 with vertex colors, times:
 
-- serial: ``scene_codes`` -> ``extract_mesh``, one asset after another
-  (median seconds per asset);
+- serial: ``scene_codes`` -> ``extract_mesh`` on the tree's default path
+  on the card, one asset after another (median seconds per asset);
 - pipelined: ``scene_codes`` + ``extract_mesh_async`` with three assets in
   flight, the oldest waited on (``extract_mesh_wait``) after each dispatch,
   as ``bench.py:bench_lean`` drives the JAX package (seconds per asset over

@@ -14,11 +14,14 @@ device named several times can):
   order. Without a mesh it is a one-device farm on ``device``.
   ``generate_batch_rgba`` is the serving loop: each chunk's matting, fused
   preprocess and encode are enqueued per dp shard, then every asset's
-  extraction (``TSR.extract_mesh_async``, so the retry and capacity policy
-  is the TSR's own), and up to three chunks are in flight before the
-  oldest is waited on and decoded on the host. Nothing before that wait
-  waits for the device. ``mode="packed"`` returns one batched ``MCResult``
-  of device tensors in lattice coords (K2, then K10, per asset).
+  extraction (``TSR.extract_mesh_async``, so the path, the retry and the
+  capacity policy are the TSR's own: on the card by default K10 builds the
+  faces on the device and the mesh comes back by pinned copies; on the CPU,
+  and with ``mode="wire"`` anywhere, the host rebuilds the faces from K3's
+  wire), and up to three chunks are in flight before the oldest is waited
+  on and finished on the host. Nothing before that wait waits for the
+  device. ``mode="packed"`` returns one batched ``MCResult`` of device
+  tensors in lattice coords (K2, then K10, per asset).
 - ``sharded_density_grid``, ``sharded_extract`` and
   ``sharded_extract_wire``: the high-resolution extraction over x-slabs of
   the lattice on the ``sp`` axis. Each shard evaluates its ``slab + 1``
@@ -52,12 +55,9 @@ from sculptmate_tpu_torch.ops.density_grid import DensityGridSpec, Weights, dens
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
 from sculptmate_tpu_torch.parallel.mesh import DeviceMesh, make_mesh, replicate, shard_batch
 from sculptmate_tpu_torch.runtime.device import canonical, device_scope, resolve_device
-from sculptmate_tpu_torch.systems.tsr import upload
+from sculptmate_tpu_torch.systems.tsr import _NO_MAX_FACES, _note, packed_path, upload
 
-_MODES = ("wire", "packed")
-_NO_MAX_FACES = (
-    "max_faces is not applicable in wire mode (faces are rebuilt on the host from the wire counters)"
-)
+_MODES = (None, "wire", "packed")
 
 
 class AssetFarm:
@@ -104,22 +104,28 @@ class AssetFarm:
         threshold: float = 25.0,
         max_verts: int = 0,
         max_faces: int = 0,
-        mode: str = "wire",
+        mode: Optional[str] = None,
         has_vertex_color: bool = False,
     ):
-        """Cond images (B, S, S, 3), split over dp -> in wire mode a list of
-        (verts, faces, colors | None) numpy triples in world coords, like
-        ``TSR.extract_mesh``; in packed mode one ``MCResult`` of (B, mv) and
-        (B, mf) tensors (see ``extract_batch_packed``)."""
-        if mode not in _MODES:
-            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-        if mode == "wire" and max_faces > 0:
-            raise ValueError(_NO_MAX_FACES)
+        """Cond images (B, S, S, 3), split over dp -> a list of (verts,
+        faces, colors | None) numpy triples in world coords, like
+        ``TSR.extract_mesh`` (``mode`` None or "wire": the TSR's paths, see
+        ``systems.tsr.packed_path``); with ``mode="packed"`` one ``MCResult``
+        of (B, mv) and (B, mf) tensors (see ``extract_batch_packed``)."""
+        self._check_mode(mode, max_faces)
         parts = self._encode(images)
         if mode == "packed":
             return self._packed(parts, resolution, threshold, max_verts, max_faces)
-        return self.extract_batch_wire_wait(self._wire_async(parts, resolution, threshold, max_verts,
-                                                             has_vertex_color))
+        return self.extract_batch_wire_wait(self._extract_async(parts, resolution, threshold, max_verts, max_faces,
+                                                                has_vertex_color, mode))
+
+    def _check_mode(self, mode, max_faces: int) -> None:
+        """An unknown mode raises, and so does ``max_faces`` where the
+        handles take the wire path (no device face buffer), before any work."""
+        if mode not in _MODES:
+            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+        if mode != "packed" and max_faces > 0 and not packed_path(mode, self.device):
+            raise ValueError(_NO_MAX_FACES)
 
     def extract_batch_packed(
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0, max_faces: int = 0
@@ -148,9 +154,9 @@ class AssetFarm:
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0,
         has_vertex_color: bool = False,
     ):
-        """Wire extraction of a batch of codes (B, 3, C, H, W), split over
-        dp -> a list of (verts (nv, 3) f32 world, faces (nf, 3) i64, colors
-        (nv, 3) f32 | None)."""
+        """Extraction of a batch of codes (B, 3, C, H, W), split over dp, on
+        the TSR's default path -> a list of (verts (nv, 3) f32 world, faces
+        (nf, 3) i64, colors (nv, 3) f32 | None)."""
         return self.extract_batch_wire_wait(
             self.extract_batch_wire_async(codes, resolution, threshold, max_verts, has_vertex_color)
         )
@@ -160,31 +166,33 @@ class AssetFarm:
         has_vertex_color: bool = False,
     ):
         """Enqueue every asset's extraction and host copy, each on its dp
-        shard; the handles, in batch order, for ``extract_batch_wire_wait``."""
-        return self._wire_async(self._split(codes), resolution, threshold, max_verts, has_vertex_color)
+        shard (``TSR.extract_mesh_async`` on its default path); the handles,
+        in batch order, for ``extract_batch_wire_wait``."""
+        return self._extract_async(self._split(codes), resolution, threshold, max_verts, 0, has_vertex_color, None)
 
-    def _wire_async(self, parts, resolution, threshold, max_verts, has_vertex_color):
+    def _extract_async(self, parts, resolution, threshold, max_verts, max_faces, has_vertex_color, mode):
         handles = []
         for _, codes in parts:
             tsr = self._tsr_on(codes.device)
             with device_scope(codes.device):
-                handles += [tsr.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts)
-                            for code in codes]
+                handles += [tsr.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts,
+                                                   max_faces, mode) for code in codes]
         return handles
 
     def extract_batch_wire_wait(self, handles):
-        """Wait for and decode each handle in order. An overflow is
-        re-extracted with a grown capacity, never truncated; the largest
-        capacity and count of the batch go to each replica's capacity cache."""
-        out, nv_seen, mv = [], 0, 0
+        """Wait for and finish each handle in order on the host. An overflow
+        is re-extracted with grown capacities, never truncated; the largest
+        capacities and counts of the batch go to each replica's capacity
+        cache."""
+        out, seen = [], {}
         for h in handles:
             with device_scope(h.scene_code.device):
-                mesh, (nv, mv_h) = self._tsr_on(h.scene_code.device).extract_mesh_wait(h, store=False)
-            nv_seen, mv = max(nv_seen, nv), max(mv, mv_h)
+                mesh, counts, caps = self._tsr_on(h.scene_code.device)._wait(h)
+            _note(seen, h.packed, counts, caps)
             out.append(mesh)
-        if handles:
-            for tsr in {id(t): t for t in self._replicas.values()}.values():
-                tsr._wire_caps_store(handles[0].resolution, mv, nv_seen)
+        for tsr in {id(t): t for t in self._replicas.values()}.values():
+            for packed, (counts, caps) in seen.items():
+                tsr._caps_store(handles[0].resolution, packed, counts, caps)
         return out
 
     def _prep_cond(self, rgba: torch.Tensor, matting, ratio: float) -> torch.Tensor:
@@ -220,27 +228,25 @@ class AssetFarm:
         threshold: float = 25.0,
         max_verts: int = 0,
         max_faces: int = 0,
-        mode: str = "wire",
+        mode: Optional[str] = None,
         has_vertex_color: bool = False,
         chunk: Optional[int] = None,
     ):
         """The serving loop: raw (B, H, W, 4) RGBA in [0, 1] -> (optional)
-        u2net matting -> fused preprocess -> encode -> wire extraction, in
-        ``chunk``-sized slices (default: the dp size, one asset per dp
-        shard), each split over dp, with up to three chunks in flight, so
-        chunk i's host copy and decode overlap the device work of the
-        chunks after it. Returns a list of (verts, faces, colors | None)
-        triples in batch order; in packed mode the whole batch's cond
-        images go through ``generate_batch(mode="packed")`` (one
-        ``MCResult``)."""
-        if mode not in _MODES:
-            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
+        u2net matting -> fused preprocess -> encode -> extraction on the
+        TSR's path for ``mode`` (None: K10 on the card, the wire on the CPU;
+        "wire": K3 and the host's face rebuild anywhere), in ``chunk``-sized
+        slices (default: the dp size, one asset per dp shard), each split
+        over dp, with up to three chunks in flight, so chunk i's host copy
+        and finish overlap the device work of the chunks after it. Returns a
+        list of (verts, faces, colors | None) triples in batch order; with
+        ``mode="packed"`` the whole batch's cond images go through
+        ``generate_batch(mode="packed")`` (one ``MCResult``)."""
+        self._check_mode(mode, max_faces)
         rgba = upload(rgba, self.device)  # once, for the whole batch
         if mode == "packed":
             cond = torch.cat([self._prep_cond(p, matting, ratio).to(self.device) for _, p in self._split(rgba)])
             return self.generate_batch(cond, resolution, threshold, max_verts, max_faces, mode="packed")
-        if max_faces > 0:
-            raise ValueError(_NO_MAX_FACES)
         B = rgba.shape[0]
         dp = self.mesh.shape[self.dp_axis]
         chunk = chunk or dp
@@ -249,7 +255,8 @@ class AssetFarm:
         out, inflight = [], []
         for s in range(0, B, chunk):
             parts = [(i, self._front(p, matting, ratio, self._tp[i])) for i, p in self._split(rgba[s : s + chunk])]
-            inflight.append(self._wire_async(parts, resolution, threshold, max_verts, has_vertex_color))
+            inflight.append(self._extract_async(parts, resolution, threshold, max_verts, max_faces, has_vertex_color,
+                                                mode))
             if len(inflight) > 2:
                 out.extend(self.extract_batch_wire_wait(inflight.pop(0)))
         for h in inflight:

@@ -10,38 +10,49 @@ ConvTranspose upsample -> NeRF MLP decoder, in two stages:
   (``cast_matrix_weights``), the rest of the parameters in f32. With a tp
   group (``tp``, a tuple of devices) the backbone runs tensor-parallel
   (``ops/sharding.py``); the ViT encoder stays whole, as in the JAX package;
-- ``extract_mesh``: codes -> density lattice (kernel K2) -> wire-format
-  marching cubes (K3) with per-vertex colors (K4) on the device -> one
-  uint8 transfer -> faces rebuilt on the host by the native wire decoder;
-  or, with ``mode="packed"``, face-emitting marching cubes (K10) and exact
-  f32 colors (K4) on the device, and only the live rows copied back;
+- ``extract_mesh``: codes -> density lattice (kernel K2) -> marching cubes
+  with per-vertex colors (K4) -> host arrays, along one of two paths. On the
+  card by default, face-emitting marching cubes (K10): the faces, exact f32
+  world positions and f32 colors are built on the device and copied back
+  whole, at their capacities, into pinned memory. On the CPU by default
+  (and anywhere with ``mode="wire"``), the wire format (K3): occupancy bits,
+  u16 t and u8 colors come to the host, which rebuilds the faces with the
+  native wire decoder. The path follows the device: on the card a pinned
+  copy of the whole mesh takes milliseconds where the host's face rebuild
+  takes tens of them; on the CPU the wire is the JAX package's default
+  path, which the tests hold the port to;
 - ``render_views``: codes -> spherical novel views, the decoder (K4) at
   every ray sample, alpha-composited onto white.
 
-The wire buffer has a fixed vertex capacity. Its counters are exact, so an
-overflow is detected and the extraction retried with a grown capacity,
-never decoded truncated; capacities that worked are remembered per
-resolution on the instance and on disk (``runtime/capacity_cache.py``).
+Each path's buffers have fixed capacities (the vertices; on the K10 path
+the faces too). Their counters are exact, so an overflow is detected and
+the extraction retried with grown capacities, never decoded truncated;
+capacities that worked are remembered per path and resolution on the
+instance and on disk (``runtime/capacity_cache.py``).
 
 ``extract_mesh_async`` only enqueues: the extraction's kernels, then a
-non-blocking copy of the wire (and of the color bytes) into pinned host
-memory, each followed by a CUDA event. ``extract_mesh_wait`` waits on the
-wire's event alone, decodes the geometry, and only then waits on the
-colors', so the color copy overlaps the decode and asset i's decode
-overlaps the device work of the assets enqueued after it. Numpy inputs go
-up once through pinned memory, so nothing on the dispatch path waits for
-the device.
+non-blocking copy of each part of its output into pinned host memory, each
+followed by a CUDA event. ``extract_mesh_wait`` waits on the counters'
+event alone (on the wire path the wire's, whose tail holds them), then
+builds the host arrays part by part, waiting on each part's event just
+before it, so the last copies overlap the first parts' host work and asset
+i's host work overlaps the device work of the assets enqueued after it.
+The arrays it returns own their memory: the pinned blocks go back to
+PyTorch's caching host allocator. Numpy inputs go up once through pinned
+memory, so nothing on the dispatch path waits for the device.
 
 Each stage runs inside a ``torch.profiler`` span named ``tsr.<stage>``, so
-a profile of one asset splits its host and device time by stage; each
-re-extraction after a capacity overflow runs inside ``tsr.capacity_retry``,
-so their number is the retry count.
+a profile of one asset splits its host and device time by stage; on both
+paths ``tsr.wire_decode`` brackets a handle's host finish and
+``tsr.wire_faces`` the faces' part of it (the native rebuild, or the copy
+out of the pinned block and the int64 conversion); each re-extraction
+after a capacity overflow runs inside ``tsr.capacity_retry``, so their
+number is the retry count.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -229,34 +240,41 @@ def upload(x, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class _HostCopy:
-    """The wire (and the color bytes) on their way to the host: host
-    tensors, and on the card the event recorded after each copy."""
+    """An extraction's output on its way to the host: host tensors, and on
+    the card the event recorded after each one's copy."""
 
-    parts: tuple  # (wire,) or (wire, colors), uint8 host tensors
+    parts: tuple  # host tensors, in the order their copies were queued
     events: Optional[tuple]  # a CUDA event per part; None on the CPU
 
-    def wire(self) -> np.ndarray:
+    def part(self, i: int) -> torch.Tensor:
+        """Part ``i``, once its copy has landed."""
         if self.events:
-            self.events[0].synchronize()
-        return self.parts[0].numpy()
+            self.events[i].synchronize()
+        return self.parts[i]
 
-    def colors(self) -> np.ndarray:
-        if self.events:
-            self.events[1].synchronize()
-        return self.parts[1].numpy()
+    def wire(self) -> np.ndarray:
+        return self.part(0).numpy()
 
 
 def _to_host_async(fut) -> _HostCopy:
     """Queue the device-to-host copy of each part of an extraction's
     output into pinned memory (PyTorch's caching host allocator reuses the
-    blocks), an event after each; on the CPU the parts already are there."""
+    blocks), an event after each; on the CPU the parts already are there. A
+    part given as a list of equal-shape tensors lands as the rows of one
+    host tensor."""
     parts = fut if isinstance(fut, tuple) else (fut,)
-    if not parts[0].is_cuda:
-        return _HostCopy(parts, None)
+    first = parts[0][0] if isinstance(parts[0], list) else parts[0]
+    if not first.is_cuda:
+        return _HostCopy(tuple(torch.stack(p) if isinstance(p, list) else p for p in parts), None)
     hosts, events = [], []
     for p in parts:
-        h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
-        h.copy_(p, non_blocking=True)
+        if isinstance(p, list):
+            h = torch.empty((len(p), *p[0].shape), dtype=p[0].dtype, pin_memory=True)
+            for row, src in zip(h, p):
+                row.copy_(src, non_blocking=True)
+        else:
+            h = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+            h.copy_(p, non_blocking=True)
         e = torch.cuda.Event()
         e.record()
         hosts.append(h)
@@ -264,16 +282,56 @@ def _to_host_async(fut) -> _HostCopy:
     return _HostCopy(tuple(hosts), tuple(events))
 
 
+def _rows_out(rows: torch.Tensor, n: int, dtype) -> np.ndarray:
+    """The first ``n`` columns of host rows (k, capacity) as an (n, k)
+    array of ``dtype`` that owns its memory (so a kept mesh holds no pinned
+    block); one multi-threaded copy does the transpose and the conversion."""
+    out = np.empty((n, rows.shape[0]), dtype)
+    torch.from_numpy(out).copy_(rows[:, :n].t())
+    return out
+
+
+_NO_MAX_FACES = (
+    "max_faces is not applicable in wire mode (faces are rebuilt on the host without a device face buffer); "
+    'use mode="packed" to bound the device face capacity'
+)
+
+
+def packed_path(mode: Optional[str], device: torch.device) -> bool:
+    """Whether an extraction on ``device`` builds its faces there (kernel
+    K10, ``mode="packed"``) or rebuilds them on the host from the wire
+    (K3, ``mode="wire"``). ``mode=None`` follows the device: K10 on the
+    card, the wire on the CPU."""
+    if mode not in (None, "wire", "packed"):
+        raise ValueError(f'mode must be None, "wire" or "packed", got {mode!r}')
+    return mode == "packed" or (mode is None and device.type == "cuda")
+
+
+def _note(seen: dict, packed: bool, counts: tuple, caps: tuple) -> None:
+    """Keep per path the elementwise largest counts and capacities of a
+    batch's handles, for one capacity-cache update after the batch."""
+    if packed in seen:
+        counts, caps = (tuple(map(max, a, b)) for a, b in zip(seen[packed], (counts, caps)))
+    seen[packed] = (counts, caps)
+
+
+def _cap_key(packed: bool, resolution: int) -> str:
+    return f"torch_tsr_{'packed' if packed else 'wire'}_r{resolution}"
+
+
 @dataclasses.dataclass(frozen=True)
-class _WireHandle:
-    """An enqueued wire extraction plus what a retry or the decode needs."""
+class _MeshHandle:
+    """An enqueued extraction plus what a retry or the host finish needs.
+    ``caps``: (max_verts,) on the wire path, (max_verts, max_faces) on the
+    K10 path."""
 
     scene_code: torch.Tensor
     host: _HostCopy
-    mv: int
+    caps: tuple
     resolution: int
     threshold: float
     want_colors: bool
+    packed: bool
 
 
 class TSR:
@@ -401,44 +459,39 @@ class TSR:
         with record_function("tsr.marching_cubes"):
             return mc_wire_device(density - threshold, max_verts, color_fn)
 
-    def _wire_caps(self, resolution: int, max_verts: int, explicit: bool = False) -> int:
-        """Vertex capacity to dispatch with: a capacity that worked before at
-        this resolution (in this process, else persisted by an earlier
-        one), unless the caller sized it explicitly."""
-        if explicit:
-            return max_verts
-        cached = self._wire_cap_cache.get(resolution)
+    # -- the capacity policy, one for both paths -----------------------
+    def _caps(self, resolution: int, max_verts: int, max_faces: int, packed: bool) -> Tuple[int, ...]:
+        """Capacities to dispatch with: (max_verts,) on the wire path,
+        (max_verts, max_faces) on the K10 path. Each is the caller's where
+        given (> 0), else the default (8 R^2 vertices, 16 R^2 faces) raised
+        to a capacity that worked before on this path at this resolution
+        (in this process, else persisted by an earlier one)."""
+        given = (max_verts, max_faces)[: 1 + packed]
+        default = (8 * resolution * resolution, 16 * resolution * resolution)[: 1 + packed]
+        cached = (self._packed_cap_cache if packed else self._wire_cap_cache).get(resolution)
         if cached is None:
-            persisted = capacity_cache.load(f"torch_tsr_wire_r{resolution}")
-            cached = persisted[0] if persisted else None
-        return max_verts if cached is None else max(max_verts, cached)
+            cached = capacity_cache.load(_cap_key(packed, resolution))
+        if cached is None or len(cached) != len(default):
+            cached = default
+        return tuple(g if g > 0 else max(d, c) for g, d, c in zip(given, default, cached))
 
-    def _wire_caps_store(self, resolution: int, mv: int, nv_seen: int) -> None:
-        mv_next = capacity_cache.tighten(mv, nv_seen)
-        self._wire_cap_cache[resolution] = mv_next
-        capacity_cache.store(f"torch_tsr_wire_r{resolution}", (mv_next,))
+    def _caps_store(self, resolution: int, packed: bool, counts: tuple, caps: tuple) -> None:
+        """Tighten the capacities toward the counts seen and remember them
+        (``torch_tsr_wire_r<R>``, ``torch_tsr_packed_r<R>``)."""
+        caps = tuple(capacity_cache.tighten(c, n) for c, n in zip(caps, counts))
+        (self._packed_cap_cache if packed else self._wire_cap_cache)[resolution] = caps
+        capacity_cache.store(_cap_key(packed, resolution), caps)
 
     @staticmethod
-    def _wire_grown(nv: int, mv: int) -> Optional[int]:
-        """None when the capacity held; otherwise the grown capacity to retry
-        with. Overflow is read from the exact wire counter, never truncated."""
-        if nv > mv:
-            return max(mv, 65536 * -(-int(1.2 * nv) // 65536))
-        return None
+    def _grown(counts: tuple, caps: tuple) -> Optional[tuple]:
+        """None when every capacity held; otherwise the capacities to retry
+        with, each raised to 1.2x its count in buckets of 65 536. Overflow is
+        read from the exact counters, never truncated."""
+        if all(n <= c for n, c in zip(counts, caps)):
+            return None
+        return tuple(max(c, 65536 * -(-int(1.2 * n) // 65536)) for n, c in zip(counts, caps))
 
-    def _wire_decode(self, host: _HostCopy, wire: np.ndarray, nv: int, mv_used: int, resolution: int):
-        """Wire (+ split color bytes) -> (verts world f32, faces i64, colors f32 | None)."""
-        shape = (resolution, resolution, resolution)
-        with record_function("tsr.wire_faces"):
-            verts, faces, *_ = mc_wire.decode_wire(wire, shape, mv_used, has_colors=False)
-        colors = None
-        if len(host.parts) > 1 and nv > 0:
-            with record_function("tsr.colors_to_host"):
-                cb = host.colors()  # its copy ran while the geometry decoded
-            colors = cb.reshape(3, mv_used)[:, :nv].T.astype(np.float32) / 255.0
-        scale = 2 * self.config.radius / (resolution - 1.0)
-        return verts * scale - self.config.radius, faces.astype(np.int64), colors
-
+    # -- the handles: dispatch, then wait and finish on the host --------
     def extract_mesh_async(
         self,
         scene_code: torch.Tensor,
@@ -446,43 +499,98 @@ class TSR:
         resolution: int = 256,
         threshold: float = 25.0,
         max_verts: int = 0,
-    ) -> _WireHandle:
-        """Enqueue one asset's extraction on the device, then the copy of
+        max_faces: int = 0,
+        mode: Optional[str] = None,
+    ) -> _MeshHandle:
+        """Enqueue one asset's extraction on the device, on the path that
+        ``mode`` and the device choose (``packed_path``), then the copy of
         its output to pinned host memory, and return a handle for
-        ``extract_mesh_wait``; nothing here waits for the device."""
-        explicit = max_verts > 0
-        if max_verts <= 0:
-            max_verts = 8 * resolution * resolution
-        mv = self._wire_caps(resolution, max_verts, explicit)
-        host = self._dispatch(scene_code, resolution, float(threshold), mv, bool(has_vertex_color))
-        return _WireHandle(scene_code, host, mv, resolution, float(threshold), bool(has_vertex_color))
+        ``extract_mesh_wait``; nothing here waits for the device.
+        ``max_faces`` bounds the K10 path's face capacity; the wire path has
+        no device face buffer and refuses it."""
+        packed = packed_path(mode, scene_code.device)
+        if max_faces > 0 and not packed:
+            raise ValueError(_NO_MAX_FACES)
+        caps = self._caps(resolution, max_verts, max_faces, packed)
+        threshold, want_colors = float(threshold), bool(has_vertex_color)
+        host = self._dispatch(scene_code, resolution, threshold, caps, want_colors, packed)
+        return _MeshHandle(scene_code, host, caps, resolution, threshold, want_colors, packed)
 
-    def _dispatch(self, scene_code, resolution, threshold, mv, want_colors) -> _HostCopy:
-        return _to_host_async(self._extract_wire(scene_code, resolution, threshold, mv, want_colors))
+    def _dispatch(self, scene_code, resolution, threshold, caps, want_colors, packed) -> _HostCopy:
+        extract = self._extract_packed if packed else self._extract_wire
+        return _to_host_async(extract(scene_code, resolution, threshold, *caps, want_colors))
 
-    def extract_mesh_wait(self, handle: _WireHandle, store: bool = True):
-        """Block on a handle -> ((verts, faces, colors | None), (nv, mv)).
-        Waits for the wire's copy only, then decodes while the colors'
-        copy finishes. Overflow is re-extracted with a grown capacity, its
-        copy queued the same way. ``store=False`` skips the capacity-cache
-        update."""
-        host, mv = handle.host, handle.mv
+    @staticmethod
+    def _counts(host: _HostCopy, packed: bool) -> tuple:
+        """The exact counters: (num_verts, num_faces) on the K10 path, the
+        wire's (num_verts,) from its tail."""
+        if packed:
+            return tuple(host.part(0).tolist())
+        return (int(mc_wire.wire_counts(host.wire(), N_WIRE_COUNTS)[0]),)
+
+    def _wait(self, handle: _MeshHandle):
+        """Block on a handle -> (mesh, counts, caps). Waits for the counters
+        only; an overflow is re-extracted with grown capacities, its copies
+        queued the same way; then the host finish."""
+        host, caps = handle.host, handle.caps
         while True:
-            with record_function("tsr.wire_to_host"):  # waits for the wire's copy
-                wire = host.wire()
-            nv = int(mc_wire.wire_counts(wire, N_WIRE_COUNTS)[0])
-            grown = self._wire_grown(nv, mv)
+            with record_function("tsr.counts_to_host" if handle.packed else "tsr.wire_to_host"):
+                counts = self._counts(host, handle.packed)
+            grown = self._grown(counts, caps)
             if grown is None:
                 break
-            mv = grown
+            caps = grown
             with record_function("tsr.capacity_retry"):
-                host = self._dispatch(handle.scene_code, handle.resolution, handle.threshold, mv,
-                                      handle.want_colors)
-        if store:
-            self._wire_caps_store(handle.resolution, mv, nv)
+                host = self._dispatch(handle.scene_code, handle.resolution, handle.threshold, caps,
+                                      handle.want_colors, handle.packed)
         with record_function("tsr.wire_decode"):
-            mesh = self._wire_decode(host, wire, nv, mv, handle.resolution)
-        return mesh, (nv, mv)
+            if handle.packed:
+                mesh = self._packed_finish(host, counts)
+            else:
+                mesh = self._wire_decode(host, counts, caps, handle.resolution)
+        return mesh, counts, caps
+
+    def _wire_decode(self, host: _HostCopy, counts: tuple, caps: tuple, resolution: int):
+        """Wire (+ split color bytes) -> (verts world f32, faces i64, colors f32 | None)."""
+        (nv,), (mv,) = counts, caps
+        shape = (resolution, resolution, resolution)
+        with record_function("tsr.wire_faces"):
+            verts, faces, *_ = mc_wire.decode_wire(host.wire(), shape, mv, has_colors=False)
+        colors = None
+        if len(host.parts) > 1 and nv > 0:
+            with record_function("tsr.colors_to_host"):
+                cb = host.part(1).numpy()  # its copy ran while the geometry decoded
+            colors = cb.reshape(3, mv)[:, :nv].T.astype(np.float32) / 255.0
+        scale = 2 * self.config.radius / (resolution - 1.0)
+        return verts * scale - self.config.radius, faces.astype(np.int64), colors
+
+    @staticmethod
+    def _packed_finish(host: _HostCopy, counts: tuple):
+        """The K10 path's host parts (counts, faces, world positions, colors)
+        -> (verts (nv, 3) f32, faces (nf, 3) i64, colors (nv, 3) f32 | None),
+        the live rows copied out of the pinned blocks, each part waited on
+        just before its copy, so the later parts' copies overlap the faces'."""
+        nv, nf = counts
+        with record_function("tsr.wire_faces"):
+            faces = _rows_out(host.part(1), nf, np.int64)
+        verts = _rows_out(host.part(2), nv, np.float32)
+        colors = None
+        if len(host.parts) > 3 and nv > 0:
+            with record_function("tsr.colors_to_host"):
+                rgb = host.part(3)
+            colors = _rows_out(rgb, nv, np.float32)
+        return verts, faces, colors
+
+    def extract_mesh_wait(self, handle: _MeshHandle, store: bool = True):
+        """Block on a handle -> ((verts, faces, colors | None), (nv, mv)):
+        verts (nv, 3) f32 world, faces (nf, 3) int64, colors (nv, 3) f32,
+        arrays that own their memory. Waits for the counters only; an
+        overflow is re-extracted with grown capacities. ``store=False`` skips
+        the capacity-cache update."""
+        mesh, counts, caps = self._wait(handle)
+        if store:
+            self._caps_store(handle.resolution, handle.packed, counts, caps)
+        return mesh, (counts[0], caps[0])
 
     def extract_mesh(
         self,
@@ -492,115 +600,67 @@ class TSR:
         threshold: float = 25.0,
         max_verts: int = 0,
         max_faces: int = 0,
-        mode: str = "wire",
+        mode: Optional[str] = None,
     ):
         """A list of (verts, faces, colors | None) numpy triples, verts in
         (-radius, radius) world coords like the reference
         (``tsr/system.py:185-189``).
 
-        ``mode="wire"`` (default): occupancy bits, u16 t and u8 colors come
-        to the host, which rebuilds the faces; every asset is enqueued
-        before the first is decoded, so the decode overlaps device work.
-        There is no device face buffer, so ``max_faces`` raises.
-        ``mode="packed"``: faces come from the device (kernel K10), with
-        exact f32 positions and colors; see ``_extract_mesh_packed``."""
-        if mode == "packed":
-            return self._extract_mesh_packed(scene_codes, has_vertex_color, resolution, threshold, max_verts,
-                                             max_faces)
-        if mode != "wire":
-            raise ValueError(f'mode must be "wire" or "packed", got {mode!r}')
-        if max_faces > 0:
-            raise ValueError(
-                "max_faces is not applicable in wire mode (faces are rebuilt on the host without a device face "
-                'buffer); use mode="packed" to bound the device face capacity'
-            )
+        Every asset is enqueued (``extract_mesh_async``) before the first is
+        waited on, so the host work overlaps device work; the largest
+        capacities and counts of the call go to the capacity cache once.
+        ``mode=None`` follows the device (``packed_path``): on the card the
+        faces come from the device (kernel K10) with exact f32 positions and
+        colors; on the CPU, and with ``mode="wire"`` anywhere, occupancy
+        bits, u16 t and u8 colors come to the host, which rebuilds the
+        faces. ``mode="packed"`` takes K10 anywhere. The wire path has no
+        device face buffer, so ``max_faces`` raises there."""
+        packed_path(mode, self.device)  # an unknown mode raises before any work
         handles = [
-            self.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts)
+            self.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts, max_faces, mode)
             for code in scene_codes
         ]
-        out = []
-        nv_seen = mv = 0
+        out, seen = [], {}
         for h in handles:
-            mesh, (nv, mv_h) = self.extract_mesh_wait(h, store=False)
-            nv_seen, mv = max(nv_seen, nv), max(mv, mv_h)
+            mesh, counts, caps = self._wait(h)
+            _note(seen, h.packed, counts, caps)
             out.append(mesh)
-        if handles:
-            self._wire_caps_store(resolution, mv, nv_seen)
+        for packed, (counts, caps) in seen.items():
+            self._caps_store(resolution, packed, counts, caps)
         return out
 
-    # -- packed extraction: faces from the device (kernel K10) ----------
+    # -- the K10 path's device work ---------------------------------------
     @torch.inference_mode()
     def _packed_mesh(self, scene_code, resolution: int, threshold: float, mv: int, mf: int) -> MCResult:
-        """The density lattice (K2) and the face-emitting marching cubes
-        (K10) of one code -> its ``MCResult`` in lattice coords."""
+        """The density lattice (K2), the iso-level taken off in place, and
+        the face-emitting marching cubes (K10) of one code -> its
+        ``MCResult`` in lattice coords."""
         spec = self.grid_spec(resolution, compute_dtype=self.extract_dtype)
         with record_function("tsr.density_grid"):
-            density = query_density_grid(scene_code, self.decoder_weights(), spec)
+            level = query_density_grid(scene_code, self.decoder_weights(), spec)
         with record_function("tsr.marching_cubes"):
-            return marching_cubes(density - threshold, mv, mf)
+            return marching_cubes(level.sub_(threshold), mv, mf)
 
     @torch.inference_mode()
     def _extract_packed(self, scene_code, resolution: int, threshold: float, mv: int, mf: int, want_colors: bool):
-        """One asset on the device: ``_packed_mesh``, world coordinates and
-        (with ``want_colors``) K4 at every vertex slot -> verts (mv, 3) f32
-        world, faces (mf, 3) int32, colors (mv, 3) f32 | None, counts (2,)
-        int32 (num_verts, num_faces)."""
+        """One asset on the K10 path: ``_packed_mesh``, its positions turned
+        into world coordinates in K10's own buffer, and (with
+        ``want_colors``) K4 at every vertex slot -> the parts to copy to the
+        host: counts (2,) int32 (num_verts, num_faces), the faces' three
+        (mf,) int32 rows, the positions' three (mv,) f32 rows, colors (3, mv)
+        f32."""
         res = self._packed_mesh(scene_code, resolution, threshold, mv, mf)
         r = self.config.radius
         scale = 2 * r / (resolution - 1.0)
-        wx, wy, wz = res.vx * scale - r, res.vy * scale - r, res.vz * scale - r
-        colors = None
+        verts = [res.vx, res.vy, res.vz]
+        for v in verts:
+            v.mul_(scale).sub_(r)
+        parts = (torch.stack([res.num_verts, res.num_faces]), [res.fa, res.fb, res.fc], verts)
         if want_colors:
             with record_function("tsr.color_query"):
                 spec = self.grid_spec(resolution, compute_dtype=self.extract_dtype)
-                colors = self._color_query(scene_code, self.decoder_weights(), spec, wx, wy, wz).t()
-        return torch.stack([wx, wy, wz], dim=1), res.faces, colors, torch.stack([res.num_verts, res.num_faces])
-
-    def _packed_caps(self, resolution: int, max_verts: int, max_faces: int) -> Tuple[int, int]:
-        """(mv, mf) to dispatch with: the defaults 8 R^2 and 16 R^2 or the
-        caller's, raised to capacities that worked before at this
-        resolution (in this process, else persisted by an earlier one);
-        a capacity the caller gave is used as given."""
-        cached = self._packed_cap_cache.get(resolution)
-        if cached is None:
-            cached = capacity_cache.load(f"torch_tsr_packed_r{resolution}")
-        mv = max_verts if max_verts > 0 else 8 * resolution * resolution
-        mf = max_faces if max_faces > 0 else 16 * resolution * resolution
-        if cached is not None and len(cached) == 2:
-            mv = mv if max_verts > 0 else max(mv, cached[0])
-            mf = mf if max_faces > 0 else max(mf, cached[1])
-        return mv, mf
-
-    def _extract_mesh_packed(self, scene_codes, has_vertex_color, resolution, threshold, max_verts, max_faces):
-        """Packed extraction of each code: the counters are read first (the
-        one wait per asset); an overflow of either capacity is re-extracted
-        with both grown to 1.2x the count, never truncated; then only the
-        live rows come to the host. The capacities are tightened toward the
-        counts seen and remembered (``torch_tsr_packed_r<R>``)."""
-        up64k = lambda n: 65536 * -(-n // 65536)  # noqa: E731
-        out = []
-        for code in scene_codes:
-            mv, mf = self._packed_caps(resolution, max_verts, max_faces)
-            extract = functools.partial(self._extract_packed, code, resolution, float(threshold),
-                                        want_colors=bool(has_vertex_color))
-            verts, faces, colors, counts = extract(mv, mf)
-            while True:
-                with record_function("tsr.packed_to_host"):
-                    nv, nf = (int(c) for c in counts.cpu())
-                if nv <= mv and nf <= mf:
-                    break
-                mv, mf = max(mv, up64k(int(1.2 * nv))), max(mf, up64k(int(1.2 * nf)))
-                with record_function("tsr.capacity_retry"):
-                    verts, faces, colors, counts = extract(mv, mf)
-            caps = (capacity_cache.tighten(mv, nv), capacity_cache.tighten(mf, nf))
-            self._packed_cap_cache[resolution] = caps
-            capacity_cache.store(f"torch_tsr_packed_r{resolution}", caps)
-            with record_function("tsr.packed_to_host"):
-                v = verts[:nv].cpu().numpy()
-                f = faces[:nf].cpu().numpy().astype(np.int64)
-                c = colors[:nv].cpu().numpy() if colors is not None and nv > 0 else None
-            out.append((v, f, c))
-        return out
+                parts += (self._color_query(scene_code, self.decoder_weights(), spec, *verts),)
+        return parts
 
     # -- novel-view rendering (the reference's spherical render path,
     # -- nerf_renderer.py:93-172 with get_spherical_cameras) ---------------

@@ -179,7 +179,7 @@ def test_overflow_is_retried_not_truncated(slice_pair):
     (v1, f1, c1), n1 = _span_counts(
         lambda: tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5, max_verts=64)[0])
     assert np.array_equal(f0, f1) and np.array_equal(v0, v1) and np.array_equal(c0, c1)
-    assert tt._wire_cap_cache[16] >= len(v0)
+    assert tt._wire_cap_cache[16][0] >= len(v0)
     assert n0["tsr.capacity_retry"] == 0 and n1["tsr.capacity_retry"] == 1
     assert n1["tsr.density_grid"] == 2
 

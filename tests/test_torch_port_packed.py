@@ -24,6 +24,8 @@ from sculptmate_tpu_torch.parallel.farm import AssetFarm
 from sculptmate_tpu_torch.runtime.checkpoint import tsr_params_from_jax
 from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
 
+from mesh_match import assert_same_mesh, wire_to_packed
+
 SMALL = dict(
     cond_image_size=64, plane_size=8, num_channels=64, num_attention_heads=4,
     attention_head_dim=16, num_layers=2, cross_attention_dim=64, vit_hidden_size=64,
@@ -182,6 +184,35 @@ def test_packed_capacity_retry_and_wire_refusal(cap_dir, packed_pair):
         tt.extract_mesh(code, resolution=16, threshold=thr, max_faces=10)
     with pytest.raises(ValueError, match="mode"):
         tt.extract_mesh(code, resolution=16, threshold=thr, mode="dense")
+
+
+def test_packed_handles_match_the_wire(cap_dir, packed_pair):
+    """``extract_mesh(mode="packed")``, through the handles, against
+    ``mode="wire"`` on the same codes at R = 16 with colors: the same
+    vertices by cut edge, the same triangles, positions within one u16 step
+    and colors within half a u8 step, in arrays that own their memory, and
+    the stages in the spans the benchmark reads; capacities far below the
+    counts give the same mesh after exactly one ``tsr.capacity_retry``."""
+    from sculptmate_tpu_torch.ops.density_grid import query_density_grid as t_query
+
+    jt, tt, codes = packed_pair
+    code = torch.from_numpy(codes)
+    thr = _threshold(jt, codes, 16)
+    kw = dict(has_vertex_color=True, resolution=16, threshold=thr)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p0:
+        packed = tt.extract_mesh(code, mode="packed", **kw)[0]
+    wire = tt.extract_mesh(code, mode="wire", **kw)[0]
+    level = t_query(code[0], tt.decoder_weights(), tt.grid_spec(16, tt.extract_dtype)) - thr
+    assert_same_mesh(packed, wire, wire_to_packed(level), 2 * tt.config.radius / 15)
+    assert all(a.flags.owndata for a in packed)
+    assert {e.key for e in p0.key_averages() if e.key.startswith("tsr.")} == {
+        "tsr.density_grid", "tsr.marching_cubes", "tsr.color_query", "tsr.counts_to_host", "tsr.wire_decode",
+        "tsr.wire_faces", "tsr.colors_to_host"}
+    tt._packed_cap_cache.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p1:
+        retried = tt.extract_mesh(code, max_verts=64, max_faces=64, mode="packed", **kw)[0]
+    assert sum(e.name == "tsr.capacity_retry" for e in p1.events()) == 1
+    assert all(np.array_equal(a, b) for a, b in zip(packed, retried))
 
 
 def test_farm_packed_matches_jax(packed_pair):

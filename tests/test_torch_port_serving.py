@@ -218,8 +218,8 @@ def test_tsr_reads_a_persisted_capacity(cap_dir, small_tsr):
     stored = capacity_cache.load(f"torch_tsr_wire_r{RES}")
     assert stored is not None and stored[0] >= len(verts)
     fresh = TSR(tt.config, state_dict=tt.module.state_dict(), dtype=torch.float32, device="cpu")
-    assert fresh._wire_caps(RES, 64) == stored[0]
-    assert fresh._wire_caps(RES, 64, explicit=True) == 64
+    assert stored[0] > 8 * RES * RES and fresh._caps(RES, 0, 0, packed=False) == (stored[0],)  # not the default
+    assert fresh._caps(RES, 64, 0, packed=False) == (64,)
 
 
 def test_async_handle_holds_its_host_copy(small_tsr):
