@@ -31,9 +31,13 @@ and on disk (``runtime/capacity_cache.py``, key ``torch_sf3d_mt_r<res>``).
 The rasterizer has no capacity at all.
 
 Each stage runs inside a ``torch.profiler`` span named ``sf3d.<stage>``:
-``encode``, ``extract`` (holding ``grid``, ``marching_tets``,
-``wire_to_host`` and ``wire_decode``), ``decimate``, then ``unwrap_bake``
-(fused) or ``unwrap`` and ``bake``.
+``encode`` (holding ``materials``, the CLIP estimator), ``extract``
+(holding ``grid``, ``marching_tets``, ``wire_to_host`` and
+``wire_decode``; each re-extraction after a capacity overflow runs inside
+``capacity_retry``, so their number is the retry count), ``decimate``,
+then ``unwrap_bake`` (fused; its host parts in ``bake_prep``,
+``bake_wait`` and ``png_encode``) or ``unwrap`` and ``bake`` (holding
+``png_encode``).
 
 Beside the wire, ``_extract_packed`` and ``_extract_packed_mesh`` give the
 packed mesh of the JAX package's ``_extract_jit`` and
@@ -470,15 +474,17 @@ class SF3D:
         c = self.config
         res = c.isosurface_resolution
         host, mv = pending if pending is not None else (None, self._capacity(res))
+        if host is None:
+            host = self.extract_wire_async(scene_code, threshold, mv)
         while True:
-            if host is None:
-                host = self.extract_wire_async(scene_code, threshold, mv)
             with record_function("sf3d.wire_to_host"):
                 wire = host.wire()
             nv = int(mt_wire.wire_counts(wire, N_WIRE_COUNTS)[0])
             if nv <= mv:
                 break
-            mv, host = max(mv, 65536 * -(-int(1.2 * nv) // 65536)), None
+            mv = max(mv, 65536 * -(-int(1.2 * nv) // 65536))
+            with record_function("sf3d.capacity_retry"):
+                host = self.extract_wire_async(scene_code, threshold, mv)
         # tighten toward the observed count, so one giant mesh does not
         # inflate every later extraction; this wire keeps its capacity
         self._mt_cap = capacity_cache.tighten(mv, nv)
@@ -535,7 +541,8 @@ class SF3D:
         with stage("encode"):
             mask, rgb = self.prepare_image(upload(image, self.device))
             scene_codes, direct_codes = self.get_scene_codes(rgb)
-            materials = self.estimate_materials(rgb * mask)
+            with record_function("sf3d.materials"):
+                materials = self.estimate_materials(rgb * mask)
             if estimate_illumination:
                 self.estimate_illumination(direct_codes)
 
@@ -654,19 +661,20 @@ class SF3D:
         materials into pinned host memory. Nothing here waits for the
         device; ``unwrap_bake_wait`` does."""
         dev = self.device
-        v_pos = np.asarray(v_pos, np.float32)
-        faces = np.asarray(faces)
-        rot = _main_axis_rotation(v_pos)
-        rp = v_pos @ rot.T
-        bb_min = rp.min(axis=0) if len(rp) else np.zeros(3, np.float32)
-        bb_max = rp.max(axis=0) if len(rp) else np.ones(3, np.float32)
-        rng = np.maximum(bb_max - bb_min, 1e-12)
-        q = np.round((rp - bb_min) / rng * 65535.0).astype(np.uint16).T  # (3, Nv)
-        scale = (bb_max - bb_min).astype(np.float32) * np.float32(_INV_U16)
-        meta = np.concatenate([scale, bb_min, rot.reshape(-1)]).astype(np.float32)
-        q_d = _upload_exact(np.ascontiguousarray(q).view(np.int16), dev)
-        f_d = _upload_exact(np.ascontiguousarray(faces.T, np.int32), dev)
-        meta_d = _upload_exact(meta, dev)
+        with record_function("sf3d.bake_prep"):
+            v_pos = np.asarray(v_pos, np.float32)
+            faces = np.asarray(faces)
+            rot = _main_axis_rotation(v_pos)
+            rp = v_pos @ rot.T
+            bb_min = rp.min(axis=0) if len(rp) else np.zeros(3, np.float32)
+            bb_max = rp.max(axis=0) if len(rp) else np.ones(3, np.float32)
+            rng = np.maximum(bb_max - bb_min, 1e-12)
+            q = np.round((rp - bb_min) / rng * 65535.0).astype(np.uint16).T  # (3, Nv)
+            scale = (bb_max - bb_min).astype(np.float32) * np.float32(_INV_U16)
+            meta = np.concatenate([scale, bb_min, rot.reshape(-1)]).astype(np.float32)
+            q_d = _upload_exact(np.ascontiguousarray(q).view(np.int16), dev)
+            f_d = _upload_exact(np.ascontiguousarray(faces.T, np.int32), dev)
+            meta_d = _upload_exact(meta, dev)
         rp_d = _dequantize(q_d, meta_d[0:3], meta_d[3:6])
         uv6, _, _ = unwrap_core(rp_d[0], rp_d[1], rp_d[2], f_d[0], f_d[1], f_d[2], island_padding)
         world = meta_d[6:15].reshape(3, 3).t() @ rp_d  # rotated = v @ rot.T, so world = rot.T @ rotated
@@ -679,8 +687,9 @@ class SF3D:
     def unwrap_bake_wait(self, host: _HostCopy):
         """Wait for the copies of ``unwrap_bake_async`` -> (per-corner UVs
         (F, 3, 2) f32, the texture dict as ``bake_textures`` gives it)."""
-        if host.events:
-            host.events[-1].synchronize()
+        with record_function("sf3d.bake_wait"):
+            if host.events:
+                host.events[-1].synchronize()
         albedo_u8, bump_u8, uv, rm = (t.numpy() for t in host.parts)
         return uv.reshape(-1, 3, 2), _texture_dict(
             albedo_u8.transpose(1, 2, 0), bump_u8.transpose(1, 2, 0), float(rm[0]), float(rm[1])
@@ -764,20 +773,22 @@ def quantize_textures(albedo: torch.Tensor, bump: torch.Tensor, mask: torch.Tens
 
 def _texture_dict(albedo_u8: np.ndarray, bump_u8: np.ndarray, roughness: float, metallic: float) -> Dict[str, Any]:
     """The texture keys of a mesh dict from the (res, res, 3) uint8 maps;
-    the glTF metallic-roughness map holds roughness in G, metallic in B."""
-    mr = np.zeros_like(albedo_u8)
-    mr[..., 1] = int(np.clip(roughness, 0, 1) * 255)
-    mr[..., 2] = int(np.clip(metallic, 0, 1) * 255)
-    return {
-        "textures": {"albedo": albedo_u8.astype(np.float32) / 255.0, "bump": bump_u8.astype(np.float32) / 255.0},
-        "texture_pngs": {
-            "baseColor": encode_png(np.ascontiguousarray(albedo_u8)),
-            "normal": encode_png(np.ascontiguousarray(bump_u8)),
-            "metallicRoughness": encode_png(mr),
-        },
-        "roughness": roughness,
-        "metallic": metallic,
-    }
+    the glTF metallic-roughness map holds roughness in G, metallic in B.
+    The float copies and the three PNGs are made inside ``sf3d.png_encode``."""
+    with record_function("sf3d.png_encode"):
+        mr = np.zeros_like(albedo_u8)
+        mr[..., 1] = int(np.clip(roughness, 0, 1) * 255)
+        mr[..., 2] = int(np.clip(metallic, 0, 1) * 255)
+        return {
+            "textures": {"albedo": albedo_u8.astype(np.float32) / 255.0, "bump": bump_u8.astype(np.float32) / 255.0},
+            "texture_pngs": {
+                "baseColor": encode_png(np.ascontiguousarray(albedo_u8)),
+                "normal": encode_png(np.ascontiguousarray(bump_u8)),
+                "metallicRoughness": encode_png(mr),
+            },
+            "roughness": roughness,
+            "metallic": metallic,
+        }
 
 
 def mesh_arrays(mesh: Mesh) -> Dict[str, np.ndarray]:
