@@ -59,7 +59,16 @@ Phases (any failure raises and exits non-zero):
 4. Frontend checks: a narrow u2net (``SMALL_CONFIG``) at 64^2 on the card
    against the same weights on the CPU; the full u2net at 320^2 on the card
    (finite, masks in [0, 1]); ``preprocess_batch_device`` on the card
-   against the CPU on the same RGBA. Then the session zoo at full width
+   against the CPU on the same RGBA. K12 (``csrc/pil_resample.cu``): its
+   four wrappers on card tensors at the add-on's shapes (a 1024^2 photo to
+   320^2, the mask back with its bbox, the ~1364^2 Lean square to 1024^2,
+   the ~1203^2 Pro RGBA square) byte-equal to their plain versions, each
+   timed beside the plain version and its byte bound; then
+   ``preprocess_image`` on a 1024^2 add-on photo with the full u2net on the
+   card, Lean and Pro, K12's launch counts read around each call (2/2/2/0
+   and 2/2/0/1), the bytes equal to the host path's with the same session,
+   a Lean call with no session (the add-on panel's) counted, and the host
+   ms of a request on both paths. Then the session zoo at full width
    (``session_zoo`` lines): each session from ``new_session`` on its device
    method at its input size (u2netp, u2net_human_seg, silueta at 320^2,
    ISNet at 1024^2, the cloth session's class map at 768^2, SAM ViT-B's
@@ -171,7 +180,8 @@ Phases (any failure raises and exits non-zero):
    launches counted on the untextured SF3D asset; K6's, K8's and K9's on
    the textured one; K3's, K4's and K10's on the TripoGenerator asset, K4's per
    path beside them; K10's on the packed asset; K7's on the untextured SF3D
-   asset, per path beside them; K11's on the packed SF3D extraction), then
+   asset, per path beside them; K11's on the packed SF3D extraction; K12's
+   on one Lean ``preprocess_image``, per button beside them), then
    the card line, then
    the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -3050,6 +3060,127 @@ def frontend_checks():
     return matting
 
 
+def _addon_photo(seed=12, side=1024):
+    """A side^2 RGB photo of the add-on's kind: a noisy backdrop and a
+    bright object that fills most of the frame."""
+    from PIL import Image, ImageDraw
+
+    a = (np.random.default_rng(seed).random((side, side, 3)) * 60 + 20).astype(np.uint8)
+    image = Image.fromarray(a)
+    ImageDraw.Draw(image).ellipse([side // 8, side // 16, side - side // 6, side - side // 10], fill=(220, 150, 90))
+    return image
+
+
+def check_pil_resample(matting, timed=True):
+    """K12 (``csrc/pil_resample.cu``) at the add-on's shapes, each wrapper
+    on card tensors byte-equal to its plain version on the CPU: a 1024^2
+    photo to the u2net's 320^2 in float32 (``resample_photo``), a 320^2
+    mask back to 1024^2 as L with its bbox (``resample_mask``; a mask whose
+    box spans the frame), the Lean condition image from that box's ~1364^2
+    padded square to 1024^2 (``condition_image``) and the Pro's ~1203^2
+    RGBA square (``padded_cutout``); each timed (a CUDA graph), beside its
+    plain version on the card and its byte bound (each input byte read once,
+    each output byte written once). Then ``preprocess_image`` on an add-on
+    photo with ``matting`` on the card, for the Lean and the Pro buttons,
+    K12's launch counts zeroed just before each call and read after it
+    (2/2/2/0 and 2/2/0/1), its result byte-equal to the host path with the
+    same session, and a Lean call with no session (the add-on panel's)
+    counted too; with ``timed``, the host ms of a request on each path.
+    Returns the kernels line's K12 entry."""
+    from sculptmate_tpu_torch.frontend.preprocess import preprocess_image, preprocess_image_host
+    from sculptmate_tpu_torch.ops import pil_resample as pr
+
+    rng = np.random.default_rng(12)
+    H = W = 1024
+    photo = torch.from_numpy(rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+    yy, xx = np.mgrid[:320, :320] / 319.0 * 2 - 1
+    soft = np.clip(1.6 - np.hypot(yy, xx), 0, 1) * (0.6 + 0.4 * rng.random((320, 320)))
+    mask_f = torch.from_numpy(soft.astype(np.float32))
+    dev_photo, dev_mask_f = photo.cuda(), mask_f.cuda()
+    small = pr.resample_photo(dev_photo, matting.input_size)
+    mask, bbox = pr.resample_mask(dev_mask_f, (W, H))
+    ref_mask, ref_bbox = pr.resample_mask(mask_f, (W, H))
+    y1, y2, x1, x2 = pr.bbox_bounds(bbox, H, W)
+    hc, wc = y2 - y1, x2 - x1
+    size = max(hc, wc)
+    crops = {}
+    for button, ratio in (("lean", 0.75), ("pro", 0.85)):
+        side = int(size / ratio)
+        p0 = (side - size) // 2
+        crops[button] = pr.Crop(y1, x1, hc, wc, p0 + (size - hc) // 2, p0 + (size - wc) // 2, side)
+    lean, pro = crops["lean"], crops["pro"]
+    steps = {
+        "downsize": (torch.equal(small.cpu(), pr.resample_photo(photo, matting.input_size)),
+                     lambda: pr.resample_photo(dev_photo, matting.input_size),
+                     lambda: pr.resample_photo_plain(dev_photo, matting.input_size), H * W * 3 + 320 * 320 * 3 * 4),
+        "upsize": (torch.equal(mask.cpu(), ref_mask) and torch.equal(bbox.cpu(), ref_bbox),
+                   lambda: pr.resample_mask(dev_mask_f, (W, H)),
+                   lambda: pr.resample_mask_plain(dev_mask_f, (W, H)), 320 * 320 * 4 + H * W + 16),
+        "condition": (torch.equal(pr.condition_image(dev_photo, mask, lean, 1024).cpu(),
+                                  pr.condition_image(photo, ref_mask, lean, 1024)),
+                      lambda: pr.condition_image(dev_photo, mask, lean, 1024),
+                      lambda: pr.condition_image_plain(dev_photo, mask, lean, 1024), hc * wc * 4 + 1024 * 1024 * 3),
+        "cutout": (torch.equal(pr.padded_cutout(dev_photo, mask, pro).cpu(), pr.padded_cutout(photo, ref_mask, pro)),
+                   lambda: pr.padded_cutout(dev_photo, mask, pro),
+                   lambda: pr.padded_cutout_plain(dev_photo, mask, pro), hc * wc * 4 + pro.side ** 2 * 4),
+    }
+    rows = {}
+    for step, (equal, fn, plain, nbytes) in steps.items():
+        bound, _ = bound_ms(0, nbytes, PEAK_F32_FLOPS)
+        rows[step] = {"equal": equal, "bound_ms": bound, "bytes": nbytes}
+        if timed:
+            rows[step].update(ms=cuda_ms(fn), plain_ms=cuda_ms(plain, iters=5, warmup=1, graph=False))
+        log(json.dumps({"check": f"K12 {step}, card vs plain (byte-equal)", "crop": str(lean if step != "cutout"
+                                                                                       else pro), **rows[step]}))
+    if not all(r["equal"] for r in rows.values()):
+        raise AssertionError(f"K12 differs from its plain version: {rows}")
+
+    wrappers = {"resample_photo": pr.resample_photo, "resample_mask": pr.resample_mask,
+                "condition_image": pr.condition_image, "padded_cutout": pr.padded_cutout}
+    image = _addon_photo()
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same mask from the same input on both paths
+    launches, frontend_ms = {}, {}
+    try:
+        for path, ratio, use_alpha, session in (("lean", 0.75, False, matting), ("pro", 0.85, True, matting),
+                                                ("lean_no_session", 0.75, False, None)):
+            torch.cuda.synchronize()
+            for f in wrappers.values():
+                f.launches = 0
+            got = preprocess_image(image, ratio, use_alpha, session)
+            launches[path] = {name: f.launches for name, f in wrappers.items()}
+            expect = (2, 2, 0, 1) if use_alpha else (2, 2, 2, 0)
+            if tuple(launches[path].values()) != expect:
+                raise AssertionError(f"preprocess_image ({path}) missed K12: {launches[path]}, expected {expect}")
+            if session is None:
+                continue
+            ref = preprocess_image_host(image, ratio, use_alpha, session)
+            if got is None or ref is None or got.mode != ref.mode or not np.array_equal(np.asarray(got),
+                                                                                        np.asarray(ref)):
+                raise AssertionError(f"preprocess_image's card path ({path}) differs from its host path")
+            if timed:
+                for name, fn in (("host", preprocess_image_host), ("card", preprocess_image)):
+                    times = []
+                    for _ in range(6):  # 1 warm-up + 5 timed
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn(image, ratio, use_alpha, session)
+                        times.append(1e3 * (time.perf_counter() - t0))
+                    frontend_ms[f"{path}_{name}"] = float(np.median(times[1:]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    log(json.dumps({"addon_frontend": "preprocess_image, card path vs host path on a 1024^2 photo",
+                    "launches": launches, "byte_equal": True, "host_ms_per_request": frontend_ms}))
+    per_lean = ("downsize", "upsize", "condition")
+    return {"name": "pil_resample", "route": "cuda", "source": "sculptmate_tpu_torch/csrc/pil_resample.cu",
+            "replaces": "no TPU kernel: PIL and numpy on the host (frontend/preprocess.py:preprocess_image_host)",
+            "launches": sum(launches["lean"].values()), "launches_by_path": launches, "max_abs_err": 0.0,
+            "limit": "byte-equal to the plain versions and the host path", "check": "pass",
+            **({key: sum(rows[s][key] for s in per_lean) for key in ("ms", "plain_ms")} if timed else {}),
+            "bound_ms": sum(rows[s]["bound_ms"] for s in per_lean), "bound_by": "bytes", "library_ms": None,
+            "steps": rows, "frontend_ms": frontend_ms}
+
+
 def card_vs_cpu(name, cpu_fn, card_fn):
     """``card_fn()`` on the card against ``cpu_fn()`` on the CPU (each a
     tuple of tensors): within CARD_CPU_SHARE of max |CPU output| each."""
@@ -3432,6 +3563,7 @@ def main():
     render_launches, _ = render_path(gen.model, lean)
     packed_launches, _ = packed_path(gen.model, lean, wire_sec)
     matting = frontend_checks()
+    k12 = check_pil_resample(matting)
     session_ms = session_zoo_path()
     sam_cutout_ms = sam_cutout_path()
     farm, rgba, threshold, launches, served = serving_path(gen.model, matting)
@@ -3547,6 +3679,7 @@ def main():
          "max_abs_err": 0.0, "limit": "equal positions, faces and counters", "check": "pass",
          "ms": k11["ms"], "plain_ms": k11["plain_ms"], "bound_ms": k11["bound_ms"], "bound_by": k11["bound_by"],
          "library_ms": None},
+        k12,
     ]}
     log("# kernel times per asset: K1's ms, plain_ms, bound_ms and library_ms sum its 44 Lean launches (16 attn1 +"
         " 16 attn2 + 12 ViT) and its launches are those of one 8-asset serving batch, as before the SF3D path;"
@@ -3575,7 +3708,10 @@ def main():
         " also counts the multi-device phase (the (dp 2, tp 2) farms' batches, K1 split over 2 tp shards, and one"
         " call of each 512^3 sharded function over sp = 4); K2's slab_* keys time it at a shard's 129 x 512 x 512"
         " slab, K3's and K10's at a shard's padded 136 x 512 x 512 level, x limit 128 (K10 with its vertices' edges, as"
-        " sharded_extract calls it); K10's edges_ms is the asset's 256^3 mesh with its vertices' edges")
+        " sharded_extract calls it); K10's edges_ms is the asset's 256^3 mesh with its vertices' edges; K12's"
+        " launches are one Lean preprocess_image's (per button and for the panel's call with no session beside"
+        " them), its ms, plain_ms and bound_ms sum a Lean request's three resizes at the add-on's shapes, each"
+        " step's under steps, and frontend_ms the host ms of a request on the host path and on the card path")
     log(json.dumps({"session_zoo_ms_per_image": session_ms, "sam_cutout_ms_per_image": sam_cutout_ms,
                     "dead_upstream_ms": {key: v["ms"] for key, v in dead_upstream.items()}}))
     print(json.dumps(kernels_line))

@@ -1,8 +1,9 @@
 """Kernels of one version of the port at the main paths' shapes, on one
 card: K3, K4 and K10 on the Lean asset, K5 at SF3D's 161^3 lattice, K6,
-K7, K8, K9 and K11 on the full-width SF3D asset, and design variants.
+K7, K8, K9 and K11 on the full-width SF3D asset, K12 at the add-on's
+frontend shapes, and design variants.
 
-    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K8,K9,K10,K11]
+    python3 scripts/kernel_compare.py [--root DIR] [--kernels K3,K4,K5,K6,K7,K8,K9,K10,K11,K12]
                                       [--csrc DIR] [--variants]
 
 Imports ``sculptmate_tpu_torch`` from ``--root`` (default: this checkout;
@@ -35,6 +36,10 @@ split by kernel name under torch.profiler (``chip_smoke.device_split``):
   ``K11_split``: its 161^3 sdf and offsets) on the default ``SF3D``'s asset as
   ``chip_smoke.sf3d_scene`` makes it. A tree without K6's one-pass planes relayout is timed on its
   own two-pass relayout (``planes_relayout_shim``);
+- K12 (``check_pil_resample``): its four steps at the add-on's shapes
+  beside their plain versions and byte bounds, and ``preprocess_image`` on
+  a 1024^2 photo with the full u2net (seed 0), card path against host path
+  (bytes, launch counts, host ms a request);
 - with ``--variants``, kernels rebuilt (``kernels.sources_from``) from
   copies of this checkout's sources with edits (``edit_copy``; a CPU test
   checks that every edit still applies), each held to its plain version:
@@ -526,13 +531,13 @@ def planes_relayout_shim():
 
 KERNELS = {"K3": "marching_cubes", "K4": "triplane_points", "K5": "grid_multihead", "K6": "points_multihead",
            "K7": "marching_tets", "K8": "raster_winner", "K9": "uv_unwrap", "K10": "marching_cubes",
-           "K11": "marching_tets"}
+           "K11": "marching_tets", "K12": "pil_resample"}
 
 
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", default=HERE)
-    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K8,K9,K10,K11")
+    p.add_argument("--kernels", default="K3,K4,K5,K6,K7,K8,K9,K10,K11,K12")
     p.add_argument("--csrc", default=None, help="build the kernels from these sources")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--time-only", action="store_true",
@@ -627,6 +632,10 @@ def main():
             if "K11" in wanted:
                 phases += [("K11", lambda: smoke.check_marching_tets(sf3d_scene)),
                            ("K11 split", lambda: smoke.k11_split(sf3d_scene))]
+        if "K12" in wanted:
+            from sculptmate_tpu_torch.frontend.matting import U2NetMatting
+
+            phases.append(("K12", lambda: smoke.check_pil_resample(U2NetMatting(seed=0, device="cuda"))))
         if args.variants and "K4" in wanted:
             phases += [("K4 steps", lambda: k4_steps(smoke, gen.model, lean, K4_STEPS, "k4_step")),
                        ("K4 variants", lambda: k4_steps(

@@ -15,7 +15,9 @@ imported inside the functions that use them, so the device path needs
 neither. Each stage runs inside a ``torch.profiler`` span named
 ``matting.<stage>``: the network (``matting.u2net``, on the device path
 too) and, on the host surface, the resizes, the mask's copy to the host and
-the cutout, all inside ``matting.remove``.
+the cutout, all inside ``matting.remove``. ``predict_mask_device`` is the
+host surface's recipe on the device, PIL's bytes from kernel K12
+(``frontend/preprocess.py:preprocess_image_device`` takes it on the card).
 """
 
 from __future__ import annotations
@@ -112,6 +114,31 @@ class SessionBase:
         with record_function("matting.upsize"):
             mask_img = Image.fromarray((mask * 255).astype(np.uint8), mode="L")
             return mask_img.resize(image.size, Image.Resampling.LANCZOS)
+
+    def predict_mask_device(self, photo: torch.Tensor):
+        """``predict_mask``'s bytes from an (H, W, 3) uint8 photo, with no
+        PIL, on the session's device: K12's Lanczos to ``input_size`` as
+        float32 x / 255, the network, and K12's Lanczos of the mask's L image
+        back to (H, W) (``ops/pil_resample.py``). A host ``photo`` (pinned,
+        for the card) goes up for the downsize alone and is gone from the
+        device before the network runs. Returns the (H, W) uint8 mask on the
+        device and the int32 bbox of its texels above 0 (``bbox_bounds``
+        reads it)."""
+        from sculptmate_tpu_torch.ops.pil_resample import resample_mask, resample_photo
+
+        H, W = photo.shape[:2]
+        with record_function("matting.downsize"):
+            small = resample_photo(photo.to(self.device, non_blocking=True), self.input_size)
+        mask = self.predict_mask_batch(small[None])[0]
+        with record_function("matting.upsize"):
+            return resample_mask(mask, (W, H))
+
+    def takes_device_chain(self) -> bool:
+        """Whether ``predict_mask_device`` gives this session's ``predict``
+        bytes on the card: a CUDA session that keeps the base class's
+        one-mask recipe (``predict``, ``predict_mask``, ``_small``)."""
+        own = all(getattr(type(self), n) is getattr(SessionBase, n) for n in ("predict", "predict_mask", "_small"))
+        return own and self.device.type == "cuda"
 
     def predict(self, image, *args, **kwargs):
         """Session surface: a list of masks (``rembg/sessions/base.py:17-31``)."""

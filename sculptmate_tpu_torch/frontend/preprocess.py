@@ -2,14 +2,23 @@
 
 Counterpart of ``sculptmate_tpu/frontend/preprocess.py``.
 
-- ``preprocess_image`` (host, PIL): the reference's ``preprocessing.py:73-128``
-  with its quirks: the bbox crop takes ``alpha.max()`` as an exclusive
-  bound (dropping the last foreground row and column), the gray composite
-  comes before the uint8 quantization, and an input whose padded square is
-  narrower than 250 px is rejected (None). It runs inside a
+- ``preprocess_image`` (``preprocess_image_host``, PIL): the reference's
+  ``preprocessing.py:73-128`` with its quirks: the bbox crop takes
+  ``alpha.max()`` as an exclusive bound (dropping the last foreground row
+  and column), the gray composite comes before the uint8 quantization, and
+  an input whose padded square is narrower than 250 px is rejected (None).
+  It runs inside a
   ``torch.profiler`` span, ``frontend.preprocess``, with the matting's
   ``matting.*`` spans and its own ``frontend.crop_pad``,
-  ``frontend.composite`` and ``frontend.resize`` inside.
+  ``frontend.composite`` and ``frontend.resize`` inside. With an RGB photo
+  and a ``SessionBase`` on the card (``takes_card_path``) the same bytes
+  come from ``preprocess_image_device`` instead, inside a
+  ``frontend.on_card`` span.
+- ``preprocess_image_device``: that chain on the matting session's device,
+  with no PIL between the photo's upload and the result's copy back: the
+  photo goes up from one pinned block, kernel K12 (``ops/pil_resample.py``)
+  makes PIL's Lanczos resizes, the cutout and the gray composite byte for
+  byte, and the bbox is the one value the host waits for.
 - ``preprocess_batch_device`` (any device): the batched serving path. The
   alpha bbox is a masked min/max on the device, and the whole crop -> pad ->
   Lanczos resize chain is one dynamic-window separable resample
@@ -33,50 +42,146 @@ OUTPUT_SIZE = 1024
 
 
 def preprocess_image(image, ratio: float = 0.85, use_alpha: bool = False, session=None):
-    """Host path on a PIL image: matted (``remove``), cropped to the alpha
-    bbox, padded square, padded by ``ratio``; RGBA when ``use_alpha``, else
-    composited on 0.5 gray and Lanczos-resized to 1024^2. None when the
-    matte is empty or the padded square is under 250 px."""
+    """A PIL image matted (``remove``), cropped to the alpha bbox, padded
+    square, padded by ``ratio``; RGBA when ``use_alpha``, else composited on
+    0.5 gray and Lanczos-resized to 1024^2. None when the matte is empty or
+    the padded square is under 250 px. ``session`` defaults to
+    ``default_session()`` on the card, as ``remove`` takes it. The host path
+    (``preprocess_image_host``), or where ``takes_card_path`` holds the same
+    bytes from ``preprocess_image_device`` on the card."""
+    with record_function("frontend.preprocess"):
+        if session is None and torch.cuda.is_available():
+            from sculptmate_tpu_torch.frontend.matting import default_session
+
+            session = default_session()  # kept per device by ``new_session``
+        if takes_card_path(image, session):
+            with record_function("frontend.on_card"):
+                return preprocess_image_device(image, ratio, use_alpha, session)
+        return preprocess_image_host(image, ratio, use_alpha, session)
+
+
+def preprocess_image_host(image, ratio: float = 0.85, use_alpha: bool = False, session=None):
+    """``preprocess_image``'s host path (PIL and numpy), whatever the
+    session's device."""
     import numpy as np
     from PIL import Image
 
     from sculptmate_tpu_torch.frontend.matting import remove
 
-    with record_function("frontend.preprocess"):
-        input_raw = image.convert("RGBA") if use_alpha else image
-        input_raw = remove(input_raw, session=session)
+    input_raw = image.convert("RGBA") if use_alpha else image
+    input_raw = remove(input_raw, session=session)
 
-        with record_function("frontend.crop_pad"):
-            arr = np.asarray(input_raw)
-            ys, xs = np.where(arr[..., 3] > 0)
-            if len(ys) == 0:
-                return None
-            y1, y2, x1, x2 = ys.min(), ys.max(), xs.min(), xs.max()
-            fg = arr[y1:y2, x1:x2]  # exclusive max bound, as in the reference
-            if fg.size == 0:
-                return None
-
-            size = max(fg.shape[0], fg.shape[1])
-            ph0, pw0 = (size - fg.shape[0]) // 2, (size - fg.shape[1]) // 2
-            ph1, pw1 = size - fg.shape[0] - ph0, size - fg.shape[1] - pw0
-            fg = np.pad(fg, ((ph0, ph1), (pw0, pw1), (0, 0)), mode="constant")
-
-            new_size = int(size / ratio)
-            p0 = (new_size - size) // 2
-            p1 = new_size - size - p0
-            fg = np.pad(fg, ((p0, p1), (p0, p1), (0, 0)), mode="constant")
-
-        if use_alpha:
-            return Image.fromarray(fg, mode="RGBA")
-
-        with record_function("frontend.composite"):
-            f = fg.astype(np.float32) / 255.0
-            rgb = f[:, :, :3] * f[:, :, 3:4] + (1 - f[:, :, 3:4]) * 0.5
-            out = Image.fromarray((rgb * 255.0).astype(np.uint8))
-        if out.size[0] < 250:
+    with record_function("frontend.crop_pad"):
+        arr = np.asarray(input_raw)
+        ys, xs = np.where(arr[..., 3] > 0)
+        if len(ys) == 0:
             return None
+        y1, y2, x1, x2 = ys.min(), ys.max(), xs.min(), xs.max()
+        fg = arr[y1:y2, x1:x2]  # exclusive max bound, as in the reference
+        if fg.size == 0:
+            return None
+
+        size = max(fg.shape[0], fg.shape[1])
+        ph0, pw0 = (size - fg.shape[0]) // 2, (size - fg.shape[1]) // 2
+        ph1, pw1 = size - fg.shape[0] - ph0, size - fg.shape[1] - pw0
+        fg = np.pad(fg, ((ph0, ph1), (pw0, pw1), (0, 0)), mode="constant")
+
+        new_size = int(size / ratio)
+        p0 = (new_size - size) // 2
+        p1 = new_size - size - p0
+        fg = np.pad(fg, ((p0, p1), (p0, p1), (0, 0)), mode="constant")
+
+    if use_alpha:
+        return Image.fromarray(fg, mode="RGBA")
+
+    with record_function("frontend.composite"):
+        f = fg.astype(np.float32) / 255.0
+        rgb = f[:, :, :3] * f[:, :, 3:4] + (1 - f[:, :, 3:4]) * 0.5
+        out = Image.fromarray((rgb * 255.0).astype(np.uint8))
+    if out.size[0] < 250:
+        return None
+    with record_function("frontend.resize"):
+        return out.resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
+
+
+def takes_card_path(image, session) -> bool:
+    """Whether ``preprocess_image`` makes this input's bytes on the card: an
+    RGB PIL photo and a ``SessionBase`` that takes the device chain
+    (``SessionBase.takes_device_chain``). Other inputs and sessions keep the
+    host path."""
+    from sculptmate_tpu_torch.frontend.matting import SessionBase
+
+    return getattr(image, "mode", None) == "RGB" and isinstance(session, SessionBase) and session.takes_device_chain()
+
+
+def _host_photo(image, device: torch.device) -> torch.Tensor:
+    """An RGB PIL image as an (H, W, 3) uint8 host tensor, pinned where it is
+    bound for the card so that its copies there do not wait; PyTorch's
+    caching host allocator hands the block back, request after request, once
+    they have landed."""
+    import numpy as np
+
+    arr = np.asarray(image)
+    host = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    host.numpy()[...] = arr
+    return host
+
+
+def _image_from(out: torch.Tensor):
+    """An (H, W, 3 or 4) uint8 tensor as a PIL image that owns its memory;
+    from the card through a pinned block."""
+    import numpy as np
+    from PIL import Image
+
+    if out.is_cuda:
+        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(out.device).synchronize()
+        out = host
+    arr = out.numpy()
+    # fromarray copies an RGB array but maps an RGBA one, which would keep the block
+    return Image.fromarray(np.array(arr) if arr.shape[-1] == 4 else arr)
+
+
+def preprocess_image_device(image, ratio: float, use_alpha: bool, session):
+    """``preprocess_image``'s bytes for an RGB PIL photo, made on the
+    matting session's device (a ``SessionBase``): EXIF re-orientation on the
+    host, ``SessionBase.predict_mask_device`` (K12's
+    Lanczos to the network's input, the network, K12's Lanczos of the L mask
+    back with its bbox), the bbox to the host (the one wait), the crop's and
+    pads' sizes worked out as the host path does, then K12's condition image
+    (or, with ``use_alpha``, the padded RGBA cutout) copied back. None where
+    the host path gives None. The photo goes up twice from the same pinned
+    block, so that no copy of it is on the card while the network runs: the
+    add-on's memory peak. On a CPU session K12's plain versions run."""
+    from PIL import ImageOps
+
+    from sculptmate_tpu_torch.ops.pil_resample import Crop, bbox_bounds, condition_image, padded_cutout
+
+    with record_function("matting.remove"):
+        image = ImageOps.exif_transpose(image)
+        with record_function("matting.upload"):
+            host = _host_photo(image, session.device)
+        mask, bbox = session.predict_mask_device(host)
+        with record_function("matting.bbox_to_host"):
+            y1, y2, x1, x2 = bbox_bounds(bbox, *host.shape[:2])
+    hc, wc = y2 - y1, x2 - x1  # exclusive max bound, as in the reference; negative when empty
+    if hc <= 0 or wc <= 0:
+        return None
+    size = max(hc, wc)
+    new_size = int(size / ratio)
+    p0 = (new_size - size) // 2
+    crop = Crop(y1, x1, hc, wc, p0 + (size - hc) // 2, p0 + (size - wc) // 2, new_size)
+    if use_alpha:
+        with record_function("frontend.crop_pad"):
+            out = padded_cutout(host.to(session.device, non_blocking=True), mask, crop)
+    elif new_size < 250:
+        return None
+    else:
         with record_function("frontend.resize"):
-            return out.resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.Resampling.LANCZOS)
+            out = condition_image(host.to(session.device, non_blocking=True), mask, crop, OUTPUT_SIZE)
+    with record_function("frontend.to_host"):
+        return _image_from(out)
 
 
 def sam_segment(image, bbox, session=None):
