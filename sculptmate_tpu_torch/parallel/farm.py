@@ -14,14 +14,12 @@ device named several times can):
   order. Without a mesh it is a one-device farm on ``device``.
   ``generate_batch_rgba`` is the serving loop: each chunk's matting, fused
   preprocess and encode are enqueued per dp shard, then every asset's
-  extraction (``TSR.extract_mesh_async``, so the path, the retry and the
-  capacity policy are the TSR's own: on the card by default K10 builds the
-  faces on the device and the mesh comes back by pinned copies; on the CPU,
-  and with ``mode="wire"`` anywhere, the host rebuilds the faces from K3's
-  wire), and up to three chunks are in flight before the oldest is waited
-  on and finished on the host. Nothing before that wait waits for the
+  extraction (``TSR.extract_mesh_async`` on the replica of its shard, on
+  the TSR's path for ``mode``), and up to three chunks are in flight before
+  the oldest is waited on and finished on the host
+  (``TSR.extract_mesh_wait_all``). Nothing before that wait waits for the
   device. ``mode="packed"`` returns one batched ``MCResult`` of device
-  tensors in lattice coords (K2, then K10, per asset).
+  tensors in lattice coords (``TSR.packed_mesh`` per asset).
 - ``sharded_density_grid``, ``sharded_extract`` and
   ``sharded_extract_wire``: the high-resolution extraction over x-slabs of
   the lattice on the ``sp`` axis. Each shard evaluates its ``slab + 1``
@@ -55,9 +53,7 @@ from sculptmate_tpu_torch.ops.density_grid import DensityGridSpec, Weights, dens
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
 from sculptmate_tpu_torch.parallel.mesh import DeviceMesh, make_mesh, replicate, shard_batch
 from sculptmate_tpu_torch.runtime.device import canonical, device_scope, resolve_device
-from sculptmate_tpu_torch.systems.tsr import _NO_MAX_FACES, _note, packed_path, upload
-
-_MODES = (None, "wire", "packed")
+from sculptmate_tpu_torch.systems.tsr import packed_path, upload
 
 
 class AssetFarm:
@@ -112,20 +108,12 @@ class AssetFarm:
         ``TSR.extract_mesh`` (``mode`` None or "wire": the TSR's paths, see
         ``systems.tsr.packed_path``); with ``mode="packed"`` one ``MCResult``
         of (B, mv) and (B, mf) tensors (see ``extract_batch_packed``)."""
-        self._check_mode(mode, max_faces)
+        packed_path(mode, self.device, max_faces)  # raises before any work
         parts = self._encode(images)
         if mode == "packed":
             return self._packed(parts, resolution, threshold, max_verts, max_faces)
         return self.extract_batch_wire_wait(self._extract_async(parts, resolution, threshold, max_verts, max_faces,
                                                                 has_vertex_color, mode))
-
-    def _check_mode(self, mode, max_faces: int) -> None:
-        """An unknown mode raises, and so does ``max_faces`` where the
-        handles take the wire path (no device face buffer), before any work."""
-        if mode not in _MODES:
-            raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-        if mode != "packed" and max_faces > 0 and not packed_path(mode, self.device):
-            raise ValueError(_NO_MAX_FACES)
 
     def extract_batch_packed(
         self, codes, resolution: int = 256, threshold: float = 25.0, max_verts: int = 0, max_faces: int = 0
@@ -134,19 +122,17 @@ class AssetFarm:
         dp: each asset's density grid and K10 on its shard's device -> one
         ``MCResult`` on the farm's first device whose fields have a leading
         batch dimension: (B, mv) f32 lattice positions, (B, mf) int32
-        faces, (B,) int32 counters. Capacities default to 8 R^2 and 16 R^2;
-        rows past them are dropped and the counters stay exact, so the
-        caller sees an overflow."""
+        faces, (B,) int32 counters. Capacities default to the K10 path's
+        (``TSR.packed_mesh``); rows past them are dropped and the counters
+        stay exact, so the caller sees an overflow."""
         return self._packed(self._split(codes), resolution, threshold, max_verts, max_faces)
 
     def _packed(self, parts, resolution, threshold, max_verts, max_faces) -> MCResult:
-        mv = max_verts if max_verts > 0 else 8 * resolution * resolution
-        mf = max_faces if max_faces > 0 else 16 * resolution * resolution
         results = []
         for _, codes in parts:
             tsr = self._tsr_on(codes.device)
             with device_scope(codes.device):
-                results += [tsr._packed_mesh(code, resolution, float(threshold), mv, mf) for code in codes]
+                results += [tsr.packed_mesh(code, resolution, float(threshold), max_verts, max_faces) for code in codes]
         stack = lambda field: torch.stack([f.to(self.device, non_blocking=True) for f in field])  # noqa: E731
         return MCResult(*(None if field[0] is None else stack(field) for field in zip(*results)))  # edges: None
 
@@ -180,20 +166,9 @@ class AssetFarm:
         return handles
 
     def extract_batch_wire_wait(self, handles):
-        """Wait for and finish each handle in order on the host. An overflow
-        is re-extracted with grown capacities, never truncated; the largest
-        capacities and counts of the batch go to each replica's capacity
-        cache."""
-        out, seen = [], {}
-        for h in handles:
-            with device_scope(h.scene_code.device):
-                mesh, counts, caps = self._tsr_on(h.scene_code.device)._wait(h)
-            _note(seen, h.packed, counts, caps)
-            out.append(mesh)
-        for tsr in {id(t): t for t in self._replicas.values()}.values():
-            for packed, (counts, caps) in seen.items():
-                tsr._caps_store(handles[0].resolution, packed, counts, caps)
-        return out
+        """Wait for and finish each handle in order on the host
+        (``TSR.extract_mesh_wait_all``)."""
+        return self.tsr.extract_mesh_wait_all(handles)
 
     def _prep_cond(self, rgba: torch.Tensor, matting, ratio: float) -> torch.Tensor:
         """Matting and the fused preprocess of (B, H, W, 4) RGBA on its
@@ -242,7 +217,7 @@ class AssetFarm:
         list of (verts, faces, colors | None) triples in batch order; with
         ``mode="packed"`` the whole batch's cond images go through
         ``generate_batch(mode="packed")`` (one ``MCResult``)."""
-        self._check_mode(mode, max_faces)
+        packed_path(mode, self.device, max_faces)  # raises before any work
         rgba = upload(rgba, self.device)  # once, for the whole batch
         if mode == "packed":
             cond = torch.cat([self._prep_cond(p, matting, ratio).to(self.device) for _, p in self._split(rgba)])

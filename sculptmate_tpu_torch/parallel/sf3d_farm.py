@@ -91,9 +91,8 @@ class SF3DFarm:
         with record_function("sf3d_farm.extract"):
             wires = []
             for sf3d, code, _ in assets:
-                mv = sf3d._capacity(c.isosurface_resolution)
                 with device_scope(code.device):
-                    wires.append((sf3d.extract_wire_async(code, thr, mv), mv))
+                    wires.append(sf3d.extract_wire_async(code, thr))
 
         def decode(i):
             """Host tail of asset i: the wire (re-extracted on overflow),

@@ -1,16 +1,10 @@
-"""Cross-process persistence of observed buffer capacities.
+"""The extraction capacity policy (``Capacities``) and its store on disk.
 
-Counterpart of ``sculptmate_tpu/runtime/capacity_cache.py``. The wire
-extraction dispatches with a fixed vertex capacity; the default is sized
-for any asset and a fresh process otherwise starts from it, so the first
-large asset pays an overflow retry (a second density grid and compaction)
-before the in-memory cache (``TSR._wire_cap_cache``) has learned its size.
-This module keeps those capacities on disk, so a fresh process starts at
-the steady-state values.
-
-Stale entries are harmless by construction: every consumer detects
-overflow from exact wire counters and retries with a grown capacity (never
-truncates), so a too-small value costs one retry and a too-large one only
+Counterpart of ``sculptmate_tpu/runtime/capacity_cache.py``. An extraction
+writes into buffers of fixed capacities whose counters are exact, so an
+overflow is detected and retried with grown capacities, never decoded
+truncated. Capacities that worked are kept on disk, so a fresh process
+starts at the steady-state values; a stale entry costs one retry, or only
 bytes.
 
 The store is ``capacity_cache.json`` in the port's build directory
@@ -23,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _FILENAME = "capacity_cache.json"
 _DEFAULT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
@@ -91,3 +85,60 @@ def store(key: str, caps: Sequence[int]) -> None:
             raise
     except OSError:
         pass
+
+
+class Capacities:
+    """The capacity policy of one extraction path, kept per resolution in
+    memory and on disk under ``<name>_r<resolution>``:
+
+    - ``dispatch``: each capacity the caller gives (> 0), else the one kept
+      (in this process, else read once from the store), else
+      ``default(resolution)``; with ``at_least_default``, never below it;
+    - ``grow``: after an overflow (any count above its capacity), each
+      capacity to 1.2x its count in buckets of 65 536, never below its own;
+    - ``keep``: after a success, each capacity ``tighten``-ed toward its
+      count, remembered and stored; ``keep_batch`` once for a batch, from
+      its element-wise largest counts and capacities.
+
+    ``at_least_default`` is the owners' one difference: the TSR's paths set
+    it, the SF3D's marching tets do not. ROADMAP queue 2 item D is where to
+    decide whether they should differ."""
+
+    def __init__(self, name: str, default: Callable[[int], Tuple[int, ...]], at_least_default: bool):
+        self.name, self.default, self.at_least_default = name, default, at_least_default
+        self._kept: Dict[int, Optional[Tuple[int, ...]]] = {}
+
+    def key(self, resolution: int) -> str:
+        return f"{self.name}_r{resolution}"
+
+    def kept(self, resolution: int) -> Optional[Tuple[int, ...]]:
+        """The capacities kept at ``resolution``, or None."""
+        if resolution not in self._kept:
+            self._kept[resolution] = load(self.key(resolution))
+        return self._kept[resolution]
+
+    def dispatch(self, resolution: int, given: Sequence[int] = ()) -> Tuple[int, ...]:
+        default = self.default(resolution)
+        kept = self.kept(resolution)
+        if kept is None or len(kept) != len(default):
+            kept = default
+        if self.at_least_default:
+            kept = tuple(map(max, kept, default))
+        return tuple(g if g > 0 else k for g, k in zip(given or (0,) * len(kept), kept))
+
+    @staticmethod
+    def grow(counts: Sequence[int], caps: Sequence[int]) -> Optional[Tuple[int, ...]]:
+        """None when every capacity held, else the capacities to retry with."""
+        if all(n <= c for n, c in zip(counts, caps)):
+            return None
+        return tuple(max(c, 65536 * -(-int(1.2 * n) // 65536)) for n, c in zip(counts, caps))
+
+    def keep(self, resolution: int, counts: Sequence[int], caps: Sequence[int]) -> None:
+        caps = tuple(tighten(c, n) for c, n in zip(caps, counts))
+        self._kept[resolution] = caps
+        store(self.key(resolution), caps)
+
+    def keep_batch(self, resolution: int, runs: List[Tuple[Sequence[int], Sequence[int]]]) -> None:
+        """``keep`` once for a batch's (counts, capacities) runs."""
+        counts, caps = (tuple(map(max, zip(*column))) for column in zip(*runs))
+        self.keep(resolution, counts, caps)

@@ -24,11 +24,10 @@ per-corner UVs as f32), no host sync in the dispatch.
 The encoder computes in ``dtype`` (bf16 on the card) under autocast, its
 matrix weights stored in ``dtype`` once (``cast_matrix_weights``) and the
 other parameters in f32; the lattice and texel queries compute in
-``extract_dtype``, which follows it, from the f32 decoder. The wire has a fixed vertex capacity whose counters are
-exact: an overflow is detected and re-extracted with a grown capacity, never
-decoded truncated; the capacity that worked is remembered on the instance
-and on disk (``runtime/capacity_cache.py``, key ``torch_sf3d_mt_r<res>``).
-The rasterizer has no capacity at all.
+``extract_dtype``, which follows it, from the f32 decoder. The wire has a
+fixed vertex capacity, dispatched, grown after an overflow and kept by
+``capacities`` (``runtime/capacity_cache.Capacities``). The rasterizer has
+no capacity at all.
 
 Each stage runs inside a ``torch.profiler`` span named ``sf3d.<stage>``:
 ``encode`` (holding ``materials``, the CLIP estimator), ``extract``
@@ -86,7 +85,7 @@ from sculptmate_tpu_torch.ops.density_grid import (
     query_points_multihead,
 )
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
-from sculptmate_tpu_torch.runtime import capacity_cache
+from sculptmate_tpu_torch.runtime.capacity_cache import Capacities
 from sculptmate_tpu_torch.runtime.checkpoint import is_optional_sf3d_key
 from sculptmate_tpu_torch.runtime.device import resolve_device
 from sculptmate_tpu_torch.systems.tsr import _HostCopy, _to_host_async, cast_matrix_weights, upload
@@ -311,15 +310,18 @@ class SF3D:
         self._c2w = upload(default_cond_c2w(c.default_distance), self.device)
         self._Kn = upload(Kn, self.device)
         self._bg = upload(np.asarray(c.background_color), self.device)
-        self._mt_cap: Optional[int] = None
+        self.capacities = Capacities("torch_sf3d_mt", lambda res: (24 * lattice_size(res) ** 2,),
+                                     at_least_default=False)
         self._k5_weights = None  # (key, K5's packed heads), see _k5_weights_packed
         self._k6_weights = None  # (key, K6's packed heads), see _k6_weights_packed
 
     def replica(self, device) -> "SF3D":
         """This model on another device: the same config, dtypes and
-        weights, copied once."""
-        return SF3D(self.config, state_dict=self.module.state_dict(), dtype=self.dtype,
-                    extract_dtype=self.extract_dtype, device=device)
+        weights, copied once, and the same capacity policy."""
+        out = SF3D(self.config, state_dict=self.module.state_dict(), dtype=self.dtype,
+                   extract_dtype=self.extract_dtype, device=device)
+        out.capacities = self.capacities
+        return out
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=self.dtype, enabled=self.dtype != torch.float32)
@@ -453,42 +455,33 @@ class SF3D:
         faces = host[3 * max_verts : 3 * (max_verts + max_faces)].reshape(max_faces, 3)[:nf]
         return verts, faces, counts
 
-    def _capacity(self, res: int) -> int:
-        if self._mt_cap is None:
-            persisted = capacity_cache.load(f"torch_sf3d_mt_r{res}")
-            N = lattice_size(res)
-            self._mt_cap = persisted[0] if persisted else 24 * N * N
-        return self._mt_cap
-
-    def extract_wire_async(self, scene_code: torch.Tensor, threshold: float, max_verts: int) -> _HostCopy:
+    def extract_wire_async(self, scene_code: torch.Tensor, threshold: float, max_verts: int = 0) -> tuple:
         """Enqueue one asset's lattice query and MT wire, then the wire's copy
-        to pinned host memory; nothing here waits for the device."""
-        return _to_host_async(self._extract_wire(scene_code, threshold, max_verts, float(self.config.weld_eps)))
+        to pinned host memory; nothing here waits for the device. The vertex
+        capacity is ``max_verts`` where given (> 0), else ``capacities``'s
+        -> (the host copy, (capacity,)), a ``pending`` for ``extract_mesh``."""
+        caps = self.capacities.dispatch(self.config.isosurface_resolution, (max_verts,))
+        return _to_host_async(self._extract_wire(scene_code, threshold, *caps, float(self.config.weld_eps))), caps
 
-    def extract_mesh(self, scene_code: torch.Tensor, threshold: float, pending: Optional[Tuple[_HostCopy, int]] = None):
+    def extract_mesh(self, scene_code: torch.Tensor, threshold: float, pending: Optional[tuple] = None):
         """Wire extraction of one asset -> (verts world f32, faces i32, raw
         vertex count) or None for an empty surface. ``pending``: a wire
-        already in flight (``extract_wire_async``) and the vertex capacity it
-        was enqueued with. An overflow is re-extracted with a grown capacity,
-        never decoded truncated."""
+        already in flight (``extract_wire_async``). An overflow is
+        re-extracted with a grown capacity, never decoded truncated."""
         c = self.config
         res = c.isosurface_resolution
-        host, mv = pending if pending is not None else (None, self._capacity(res))
-        if host is None:
-            host = self.extract_wire_async(scene_code, threshold, mv)
+        host, caps = pending if pending is not None else self.extract_wire_async(scene_code, threshold)
         while True:
             with record_function("sf3d.wire_to_host"):
                 wire = host.wire()
-            nv = int(mt_wire.wire_counts(wire, N_WIRE_COUNTS)[0])
-            if nv <= mv:
+            counts = (int(mt_wire.wire_counts(wire, N_WIRE_COUNTS)[0]),)
+            grown = self.capacities.grow(counts, caps)
+            if grown is None:
                 break
-            mv = max(mv, 65536 * -(-int(1.2 * nv) // 65536))
             with record_function("sf3d.capacity_retry"):
-                host = self.extract_wire_async(scene_code, threshold, mv)
-        # tighten toward the observed count, so one giant mesh does not
-        # inflate every later extraction; this wire keeps its capacity
-        self._mt_cap = capacity_cache.tighten(mv, nv)
-        capacity_cache.store(f"torch_sf3d_mt_r{res}", (self._mt_cap,))
+                host, caps = self.extract_wire_async(scene_code, threshold, *grown)
+        self.capacities.keep(res, counts, caps)
+        (nv,), (mv,) = counts, caps
         if nv == 0:
             return None
         with record_function("sf3d.wire_decode"):

@@ -25,10 +25,8 @@ ConvTranspose upsample -> NeRF MLP decoder, in two stages:
   every ray sample, alpha-composited onto white.
 
 Each path's buffers have fixed capacities (the vertices; on the K10 path
-the faces too). Their counters are exact, so an overflow is detected and
-the extraction retried with grown capacities, never decoded truncated;
-capacities that worked are remembered per path and resolution on the
-instance and on disk (``runtime/capacity_cache.py``).
+the faces too), dispatched, grown after an overflow and kept by the path's
+``runtime/capacity_cache.Capacities``.
 
 ``extract_mesh_async`` only enqueues: the extraction's kernels, then a
 non-blocking copy of each part of its output into pinned host memory, each
@@ -53,7 +51,7 @@ number is the retry count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,8 +76,8 @@ from sculptmate_tpu_torch.ops.density_grid import (
 )
 from sculptmate_tpu_torch.ops.rays import get_spherical_cameras, rays_intersect_bbox
 from sculptmate_tpu_torch.ops.resize import resize_bilinear_antialias
-from sculptmate_tpu_torch.runtime import capacity_cache
-from sculptmate_tpu_torch.runtime.device import resolve_device
+from sculptmate_tpu_torch.runtime.capacity_cache import Capacities
+from sculptmate_tpu_torch.runtime.device import device_scope, resolve_device
 
 _COLOR_CHUNK = 1 << 18  # points per color-query step: bounds the feature tensor
 # the submodules that run under autocast; the decoder stays f32 (its kernels
@@ -291,40 +289,30 @@ def _rows_out(rows: torch.Tensor, n: int, dtype) -> np.ndarray:
     return out
 
 
-_NO_MAX_FACES = (
-    "max_faces is not applicable in wire mode (faces are rebuilt on the host without a device face buffer); "
-    'use mode="packed" to bound the device face capacity'
-)
-
-
-def packed_path(mode: Optional[str], device: torch.device) -> bool:
+def packed_path(mode: Optional[str], device: torch.device, max_faces: int = 0) -> bool:
     """Whether an extraction on ``device`` builds its faces there (kernel
     K10, ``mode="packed"``) or rebuilds them on the host from the wire
     (K3, ``mode="wire"``). ``mode=None`` follows the device: K10 on the
-    card, the wire on the CPU."""
+    card, the wire on the CPU. An unknown mode raises, and so does
+    ``max_faces`` on the wire path, which has no device face buffer."""
     if mode not in (None, "wire", "packed"):
         raise ValueError(f'mode must be None, "wire" or "packed", got {mode!r}')
-    return mode == "packed" or (mode is None and device.type == "cuda")
-
-
-def _note(seen: dict, packed: bool, counts: tuple, caps: tuple) -> None:
-    """Keep per path the elementwise largest counts and capacities of a
-    batch's handles, for one capacity-cache update after the batch."""
-    if packed in seen:
-        counts, caps = (tuple(map(max, a, b)) for a, b in zip(seen[packed], (counts, caps)))
-    seen[packed] = (counts, caps)
-
-
-def _cap_key(packed: bool, resolution: int) -> str:
-    return f"torch_tsr_{'packed' if packed else 'wire'}_r{resolution}"
+    packed = mode == "packed" or (mode is None and device.type == "cuda")
+    if max_faces > 0 and not packed:
+        raise ValueError(
+            "max_faces is not applicable in wire mode (faces are rebuilt on the host without a device face buffer); "
+            'use mode="packed" to bound the device face capacity'
+        )
+    return packed
 
 
 @dataclasses.dataclass(frozen=True)
 class _MeshHandle:
-    """An enqueued extraction plus what a retry or the host finish needs.
-    ``caps``: (max_verts,) on the wire path, (max_verts, max_faces) on the
-    K10 path."""
+    """An enqueued extraction plus what a retry or the host finish needs:
+    the ``TSR`` that dispatched it, and ``caps``: (max_verts,) on the wire
+    path, (max_verts, max_faces) on the K10 path."""
 
+    tsr: "TSR"
     scene_code: torch.Tensor
     host: _HostCopy
     caps: tuple
@@ -332,6 +320,10 @@ class _MeshHandle:
     threshold: float
     want_colors: bool
     packed: bool
+
+    @property
+    def capacities(self) -> Capacities:
+        return self.tsr.packed_capacities if self.packed else self.tsr.wire_capacities
 
 
 class TSR:
@@ -367,15 +359,18 @@ class TSR:
             self.module.load_state_dict(state_dict)
         self.module.eval().requires_grad_(False)
         cast_matrix_weights(self.module, _ENCODERS, dtype)
-        self._wire_cap_cache = {}
-        self._packed_cap_cache = {}
+        self.wire_capacities = Capacities("torch_tsr_wire", lambda r: (8 * r * r,), at_least_default=True)
+        self.packed_capacities = Capacities("torch_tsr_packed", lambda r: (8 * r * r, 16 * r * r),
+                                            at_least_default=True)
         self._k4_weights = None  # (key, K4's packed decoder), see _k4_inputs
 
     def replica(self, device) -> "TSR":
         """This model on another device: the same config, dtypes and
-        weights, copied once."""
-        return TSR(self.config, state_dict=self.module.state_dict(), dtype=self.dtype,
-                   extract_dtype=self.extract_dtype, device=device)
+        weights, copied once, and the same capacity policies."""
+        out = TSR(self.config, state_dict=self.module.state_dict(), dtype=self.dtype,
+                  extract_dtype=self.extract_dtype, device=device)
+        out.wire_capacities, out.packed_capacities = self.wire_capacities, self.packed_capacities
+        return out
 
     # -- stage 1: image -> scene codes --------------------------------
     @torch.inference_mode()
@@ -459,38 +454,6 @@ class TSR:
         with record_function("tsr.marching_cubes"):
             return mc_wire_device(density - threshold, max_verts, color_fn)
 
-    # -- the capacity policy, one for both paths -----------------------
-    def _caps(self, resolution: int, max_verts: int, max_faces: int, packed: bool) -> Tuple[int, ...]:
-        """Capacities to dispatch with: (max_verts,) on the wire path,
-        (max_verts, max_faces) on the K10 path. Each is the caller's where
-        given (> 0), else the default (8 R^2 vertices, 16 R^2 faces) raised
-        to a capacity that worked before on this path at this resolution
-        (in this process, else persisted by an earlier one)."""
-        given = (max_verts, max_faces)[: 1 + packed]
-        default = (8 * resolution * resolution, 16 * resolution * resolution)[: 1 + packed]
-        cached = (self._packed_cap_cache if packed else self._wire_cap_cache).get(resolution)
-        if cached is None:
-            cached = capacity_cache.load(_cap_key(packed, resolution))
-        if cached is None or len(cached) != len(default):
-            cached = default
-        return tuple(g if g > 0 else max(d, c) for g, d, c in zip(given, default, cached))
-
-    def _caps_store(self, resolution: int, packed: bool, counts: tuple, caps: tuple) -> None:
-        """Tighten the capacities toward the counts seen and remember them
-        (``torch_tsr_wire_r<R>``, ``torch_tsr_packed_r<R>``)."""
-        caps = tuple(capacity_cache.tighten(c, n) for c, n in zip(caps, counts))
-        (self._packed_cap_cache if packed else self._wire_cap_cache)[resolution] = caps
-        capacity_cache.store(_cap_key(packed, resolution), caps)
-
-    @staticmethod
-    def _grown(counts: tuple, caps: tuple) -> Optional[tuple]:
-        """None when every capacity held; otherwise the capacities to retry
-        with, each raised to 1.2x its count in buckets of 65 536. Overflow is
-        read from the exact counters, never truncated."""
-        if all(n <= c for n, c in zip(counts, caps)):
-            return None
-        return tuple(max(c, 65536 * -(-int(1.2 * n) // 65536)) for n, c in zip(counts, caps))
-
     # -- the handles: dispatch, then wait and finish on the host --------
     def extract_mesh_async(
         self,
@@ -507,14 +470,14 @@ class TSR:
         its output to pinned host memory, and return a handle for
         ``extract_mesh_wait``; nothing here waits for the device.
         ``max_faces`` bounds the K10 path's face capacity; the wire path has
-        no device face buffer and refuses it."""
-        packed = packed_path(mode, scene_code.device)
-        if max_faces > 0 and not packed:
-            raise ValueError(_NO_MAX_FACES)
-        caps = self._caps(resolution, max_verts, max_faces, packed)
+        no device face buffer and refuses it. Capacities not given come
+        from the path's policy (``wire_capacities``, ``packed_capacities``)."""
+        packed = packed_path(mode, scene_code.device, max_faces)
+        policy = self.packed_capacities if packed else self.wire_capacities
+        caps = policy.dispatch(resolution, (max_verts, max_faces)[: 1 + packed])
         threshold, want_colors = float(threshold), bool(has_vertex_color)
         host = self._dispatch(scene_code, resolution, threshold, caps, want_colors, packed)
-        return _MeshHandle(scene_code, host, caps, resolution, threshold, want_colors, packed)
+        return _MeshHandle(self, scene_code, host, caps, resolution, threshold, want_colors, packed)
 
     def _dispatch(self, scene_code, resolution, threshold, caps, want_colors, packed) -> _HostCopy:
         extract = self._extract_packed if packed else self._extract_wire
@@ -536,7 +499,7 @@ class TSR:
         while True:
             with record_function("tsr.counts_to_host" if handle.packed else "tsr.wire_to_host"):
                 counts = self._counts(host, handle.packed)
-            grown = self._grown(counts, caps)
+            grown = handle.capacities.grow(counts, caps)
             if grown is None:
                 break
             caps = grown
@@ -586,11 +549,27 @@ class TSR:
         verts (nv, 3) f32 world, faces (nf, 3) int64, colors (nv, 3) f32,
         arrays that own their memory. Waits for the counters only; an
         overflow is re-extracted with grown capacities. ``store=False`` skips
-        the capacity-cache update."""
+        the capacity policy's ``keep``."""
         mesh, counts, caps = self._wait(handle)
         if store:
-            self._caps_store(handle.resolution, handle.packed, counts, caps)
+            handle.capacities.keep(handle.resolution, counts, caps)
         return mesh, (counts[0], caps[0])
+
+    @staticmethod
+    def extract_mesh_wait_all(handles) -> list:
+        """Wait for and finish each handle in order, each on its own model
+        and in its device's scope -> the meshes of ``extract_mesh_wait``. An
+        overflow is re-extracted with grown capacities; then each path's
+        policy keeps the batch's largest counts and capacities, once."""
+        out, runs = [], {}
+        for h in handles:
+            with device_scope(h.scene_code.device):
+                mesh, counts, caps = h.tsr._wait(h)
+            runs.setdefault((h.capacities, h.resolution), []).append((counts, caps))
+            out.append(mesh)
+        for (policy, resolution), batch in runs.items():
+            policy.keep_batch(resolution, batch)
+        return out
 
     def extract_mesh(
         self,
@@ -607,34 +586,29 @@ class TSR:
         (``tsr/system.py:185-189``).
 
         Every asset is enqueued (``extract_mesh_async``) before the first is
-        waited on, so the host work overlaps device work; the largest
-        capacities and counts of the call go to the capacity cache once.
+        waited on (``extract_mesh_wait_all``), so the host work overlaps
+        device work.
         ``mode=None`` follows the device (``packed_path``): on the card the
         faces come from the device (kernel K10) with exact f32 positions and
         colors; on the CPU, and with ``mode="wire"`` anywhere, occupancy
         bits, u16 t and u8 colors come to the host, which rebuilds the
         faces. ``mode="packed"`` takes K10 anywhere. The wire path has no
         device face buffer, so ``max_faces`` raises there."""
-        packed_path(mode, self.device)  # an unknown mode raises before any work
-        handles = [
+        packed_path(mode, self.device, max_faces)  # raises before any work
+        return self.extract_mesh_wait_all([
             self.extract_mesh_async(code, has_vertex_color, resolution, threshold, max_verts, max_faces, mode)
             for code in scene_codes
-        ]
-        out, seen = [], {}
-        for h in handles:
-            mesh, counts, caps = self._wait(h)
-            _note(seen, h.packed, counts, caps)
-            out.append(mesh)
-        for packed, (counts, caps) in seen.items():
-            self._caps_store(resolution, packed, counts, caps)
-        return out
+        ])
 
     # -- the K10 path's device work ---------------------------------------
     @torch.inference_mode()
-    def _packed_mesh(self, scene_code, resolution: int, threshold: float, mv: int, mf: int) -> MCResult:
+    def packed_mesh(self, scene_code, resolution: int, threshold: float, mv: int = 0, mf: int = 0) -> MCResult:
         """The density lattice (K2), the iso-level taken off in place, and
         the face-emitting marching cubes (K10) of one code -> its
-        ``MCResult`` in lattice coords."""
+        ``MCResult`` in lattice coords. Capacities not given (> 0) are the
+        K10 path's defaults; rows past them are dropped and the counters
+        stay exact, so the caller sees an overflow."""
+        mv, mf = (c if c > 0 else d for c, d in zip((mv, mf), self.packed_capacities.default(resolution)))
         spec = self.grid_spec(resolution, compute_dtype=self.extract_dtype)
         with record_function("tsr.density_grid"):
             level = query_density_grid(scene_code, self.decoder_weights(), spec)
@@ -643,13 +617,13 @@ class TSR:
 
     @torch.inference_mode()
     def _extract_packed(self, scene_code, resolution: int, threshold: float, mv: int, mf: int, want_colors: bool):
-        """One asset on the K10 path: ``_packed_mesh``, its positions turned
+        """One asset on the K10 path: ``packed_mesh``, its positions turned
         into world coordinates in K10's own buffer, and (with
         ``want_colors``) K4 at every vertex slot -> the parts to copy to the
         host: counts (2,) int32 (num_verts, num_faces), the faces' three
         (mf,) int32 rows, the positions' three (mv,) f32 rows, colors (3, mv)
         f32."""
-        res = self._packed_mesh(scene_code, resolution, threshold, mv, mf)
+        res = self.packed_mesh(scene_code, resolution, threshold, mv, mf)
         r = self.config.radius
         scale = 2 * r / (resolution - 1.0)
         verts = [res.vx, res.vy, res.vz]

@@ -18,6 +18,7 @@ from sculptmate_tpu.systems.tsr import TSR as JTSR
 from sculptmate_tpu.systems.tsr import TSRConfig as JTSRConfig
 from sculptmate_tpu_torch.geometry import mc_wire as twire
 from sculptmate_tpu_torch.geometry.marching_cubes import mc_wire_device
+from sculptmate_tpu_torch.runtime.capacity_cache import Capacities
 from sculptmate_tpu_torch.runtime.checkpoint import tsr_params_from_jax
 from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
 
@@ -165,21 +166,25 @@ def _span_counts(fn):
     return out, collections.Counter(e.name for e in prof.events())
 
 
-def test_overflow_is_retried_not_truncated(slice_pair):
+def test_overflow_is_retried_not_truncated(slice_pair, tmp_path, monkeypatch):
     """An explicit capacity far below the vertex count still returns the
-    whole mesh (grown and re-extracted), identical to the default run; the
-    re-extraction runs inside one ``tsr.capacity_retry`` span, the default
-    run inside none."""
+    whole mesh (grown and re-extracted), identical to the default run, and
+    the grown capacity is kept; the re-extraction runs inside one
+    ``tsr.capacity_retry`` span, the default run inside none."""
     _, tt, codes = slice_pair
     code = torch.from_numpy(codes)
     (v0, f0, c0), n0 = _span_counts(
         lambda: tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5)[0])
     assert len(v0) > 64
-    tt._wire_cap_cache.clear()
+    # a policy with nothing kept, in an empty store: what is kept next is the retry's
+    p = tt.wire_capacities
+    monkeypatch.setattr(tt, "wire_capacities", Capacities(p.name, p.default, p.at_least_default))
+    monkeypatch.setenv("SCULPTMATE_CAP_CACHE", str(tmp_path))
     (v1, f1, c1), n1 = _span_counts(
         lambda: tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=0.5, max_verts=64)[0])
     assert np.array_equal(f0, f1) and np.array_equal(v0, v1) and np.array_equal(c0, c1)
-    assert tt._wire_cap_cache[16][0] >= len(v0)
+    assert tt.wire_capacities.kept(16)[0] >= len(v0)
+    assert tt.wire_capacities.kept(16) == (65536,)  # 64 grown to one bucket, then tightened
     assert n0["tsr.capacity_retry"] == 0 and n1["tsr.capacity_retry"] == 1
     assert n1["tsr.density_grid"] == 2
 

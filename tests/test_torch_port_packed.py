@@ -21,6 +21,7 @@ from sculptmate_tpu.systems.tsr import TSR as JTSR
 from sculptmate_tpu.systems.tsr import TSRConfig as JTSRConfig
 from sculptmate_tpu_torch.geometry import marching_cubes as mc
 from sculptmate_tpu_torch.parallel.farm import AssetFarm
+from sculptmate_tpu_torch.runtime.capacity_cache import Capacities
 from sculptmate_tpu_torch.runtime.checkpoint import tsr_params_from_jax
 from sculptmate_tpu_torch.systems.tsr import TSR, TSRConfig
 
@@ -159,7 +160,7 @@ def test_extract_mesh_packed_matches_jax(cap_dir, packed_pair, resolution):
     np.testing.assert_allclose(cg, cr, rtol=0, atol=1e-5)
 
 
-def test_packed_capacity_retry_and_wire_refusal(cap_dir, packed_pair):
+def test_packed_capacity_retry_and_wire_refusal(cap_dir, packed_pair, monkeypatch):
     """Capacities far below the counts are grown and the asset extracted
     again, never truncated: the same mesh as the default run, and the grown
     capacities remembered; the extraction again runs inside one
@@ -171,15 +172,19 @@ def test_packed_capacity_retry_and_wire_refusal(cap_dir, packed_pair):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p0:
         v0, f0, c0 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=thr, mode="packed")[0]
     assert len(v0) > 64 and len(f0) > 64
-    tt._packed_cap_cache.clear()
+    # a policy with nothing kept, in an empty store: what is kept next is the retry's
+    p = tt.packed_capacities
+    monkeypatch.setattr(tt, "packed_capacities", Capacities(p.name, p.default, p.at_least_default))
+    monkeypatch.setenv("SCULPTMATE_CAP_CACHE", str(cap_dir / "retry"))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p1:
         v1, f1, c1 = tt.extract_mesh(code, has_vertex_color=True, resolution=16, threshold=thr, max_verts=64,
                                      max_faces=64, mode="packed")[0]
     retries = [sum(e.name == "tsr.capacity_retry" for e in p.events()) for p in (p0, p1)]
     assert retries == [0, 1]
     assert np.array_equal(v0, v1) and np.array_equal(f0, f1) and np.array_equal(c0, c1)
-    mv, mf = tt._packed_cap_cache[16]
+    mv, mf = tt.packed_capacities.kept(16)
     assert mv >= len(v0) and mf >= len(f0)
+    assert (mv, mf) == (65536, 65536)  # 64 grown to one bucket each, then tightened
     with pytest.raises(ValueError, match="max_faces"):
         tt.extract_mesh(code, resolution=16, threshold=thr, max_faces=10)
     with pytest.raises(ValueError, match="mode"):
@@ -208,7 +213,6 @@ def test_packed_handles_match_the_wire(cap_dir, packed_pair):
     assert {e.key for e in p0.key_averages() if e.key.startswith("tsr.")} == {
         "tsr.density_grid", "tsr.marching_cubes", "tsr.color_query", "tsr.counts_to_host", "tsr.wire_decode",
         "tsr.wire_faces", "tsr.colors_to_host"}
-    tt._packed_cap_cache.clear()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p1:
         retried = tt.extract_mesh(code, max_verts=64, max_faces=64, mode="packed", **kw)[0]
     assert sum(e.name == "tsr.capacity_retry" for e in p1.events()) == 1

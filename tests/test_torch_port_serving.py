@@ -212,14 +212,13 @@ def test_tsr_reads_a_persisted_capacity(cap_dir, small_tsr):
     """A capacity learned by one TSR is picked up by a fresh instance; an
     explicit capacity still wins."""
     tt, codes = small_tsr
-    tt._wire_cap_cache.clear()
     (verts, _, _), = tt.extract_mesh(codes, resolution=RES, threshold=0.5, max_verts=64)
     assert len(verts) > 64
     stored = capacity_cache.load(f"torch_tsr_wire_r{RES}")
     assert stored is not None and stored[0] >= len(verts)
     fresh = TSR(tt.config, state_dict=tt.module.state_dict(), dtype=torch.float32, device="cpu")
-    assert stored[0] > 8 * RES * RES and fresh._caps(RES, 0, 0, packed=False) == (stored[0],)  # not the default
-    assert fresh._caps(RES, 64, 0, packed=False) == (64,)
+    assert stored[0] > 8 * RES * RES and fresh.wire_capacities.dispatch(RES) == (stored[0],)  # not the default
+    assert fresh.wire_capacities.dispatch(RES, (64,)) == (64,)
 
 
 def test_async_handle_holds_its_host_copy(small_tsr):

@@ -101,12 +101,20 @@ def sf3d_scene():
     return model, image, threshold
 
 
+def _keep_capacity(model, mv: int) -> None:
+    """Make ``mv`` the SF3D's next vertex capacity, as an extraction that
+    filled it would."""
+    res = model.config.isosurface_resolution
+    model.capacities.keep(res, (mv,), (mv,))
+    assert model.capacities.dispatch(res) == (mv,)
+
+
 def test_sf3d_request_spans(sf3d_scene):
     """A fused textured request: the CLIP estimator once inside
     ``sf3d.encode``; the bake's host preparation, its wait and the PNG
     encode once each, inside ``sf3d.unwrap_bake``; no retry."""
     model, image, threshold = sf3d_scene
-    model._mt_cap = 1 << 16  # room for the whole surface, whatever a persisted capacity says
+    _keep_capacity(model, 1 << 16)  # room for the whole surface, whatever a persisted capacity says
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = model.run_image(image, bake_resolution=32, threshold=threshold, fused=True)
     assert out is not None and len(out["faces"]) > 0
@@ -123,7 +131,7 @@ def test_sf3d_capacity_retry_span(sf3d_scene):
     """An extraction that overflows a too-small vertex capacity runs its
     second lattice and marching tets inside one ``sf3d.capacity_retry``."""
     model, image, threshold = sf3d_scene
-    model._mt_cap = 64
+    _keep_capacity(model, 64)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = model.run_image(image, bake_resolution=32, threshold=threshold, fused=True)
     assert out is not None and len(out["faces"]) > 0
