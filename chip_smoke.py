@@ -1321,11 +1321,17 @@ def check_marching_cubes(scene, timed=True):
     return result
 
 
+HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
+
+
 def device_split(key, what, fn):
     """``fn`` once under torch.profiler, after a warm-up call: device time
     and launches by kernel name, the launches in all, their summed time and
-    the range from the first kernel's start to the last one's end, printed
-    as one ``{key: what, ...}`` line."""
+    the range from the first kernel's start to the last one's end, and the
+    host's launch calls (``HOST_LAUNCH_CALLS``: one per kernel, copy or fill
+    launched op by op, one per CUDA graph replayed), printed as one
+    ``{key: what, ...}`` line."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1345,7 +1351,8 @@ def device_split(key, what, fn):
             "launches": len(events),
             "sum_ms": sum(ms for ms, _ in split.values()) if events else "not measured",
             "range_ms": ((max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
-                         if events else "not measured")}
+                         if events else "not measured"),
+            "host_launches": sum(e.name in HOST_LAUNCH_CALLS for e in prof.events())}
     log(json.dumps(line))
     return line
 
@@ -3216,7 +3223,11 @@ def session_zoo_path():
     prompt and a box prompt decoded) and one ViT-H encode. Masks finite in
     [0, 1]; ms per image (CUDA events, after a warm-up), and for the
     matting sessions one call's device time and launches (``device_split``,
-    a ``session_split`` line each). Then a narrow ISNet
+    a ``session_split`` line each). The u2net-recipe sessions (all but the
+    cloth one) replay a CUDA graph: their lines give the same numbers for
+    the recipe launched op by op (``_predict_eager``, an ``eager``
+    ``session_split`` line) and whether the two masks are byte-equal, which
+    they must be. Then a narrow ISNet
     (64^2) and a tiny SAM (dim 32, 128^2) on the card against the CPU."""
     from sculptmate_tpu_torch.frontend.isnet import ISNet
     from sculptmate_tpu_torch.frontend.sam import Sam, SamSession
@@ -3241,13 +3252,22 @@ def session_zoo_path():
             ok = out.shape == (1, *sess.input_size) and int(out.min()) >= 0 and int(out.max()) <= 3
             extra = {"class_counts": torch.bincount(out.flatten(), minlength=4).tolist()}
         else:
+            # the session's call replays its CUDA graph; the same recipe op by
+            # op beside it, and the two masks byte-equal
             fn = lambda sess=sess, imgs=imgs: sess.predict_mask_batch(imgs)  # noqa: E731
+            eager = lambda sess=sess, imgs=imgs: sess._predict_eager(imgs)  # noqa: E731
             out = fn()
-            ok = (out.shape == (1, *sess.input_size) and bool(torch.isfinite(out).all())
+            equal = bool(torch.equal(out, eager()))
+            ok = (equal and out.shape == (1, *sess.input_size) and bool(torch.isfinite(out).all())
                   and out.min().item() >= 0.0 and out.max().item() <= 1.0)
-            extra = {"mask_mean": out.mean().item()}
+            esplit = device_split("session_split", f"{name} eager", eager)
+            extra = {"mask_mean": out.mean().item(), "replay_equals_eager": equal,
+                     "eager_ms_per_image": cuda_ms(eager, iters=5, warmup=3, graph=False),
+                     "eager_device_sum_ms": esplit["sum_ms"], "eager_launches": esplit["launches"],
+                     "eager_host_launches": esplit["host_launches"]}
         split = device_split("session_split", name, fn)
-        extra.update(device_sum_ms=split["sum_ms"], device_range_ms=split["range_ms"], launches=split["launches"])
+        extra.update(device_sum_ms=split["sum_ms"], device_range_ms=split["range_ms"], launches=split["launches"],
+                     host_launches=split["host_launches"])
         record(name, out.shape, ok, cuda_ms(fn, iters=5, warmup=3, graph=False), **extra)
         del sess
     new_session.cache_clear()

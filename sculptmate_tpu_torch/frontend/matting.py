@@ -9,12 +9,15 @@ Counterpart of ``sculptmate_tpu/frontend/matting.py``, after the reference's
 
 ``SessionBase`` is that recipe for any network and input size; the other
 sessions (``frontend/sessions.py``) derive from it. The network and its
-normalisation run on the device in f32 (``predict_mask_batch``). The host
+normalisation run on the device in f32 (``predict_mask_batch``); on the card
+as a CUDA graph per input shape, captured once and replayed with one launch
+(``SessionBase._predict``), on the CPU op by op. The host
 surface (``predict_mask``, ``remove``) works on PIL images; PIL and cv2 are
 imported inside the functions that use them, so the device path needs
 neither. Each stage runs inside a ``torch.profiler`` span named
 ``matting.<stage>``: the network (``matting.u2net``, on the device path
-too) and, on the host surface, the resizes, the mask's copy to the host and
+too, with ``matting.u2net_capture`` and ``matting.u2net_replay`` inside it
+on the card) and, on the host surface, the resizes, the mask's copy to the host and
 the cutout, all inside ``matting.remove``. ``predict_mask_device`` is the
 host surface's recipe on the device, PIL's bytes from kernel K12
 (``frontend/preprocess.py:preprocess_image_device`` takes it on the card).
@@ -70,6 +73,7 @@ class SessionBase:
         self.module.eval().requires_grad_(False)
         self._mean = torch.tensor(self.mean, device=self.device)
         self._std = torch.tensor(self.std, device=self.device)
+        self._graphs = {}  # (shape, dtype, TF32) -> (CUDA graph, static input, static output)
 
     def build_module(self) -> torch.nn.Module:
         return U2Net()
@@ -82,13 +86,55 @@ class SessionBase:
         return self.module(x.permute(0, 3, 1, 2))[0]
 
     @torch.inference_mode()
-    def _predict(self, img: torch.Tensor) -> torch.Tensor:
+    def _predict_eager(self, img: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) on the device -> (B, H, W) masks in [0, 1]: sigmoid
-        of d0, per-image min-max."""
+        of d0, per-image min-max, launched op by op."""
         pred = torch.sigmoid(self._logits(img)[:, 0])
         mn = pred.amin(dim=(1, 2), keepdim=True)
         mx = pred.amax(dim=(1, 2), keepdim=True)
         return (pred - mn) / (mx - mn).clamp(min=1e-8)
+
+    @torch.inference_mode()
+    def _predict(self, img: torch.Tensor) -> torch.Tensor:
+        """``_predict_eager``'s masks. On a CUDA session, outside a capture,
+        the recipe is a CUDA graph, one per input shape, dtype and cuDNN
+        TF32 setting, captured the first time that key is seen
+        (``matting.u2net_capture``) and then replayed (``matting.u2net_replay``,
+        the capture's own call too): the input copied into the graph's
+        static buffer, one graph launch on the current stream, and a fresh
+        copy of the static output, so a mask the caller holds is never
+        overwritten by a later call. The graph reads the module's parameter
+        storages, so weights loaded in place (``load_state_dict``) reach the
+        next replay. Calls of one session are expected on one stream."""
+        if self.device.type != "cuda" or torch.cuda.is_current_stream_capturing():
+            return self._predict_eager(img)
+        key = (tuple(img.shape), img.dtype, torch.backends.cudnn.allow_tf32)
+        with torch.cuda.device(self.device):
+            if key not in self._graphs:
+                with record_function("matting.u2net_capture"):
+                    self._graphs[key] = self._capture(img)
+            graph, static_in, static_out = self._graphs[key]
+            with record_function("matting.u2net_replay"):
+                static_in.copy_(img)
+                graph.replay()
+                return static_out.clone()
+
+    def _capture(self, img: torch.Tensor):
+        """A CUDA graph of ``_predict_eager`` on a static copy of ``img``:
+        one eager call on a side stream first (cuDNN's plans and lazy state
+        are made outside the capture), then the capture, which holds back
+        only this thread's CUDA calls (the add-on's panel generates on a
+        worker thread). -> (graph, static input, static output)."""
+        static_in = img.clone()
+        side, current = torch.cuda.Stream(), torch.cuda.current_stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._predict_eager(static_in)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            static_out = self._predict_eager(static_in)
+        return graph, static_in, static_out
 
     def predict_mask_batch(self, images: torch.Tensor) -> torch.Tensor:
         """Device path: (B, H, W, 3) in [0, 1] at ``input_size`` -> (B, H, W)
